@@ -1,0 +1,45 @@
+"""Dispatch planning — per-packet buffer positions: wrapper of the CUDA
+kernels ``csrc/ejfat_kernels.cu::dp_count / dp_scan / dp_rank``.
+
+Port of the Pallas kernel ``repro/kernels/dispatch.py::dispatch_plan``. For
+packet i with member m, pos_i = #packets j<i with member j == m (stable);
+pos = -1 for member < 0, and a member >= n_members gets pos 0 and is not
+counted. Returns (pos int32[N], counts int32[n_members]). A CUDA input
+launches the kernels; a CPU input takes ``ref.dispatch_plan_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.ref import dispatch_plan_ref
+
+#: shared memory of the rank pass is 9 x n_members int32; keep it under the
+#: 48 KB a block gets without an opt-in
+MAX_MEMBERS = 1024
+
+
+def dispatch_plan(member: torch.Tensor, *, n_members: int):
+    if member.ndim != 1:
+        raise ValueError(f"member must be 1-D, got {tuple(member.shape)}")
+    if member.device.type == "cpu":
+        return dispatch_plan_ref(member, n_members=n_members)
+    if member.device.type != "cuda":
+        raise ValueError(f"dispatch_plan: unsupported device {member.device}")
+    if not 1 <= n_members <= MAX_MEMBERS:
+        raise ValueError(f"n_members must be in [1, {MAX_MEMBERS}], got {n_members}")
+    dev = member.device
+    n = member.shape[0]
+    _lib.require(member, "member", torch.int32, dev, (n,))
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(n_members, dtype=torch.int32, device=dev)
+    if n == 0:
+        return pos, counts.zero_()
+    lib = _lib.lib()
+    n_tiles = -(-n // lib.ejfat_dispatch_tile())
+    scratch = torch.empty(n_tiles * n_members, dtype=torch.int32, device=dev)
+    err = lib.ejfat_dispatch_plan(member.data_ptr(), n, n_members, scratch.data_ptr(),
+                                  pos.data_ptr(), counts.data_ptr(), _lib.stream_ptr(dev))
+    _lib.check(err, "dispatch_plan")
+    _lib.LAUNCHES["dispatch_plan"] += 1
+    return pos, counts

@@ -1,0 +1,71 @@
+"""The EJ-FAT data plane (parse -> validate -> epoch -> calendar -> member
+rewrite) for a batch of packets: wrapper of the CUDA kernel
+``csrc/ejfat_kernels.cu::lb_route_kernel``.
+
+Port of the Pallas kernel ``repro/kernels/lb_route.py::lb_route``. Headers
+are ``int32[N, 4]`` (the u32 wire words' bits, row-major); tables are one
+instance or the stacked virtual instances, in which case ``instance_id``
+(``int32[N]``) selects each packet's balancing context. A CUDA input
+launches the kernel; a CPU input takes ``ref.lb_route_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.protocol import CALENDAR_SLOTS
+from repro_torch.core.tables import DeviceTables
+from repro_torch.kernels import _lib
+from repro_torch.kernels.ref import lb_route_ref
+
+
+def lb_route(headers: torch.Tensor, tables: DeviceTables, instance_id=None):
+    """Route N packets -> (member, node, lane, valid) int32[N]."""
+    multi = tables.seg_row.ndim == 2
+    if multi and instance_id is None:
+        raise ValueError("stacked tables require per-packet instance_id")
+    if not multi and instance_id is not None:
+        raise ValueError("instance_id given but tables are single-instance")
+    if headers.ndim != 2 or headers.shape[1] != 4:
+        raise ValueError(f"headers must be [N, 4] words, got {tuple(headers.shape)}")
+    if headers.device.type == "cpu":
+        return lb_route_ref(headers, tables, instance_id)
+    if headers.device.type != "cuda":
+        raise ValueError(f"lb_route: unsupported device {headers.device}")
+    return _launch(headers, tables, instance_id)
+
+
+def _launch(headers, tables: DeviceTables, instance_id):
+    dev = headers.device
+    n = headers.shape[0]
+    n_inst = tables.seg_row.shape[0] if instance_id is not None else 1
+    lead = (n_inst,) if instance_id is not None else ()
+    n_seg = tables.seg_row.shape[-1]
+    n_rows = tables.calendars.shape[-2]
+    n_members = tables.member_node.shape[-1]
+    _lib.require(headers, "headers", torch.int32, dev, (n, 4))
+    if headers.data_ptr() % 16:
+        raise ValueError("headers must be 16-byte aligned (one vector load per packet)")
+    if instance_id is not None:
+        _lib.require(instance_id, "instance_id", torch.int32, dev, (n,))
+    _lib.require(tables.seg_start_hi, "seg_start_hi", torch.int64, dev, lead + (n_seg,))
+    _lib.require(tables.seg_start_lo, "seg_start_lo", torch.int64, dev, lead + (n_seg,))
+    _lib.require(tables.seg_row, "seg_row", torch.int32, dev, lead + (n_seg,))
+    _lib.require(tables.calendars, "calendars", torch.int32, dev,
+                 lead + (n_rows, CALENDAR_SLOTS))
+    for name in ("member_node", "member_base_lane", "member_lane_mask", "member_valid"):
+        _lib.require(getattr(tables, name), name, torch.int32, dev, lead + (n_members,))
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
+    if n == 0:
+        return tuple(outs)
+    lib = _lib.lib()
+    err = lib.ejfat_lb_route(
+        headers.data_ptr(), None if instance_id is None else instance_id.data_ptr(), n,
+        tables.seg_start_hi.data_ptr(), tables.seg_start_lo.data_ptr(),
+        tables.seg_row.data_ptr(), tables.calendars.data_ptr(),
+        tables.member_node.data_ptr(), tables.member_base_lane.data_ptr(),
+        tables.member_lane_mask.data_ptr(), tables.member_valid.data_ptr(),
+        n_inst, n_seg, n_rows, CALENDAR_SLOTS, n_members,
+        *(o.data_ptr() for o in outs), _lib.stream_ptr(dev))
+    _lib.check(err, "lb_route")
+    _lib.LAUNCHES["lb_route"] += 1
+    return tuple(outs)

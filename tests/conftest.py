@@ -14,3 +14,9 @@ except ImportError:
 else:
     settings.register_profile("ci", max_examples=40, deadline=None)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels of repro_torch); "
+                   "skips when torch.cuda.is_available() is False")

@@ -1,0 +1,124 @@
+"""The port's slice as a whole: the closed loop against the JAX package's
+driver from the same seed, the port's independence from JAX, and its
+refusal to fall back to the CPU on its own."""
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import closed_loop
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _reference_loop():
+    spec = importlib.util.spec_from_file_location(
+        "run_closed_loop_ref", ROOT / "scripts" / "run_closed_loop.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("scenario", ["loss", "straggler"])
+def test_closed_loop_matches_reference(scenario, tmp_path, capsys):
+    argv = ["--steps", "12", "--scenario", scenario, "--n-members", "4",
+            "--n-daqs", "2", "--mtu-payload", "2048", "--seed", "5"]
+    out = tmp_path / "ref.json"
+    assert _reference_loop().main(argv + ["--backend", "jnp", "--json", str(out)]) == 0
+    want = json.loads(out.read_text())
+    got = closed_loop.run(closed_loop.parse_args(argv + ["--device", "cpu"]))
+    capsys.readouterr()
+    want.pop("wall_s")
+    summary = dict(got.summary)
+    summary.pop("wall_s")
+    assert summary == want
+    assert got.packets_packed == got.packets_routed and got.pack_dropped == 0
+    # one launch record per step; CPU tensors take the plain versions
+    assert len(got.step_launches) == 12
+    assert all(n == 0 for step in got.step_launches for n in step.values())
+
+
+def test_full_width_preset():
+    """The loop size that chip_smoke.py and the profile script share."""
+    args = closed_loop.parse_args(closed_loop.FULL_WIDTH + ["--steps", "25"])
+    assert (args.scenario, args.n_members, args.n_daqs, args.triggers_per_step) == \
+        ("straggler", 64, 16, 128)
+    assert (args.max_members, args.mtu_payload, args.lane_bits) == (512, 8948, 2)
+    assert (args.loss, args.dup, args.reorder_window) == (0.01, 0.01, 256)
+    assert (args.mean_bundle_bytes, args.reweight_every, args.timeout_windows) == \
+        (64000, 5, 4)
+    assert args.device == "cuda" and args.steps == 25
+
+
+def test_port_imports_without_jax_or_repro():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print(len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 25
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """Every import statement of the card-side scripts, at any depth."""
+    import ast
+
+    for script in ("chip_smoke.py", "scripts/profile_closed_loop_torch.py"):
+        tree = ast.parse((ROOT / script).read_text())
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+        assert any(m.startswith("repro_torch") for m in mods), script
+        for m in mods:
+            assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), (script, m)
+
+
+class TestDeviceDefault:
+    """Every entry point defaults to device="cuda" and raises without CUDA."""
+
+    @pytest.fixture(autouse=True)
+    def _no_cuda(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def test_constructors_raise(self):
+        import repro_torch.core as tcore
+        from repro_torch.core.dataplane import DataPlane, DataPlaneCache
+        from repro_torch.data.daq import DAQConfig
+        from repro_torch.data.pipeline import StreamingPipeline
+        from repro_torch.data.reassembly import BatchReassembler
+        from repro_torch.data.transport import TransportConfig, WANTransport
+
+        em = tcore.EpochManager(max_members=8)
+        em.initialize({0: tcore.MemberSpec(node_id=0)}, {0: 1.0})
+        for make in (lambda: DataPlane.from_manager(em),
+                     lambda: DataPlane.from_instances([em, em]),
+                     lambda: DataPlaneCache(em),
+                     lambda: em.state.compile(),
+                     lambda: WANTransport(TransportConfig()),
+                     lambda: BatchReassembler(),
+                     lambda: StreamingPipeline(DAQConfig(), TransportConfig(), em),
+                     lambda: closed_loop.run(closed_loop.parse_args(["--steps", "1"]))):
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
+
+    def test_cpu_when_asked(self):
+        import repro_torch.core as tcore
+        from repro_torch.core.dataplane import DataPlane
+
+        em = tcore.EpochManager(max_members=8)
+        em.initialize({0: tcore.MemberSpec(node_id=0)}, {0: 1.0})
+        r = DataPlane.from_manager(em, device="cpu").route_events([5, 6], [0, 1])
+        assert r.member.tolist() == [0, 0] and r.member.device.type == "cpu"

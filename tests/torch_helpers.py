@@ -1,0 +1,59 @@
+"""Shared builders for the parity tests of the PyTorch port against the JAX
+package (``tests/test_torch_*.py``): the same numpy inputs go through both,
+and results come back as numpy for exact comparison."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.tables import device_tables_from_numpy
+
+
+def jax_tables_np(tables) -> dict:
+    """A JAX ``DeviceTables`` as a dict of numpy arrays."""
+    return {f.name: np.asarray(getattr(tables, f.name))
+            for f in dataclasses.fields(tables)}
+
+
+def port_tables(jax_tables):
+    """The JAX package's tables carried across to the port, on the CPU."""
+    return device_tables_from_numpy(jax_tables_np(jax_tables), "cpu")
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def headers(n, seed=0, corrupt_every=0, spread=1 << 48):
+    """Random wire headers (uint32[n, 4]); every ``corrupt_every``-th one
+    has a wrong magic, the one after it a wrong version."""
+    from repro_torch.core.protocol import encode_headers
+
+    rng = np.random.default_rng(seed)
+    ev = rng.integers(0, spread, n).astype(np.uint64)
+    en = rng.integers(0, 1 << 16, n).astype(np.uint32)
+    h = encode_headers(ev, en)
+    if corrupt_every:
+        h[::corrupt_every, 0] ^= np.uint32(0x1_0000)
+        h[1::corrupt_every, 0] ^= np.uint32(0x200)
+    return h
+
+
+def program(pkg, max_members=32, n_members=10, seed=0, switches=2):
+    """Program one LB instance the same way in either package: members with
+    mixed lane widths, seeded weights, then ``switches`` epoch switches."""
+    rng = np.random.default_rng(seed)
+    em = pkg.EpochManager(max_members=max_members)
+    weights = {i: float(rng.uniform(0.5, 2.0)) for i in range(n_members)}
+    em.initialize({i: pkg.MemberSpec(node_id=i, base_lane=16 * i, lane_bits=i % 4)
+                   for i in weights}, weights)
+    for k in range(switches):
+        ids = range(k + 1, n_members)
+        em.reconfigure({i: pkg.MemberSpec(node_id=i + 100, lane_bits=1) for i in ids},
+                       {i: float(rng.uniform(0.5, 2.0)) for i in ids},
+                       boundary_event=(1 << 40) + (k + 1) * (1 << 30))
+    return em
