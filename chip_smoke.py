@@ -1,24 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for the H100).
 
-Drives the port's main path — the load balancer's closed loop — through the
-entry points a user calls, builds every CUDA kernel of that path from the
-sources in this checkout, and holds each kernel against its plain PyTorch
-version at full width. Phases, one line (or more) each; any failure exits
-non-zero and prints no result:
+Drives the port's two main paths — the load balancer's closed loop, and
+LB-front-door serving of Yi-6B — through the entry points a user calls,
+builds every CUDA kernel of those paths from the sources in this checkout,
+and holds each kernel against its plain PyTorch version at full width.
+Phases, one line (or more) each; any failure exits non-zero and prints no
+result:
 
   1. card       nvidia-smi name + power limit, torch and CUDA versions
   2. build      nvcc of src/repro_torch/kernels/csrc into build/kernels/
   3. kernels    lb_route (4 stacked x 512-member instances and one
                 instance), dispatch_plan and seg_masks at 2^20 packets,
-                exactly equal to their plain versions; kernel time (CUDA
-                graph replay, L2 evicted, CUDA events, median), plain time and
-                the bytes bound at 3.35 TB/s
+                exactly equal to their plain versions; flash_attention at the
+                Yi-6B prefill shape (T=4096, 32/4 heads, d=128, bf16,
+                causal), at T=3000 causal and not, and at T=65 and T=100
+                non-causal (a ragged last tile, where a kernel that lets
+                padded keys into the softmax must fail), within atol 5e-3,
+                rtol 2e-2 of its plain version; in fp32 within 1e-4. Kernel
+                time (CUDA graph replay, L2 evicted, CUDA events, median),
+                plain time, the library call's time where one exists (SDPA
+                for flash_attention) and the bound (bytes at 3.35 TB/s, or
+                operations at the type's peak)
   4. loop       the closed loop at a small size on the card and on the CPU
                 (summaries must be equal), then the full-width 25-step,
                 64-member straggler loop with its invariants, and every
                 kernel launched at least once per step
-  5. result     the `kernels` JSON line, the card line, and the last line
+  5. serve      the Yi-6B smoke config served on the card and on the CPU
+                (routing, tokens and stats must be equal), then Yi-6B at
+                full depth and width (bf16, random weights): 2 replicas x 4
+                decode slots, 4096-token caches, 12 requests of 256-4000
+                prompt tokens, a drain of replica 1 (arrivals moved past
+                the events a rebalance already committed), 4 more
+                requests; every prefill launches flash_attention once per
+                layer, every routing tick launches lb_route; then the
+                kernel's share of the longest prefill (CUDA events) and the
+                device's busy share of decode steps (torch.profiler)
+  6. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -37,6 +55,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12          # H100 SXM 32-bit rate outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 N_FULL = 1 << 20               # packets per window at full width
 MAX_MEMBERS = 512
 LIVE_MEMBERS = 256
@@ -47,8 +66,17 @@ REPLACES = {
     "lb_route": "src/repro/kernels/lb_route.py:188",
     "dispatch_plan": "src/repro/kernels/dispatch.py:63",
     "seg_masks": "src/repro/kernels/reassembly.py:76",
+    "flash_attention": "src/repro/kernels/flash_attention.py:85",
 }
-SOURCE = "src/repro_torch/kernels/csrc/ejfat_kernels.cu"
+SOURCES = {
+    "lb_route": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
+    "dispatch_plan": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
+    "seg_masks": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+}
+
+# the Yi-6B prefill shape of the serving phase (max_len = Yi-6B's context)
+FLASH_T, FLASH_HQ, FLASH_HKV, FLASH_D = 4096, 32, 4, 128
 
 
 class SmokeFailure(RuntimeError):
@@ -127,9 +155,9 @@ def max_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, ops_per_s=INT_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -204,7 +232,8 @@ def kernel_phase(torch, np):
     t_k1 = time_on_card(torch, lambda: lb_route(hdr, single))
     b_ms, b_by = bound(N_FULL * (16 + 4 + 16) + table_bytes, N_FULL * 120)
     results["lb_route"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                               max_abs_err=err, shape=f"N=2^20, {N_INST}x{MAX_MEMBERS} stacked")
+                               max_abs_err=err, library_ms=None,
+                               shape=f"N=2^20, {N_INST}x{MAX_MEMBERS} stacked")
     say(f"[kernels] lb_route 4x{MAX_MEMBERS} stacked, N=2^20, {n_bad} corrupt, "
         f"{n_valid} routed: equal to plain; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}); single instance kernel {t_k1:.4f} ms, equal")
@@ -225,7 +254,8 @@ def kernel_phase(torch, np):
     t_p = time_on_card(torch, lambda: ref.dispatch_plan_ref(member, n_members=MAX_MEMBERS))
     b_ms, b_by = bound(N_FULL * 8 + MAX_MEMBERS * 4, N_FULL * 20)
     results["dispatch_plan"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                                    max_abs_err=err, shape=f"N=2^20, n_members={MAX_MEMBERS}")
+                                    max_abs_err=err, library_ms=None,
+                                    shape=f"N=2^20, n_members={MAX_MEMBERS}")
     say(f"[kernels] dispatch_plan N=2^20 n_members={MAX_MEMBERS}: equal to plain; "
         f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
@@ -255,7 +285,7 @@ def kernel_phase(torch, np):
     t_p = time_on_card(torch, lambda: ref.seg_masks_ref(sv, s_hi, s_lo, s_daq, s_seg))
     b_ms, b_by = bound(N_FULL * 28, N_FULL * 12)
     results["seg_masks"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=err, shape="N=2^20 sorted rows")
+                                max_abs_err=err, library_ms=None, shape="N=2^20 sorted rows")
     say(f"[kernels] seg_masks N=2^20 ({int(ng.sum())} groups, {int(dup.sum())} dups): "
         f"equal to plain, reassembly_plan card == CPU; kernel {t_k:.4f} ms, "
         f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -264,10 +294,96 @@ def kernel_phase(torch, np):
     return results
 
 
+def flash_phase(torch, np):
+    """flash_attention against its plain version on the card (bf16 at the
+    Yi-6B prefill shape and at a ragged T, causal and not; fp32 at a small
+    shape), then kernel, plain and SDPA times at the prefill shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    rng = np.random.default_rng(12)
+
+    def qkv(b, t, hq, hkv, d, dtype):
+        mk = lambda h: torch.from_numpy(
+            rng.standard_normal((b, t, h, d), dtype=np.float32)).to("cuda", dtype)
+        return mk(hq), mk(hkv), mk(hkv)
+
+    def compare(q, k, v, causal, atol, rtol, what):
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"flash_attention {what}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+              f"flash_attention {what} differs from plain: max |err| {err}")
+        note = ""
+        if not causal and q.dtype == torch.bfloat16:
+            # what a kernel that lets zero-padded keys into a non-causal
+            # softmax (the Pallas kernel's padding fault, 128-key blocks)
+            # would read here; at a small T the check must tell it apart
+            pad = -k.shape[1] % 128
+            z = lambda x: torch.cat([x, x.new_zeros(x.shape[0], pad, *x.shape[2:])], 1)
+            fault = flash_attention_ref(q, z(k), z(v), causal=False).float()
+            f_err = float((fault - want.float()).abs().max())
+            caught = not torch.allclose(fault, want.float(), rtol=rtol, atol=atol)
+            check(caught or k.shape[1] > 128,
+                  f"flash_attention {what}: the check cannot tell a padded-key fault "
+                  f"apart (its max |err| {f_err})")
+            note = (f"; a padded-key fault would read {f_err:.3g}, "
+                    f"{'caught' if caught else 'NOT caught at this T'}")
+        say(f"[kernels] flash_attention {what}: within atol {atol:g} rtol {rtol:g} "
+            f"of plain (max |err| {err:.3g}){note}")
+        return err
+
+    # bf16: the kernel rounds P to bf16 before the PV product, so a row's
+    # error is ~2^-9 |v| sqrt(sum p^2): up to ~4e-3 in the first causal rows
+    # (few keys, |o| up to ~3, hence rtol), ~1e-4 in rows over thousands of
+    # keys. atol 5e-3 sits above that and far under a padded-key fault at
+    # T=65 and 100 (|o| ~ sqrt(e/T) ~ 0.2 there)
+    errs = []
+    for t, causal in ((FLASH_T, True), (3000, True), (3000, False), (65, False),
+                      (100, False)):
+        q, k, v = qkv(1, t, FLASH_HQ, FLASH_HKV, FLASH_D, torch.bfloat16)
+        errs.append(compare(q, k, v, causal, 5e-3, 2e-2,
+                            f"bf16 T={t} {FLASH_HQ}/{FLASH_HKV} heads d={FLASH_D} "
+                            f"{'causal' if causal else 'non-causal'}"))
+    # fp32 against a full-fp32 plain version (no TF32 in its einsums); it
+    # stays off for the rest of the run (the fp32 card == CPU serve needs it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for causal in (True, False):
+        q, k, v = qkv(2, 200, 8, 2, 80, torch.float32)
+        compare(q, k, v, causal, 1e-4, 1e-4,
+                f"fp32 B=2 T=200 8/2 heads d=80 causal={causal}")
+
+    q, k, v = qkv(1, FLASH_T, FLASH_HQ, FLASH_HKV, FLASH_D, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, T, d]
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - flash_attention_ref(q, k, v).float()).abs().max())
+    t_k = time_on_card(torch, lambda: flash_attention(q, k, v, causal=True))
+    t_p = time_on_card(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5)
+    t_l = time_on_card(torch, sdpa)
+    bytes_moved = 2 * FLASH_T * FLASH_D * (2 * FLASH_HQ + 2 * FLASH_HKV)  # bf16 q, o, k, v
+    ops = 4 * FLASH_HQ * FLASH_D * FLASH_T * (FLASH_T + 1) // 2
+    b_ms, b_by = bound(bytes_moved, ops, BF16_FLOPS_PER_S)
+    say(f"[kernels] flash_attention bf16 B=1 T={FLASH_T} {FLASH_HQ}/{FLASH_HKV} heads "
+        f"d={FLASH_D} causal: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms "
+        f"(max |SDPA - plain| {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by}: "
+        f"{ops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); "
+        f"{ops / t_k / 1e9:.1f} TFLOP/s")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs),
+                library_ms=t_l, shape=f"B=1 T={FLASH_T} Hq={FLASH_HQ} Hkv={FLASH_HKV} "
+                                      f"d={FLASH_D} bf16 causal")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the closed loop
 # ---------------------------------------------------------------------------
 
+LOOP_KERNELS = ("lb_route", "dispatch_plan", "seg_masks")
 SMALL_LOOP = ["--steps", "12", "--scenario", "straggler", "--n-members", "4",
               "--n-daqs", "2", "--mtu-payload", "2048", "--seed", "3"]
 
@@ -300,8 +416,8 @@ def loop_phase(torch):
     check(float(s["final_weights"]["0"]) < 1.0, "straggler weight not shed")
     check(len(res.step_launches) == args.steps, "a step left no launch record")
     for step, per_step in enumerate(res.step_launches):
-        for name, n in per_step.items():
-            check(n >= 1, f"{name} not launched in step {step}: {per_step}")
+        for name in LOOP_KERNELS:
+            check(per_step[name] >= 1, f"{name} not launched in step {step}: {per_step}")
     steps = res.step_s
     per_step_min = {k: min(st[k] for st in res.step_launches) for k in launches}
     line = dict(s, launches=launches, launches_per_step_min=per_step_min,
@@ -310,6 +426,234 @@ def loop_phase(torch):
                 step_s_median=statistics.median(steps), step_s_max=max(steps),
                 phase_s={k: round(v, 4) for k, v in res.phase_s.items()})
     say("[loop] " + json.dumps(line, sort_keys=True))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving
+# ---------------------------------------------------------------------------
+
+FULL_SERVE = dict(n_replicas=2, lane_bits=2, max_len=4096, rebalance_every=4)
+N_REQUESTS, N_AFTER_DRAIN, MAX_NEW = 12, 4, 16
+
+
+def small_serve(torch, np):
+    """The Yi-6B smoke config (fp32) served on the card and on the CPU from
+    one set of weights: the same routing, tokens and stats."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_smoke_config("yi_6b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    seen = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, ServeConfig(n_replicas=2, lane_bits=1, max_len=64,
+                                             device=dev), M.to_device(params, dev))
+        rng = np.random.default_rng(0)
+        reqs = [eng.submit(rng.integers(0, cfg.vocab, int(rng.integers(4, 10))),
+                           max_new_tokens=6) for _ in range(9)]
+        eng.run_until_done(300)
+        seen[dev] = ([(r.event_number, r.entropy, r.member, r.node, r.lane, r.output,
+                       r.done) for r in reqs], eng.stats)
+    check(seen["cuda"] == seen["cpu"], f"small serve differs card vs CPU:\n"
+                                       f"{seen['cuda']}\n{seen['cpu']}")
+    check(all(r[-1] and len(r[-2]) == 6 for r in seen["cuda"][0]), "small serve unfinished")
+    say(f"[serve] yi-6b smoke (fp32), 2 replicas, 9 requests: card == CPU "
+        f"(routing, lanes, tokens, stats {seen['cuda'][1]})")
+
+
+def _observed_engine(torch):
+    """ServingEngine that records, around the engine's own calls, each
+    prefill's flash_attention launches and time, each routing tick's
+    lb_route launches, and each replica's decode step times."""
+    from repro_torch.kernels import _lib
+    from repro_torch.serve.engine import ServingEngine
+
+    class ObservedEngine(ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefills, self.routes, self.decode_s = [], [], {}
+            report = self.hub.report_step
+
+            def observed(m, step_time, **kw):
+                self.decode_s.setdefault(m, []).append(step_time)
+                return report(m, step_time=step_time, **kw)
+            self.hub.report_step = observed
+
+        def _route_pending(self):
+            n, before = len(self.unrouted), _lib.LAUNCHES["lb_route"]
+            super()._route_pending()
+            if n:
+                self.routes.append((n, _lib.LAUNCHES["lb_route"] - before))
+
+        def _prefill_into_slot(self, req):
+            torch.cuda.synchronize()
+            before, t0 = _lib.LAUNCHES["flash_attention"], time.perf_counter()
+            super()._prefill_into_slot(req)
+            torch.cuda.synchronize()
+            self.prefills.append((len(req.prompt), _lib.LAUNCHES["flash_attention"] - before,
+                                  time.perf_counter() - t0))
+
+    return ObservedEngine
+
+
+def kernel_share_of_prefill(torch, M, cfg, params, prompt):
+    """Share of one prefill's device time spent in flash_attention: CUDA
+    events around each launch and around the whole prefill."""
+    from repro_torch.kernels import flash_attention as fa
+
+    orig, spans = fa.flash_attention, []
+
+    def timed(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(*a, **kw)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    state = M.init_decode_state(cfg, 1, FULL_SERVE["max_len"], "cuda")
+    tokens = torch.as_tensor(prompt[None], dtype=torch.int32, device="cuda")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    fa.flash_attention = timed
+    try:
+        a.record()
+        M.prefill(params, {"tokens": tokens}, state, cfg)
+        b.record()
+        b.synchronize()
+    finally:
+        fa.flash_attention = orig
+    kernel_ms = sum(s.elapsed_time(e) for s, e in spans)
+    return kernel_ms, a.elapsed_time(b), len(spans)
+
+
+def decode_profile(torch, M, cfg, params, state, steps=3):
+    """Where a decode step's time goes: ``steps`` steps of one replica's
+    state (every lane fed) under ``torch.profiler``; the device's busy time
+    is the sum of kernel and copy intervals on the card (one stream, so they
+    do not overlap). The profiler's own host cost lengthens the wall time,
+    so the busy share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.zeros(state["pos"].shape[0], dtype=torch.int32, device="cuda")
+    M.decode_step(params, toks, state, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, state = M.decode_step(params, toks, state, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, n_ops = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            n_ops += 1
+    return dict(decode_profiled_step_ms=wall / steps * 1e3,
+                decode_device_busy_ms_per_step=busy_us / steps / 1e3,
+                decode_device_busy_share=busy_us / 1e6 / wall,
+                decode_device_ops_per_step=n_ops / steps)
+
+
+def full_serve(torch, np):
+    """Yi-6B at full depth and width on the card behind the LB front door."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig
+
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sizes = []
+    M.tree_map(lambda w: sizes.append(w.numel()), params)
+    eng = _observed_engine(torch)(cfg, ServeConfig(device="cuda", **FULL_SERVE), params)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 4001, N_REQUESTS)
+    check(bool((lens >= 3072).any() and (lens % 64).any()),
+          f"prompt lengths {lens.tolist()} miss a long or a ragged prompt")
+
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=MAX_NEW)
+            for n in lens]
+    eng.run_until_done()
+    first_wave = dict(eng.stats["routed"])
+    # drain replica 1 hit-lessly, as examples/serve_lb.py does: weight 0 in
+    # an epoch that starts at the next event. A rebalance has already
+    # committed the next epoch_horizon (1024) events to its own epoch, and
+    # an epoch cannot start inside that window, so the drain starts right
+    # after it; the post-drain requests arrive after that gap (the front
+    # door's event numbers stand for arrival order).
+    eng.cp.weights[1] = 0.0
+    eid = eng.cp.schedule_epoch(eng.next_event, boundary=eng.next_event)
+    drain_start = eng.manager.records[eid].start_event
+    committed = drain_start - eng.next_event
+    eng.next_event = max(eng.next_event, drain_start)
+    drained = [eng.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=MAX_NEW)
+               for n in rng.integers(256, 4001, N_AFTER_DRAIN)]
+    reqs += drained
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+
+    check(all(r.event_number >= drain_start and r.node == 0 for r in drained),
+          f"post-drain requests reached replica 1: {[(r.event_number, r.node) for r in drained]}")
+    say(f"[serve] drain of replica 1 scheduled at event {drain_start - committed}, starts at "
+        f"event {drain_start}: the last rebalance had committed the {committed} events "
+        f"before it to its own epoch, so this run moves the engine's next event number "
+        f"past them (arrivals there would still reach replica 1); then "
+        f"{N_AFTER_DRAIN} requests, nodes {[r.node for r in drained]}")
+
+    st = eng.stats
+    after = {m: st["routed"].get(m, 0) - first_wave.get(m, 0) for m in (0, 1)}
+    check(all(r.done and len(r.output) == MAX_NEW for r in reqs), "a request did not finish")
+    check(st["rejected"] == 0 and st["completed"] == len(reqs), f"stats {st}")
+    check(set(first_wave) == {0, 1}, f"first wave did not reach both replicas: {first_wave}")
+    check(after == {0: N_AFTER_DRAIN, 1: 0}, f"drained replica 1 got work: {after}")
+    check(st["rebalances"] >= 1, "the control loop never rebalanced")
+    check(len(eng.prefills) == len(reqs), "a request was not prefilled once")
+    for n, fl, _ in eng.prefills:
+        check(fl == cfg.n_layers * (n > 1),
+              f"prefill of {n} tokens launched flash_attention {fl} times")
+    check(launches["flash_attention"] == cfg.n_layers * sum(n > 1 for n, _, _ in eng.prefills),
+          f"flash_attention launches {launches['flash_attention']} in the serving run")
+    for n, lb in eng.routes:
+        check(lb >= 1, f"a routing tick of {n} requests launched lb_route {lb} times")
+
+    for r in reqs:
+        check(all(0 <= t < cfg.vocab for t in r.output), "token out of the vocabulary")
+    longest = max(reqs, key=lambda r: len(r.prompt)).prompt
+    k_ms, p_ms, n_spans = kernel_share_of_prefill(torch, M, cfg, params, longest)
+    check(n_spans == cfg.n_layers, "the profiled prefill missed flash_attention")
+    decode = decode_profile(torch, M, cfg, params, eng.states[0])
+    pre_s = [s for _, _, s in eng.prefills]
+    n_prompt = sum(n for n, _, _ in eng.prefills)
+    n_out = sum(len(r.output) for r in reqs)
+    line = dict(
+        model=cfg.name, n_params=sum(sizes), dtype=cfg.dtype, init_s=t_init, **FULL_SERVE,
+        lanes_per_replica=eng.n_lanes, requests=len(reqs), prompt_tokens=n_prompt,
+        prompt_lens=[n for n, _, _ in eng.prefills], max_new_tokens=MAX_NEW,
+        served_tokens=n_out, wall_s=wall, served_tokens_per_s=n_out / wall,
+        prefill_ms_median=statistics.median(pre_s) * 1e3, prefill_ms_max=max(pre_s) * 1e3,
+        prefill_tokens_per_s=n_prompt / sum(pre_s),
+        decode_step_ms_median={m: statistics.median(v) * 1e3
+                               for m, v in sorted(eng.decode_s.items())},
+        decode_steps={m: len(v) for m, v in sorted(eng.decode_s.items())},
+        flash_launches=launches["flash_attention"], lb_route_launches=launches["lb_route"],
+        route_calls=st["route_calls"], rebalances=st["rebalances"],
+        routed_first_wave=first_wave, routed_after_drain=after,
+        drain_start_event=drain_start, events_committed_before_drain=committed,
+        flash_share_of_prefill=k_ms / p_ms, share_prefill_tokens=len(longest),
+        share_method="CUDA events around each flash_attention launch and the whole prefill",
+        share_kernel_ms=k_ms, share_prefill_ms=p_ms, **decode,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say("[serve] " + json.dumps(line, sort_keys=True))
     return launches
 
 
@@ -345,14 +689,18 @@ def main() -> int:
                 say("[build] " + ln.strip())
 
         results = kernel_phase(torch, np)
-        launches = loop_phase(torch)
+        results["flash_attention"] = flash_phase(torch, np)
+        loop_launches = loop_phase(torch)
+        small_serve(torch, np)
+        serve_launches = full_serve(torch, np)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-                    launches=launches[name], library_ms=None, **results[name])
-               for name in ("lb_route", "dispatch_plan", "seg_masks")]
+    # launches: the sum over the two main-path runs (each checked on its own)
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+                    launches=loop_launches[name] + serve_launches[name], **results[name])
+               for name in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,18 @@
+"""chatglm3-6b [dense]: 28L d_model=4096 32H (GQA kv=2) d_ff=13696
+vocab=65024 — RoPE 2d (rotary on half the head dims), GQA.
+[arXiv:2406.12793; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="chatglm3-6b", family="dense",
+    n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2, d_ff=13696,
+    vocab=65024, rope_fraction=0.5,
+)
+
+
+def smoke_config():
+    return ModelConfig(
+        name="chatglm3-smoke", family="dense",
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab=256, rope_fraction=0.5, dtype="float32",
+    )

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use by ``nvcc`` for ``sm_90a`` into one
+The sources are compiled at first use by ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together, then one link) into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 lands in ``build/kernels/<hash>/`` at the root of the checkout (git-ignored),
 keyed by a hash of the sources and flags, so a fresh checkout builds once and
@@ -27,10 +28,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libejfat_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 #: launches of each kernel since the last ``reset_launches()``
-LAUNCHES: dict[str, int] = {"lb_route": 0, "dispatch_plan": 0, "seg_masks": 0}
+LAUNCHES: dict[str, int] = {"lb_route": 0, "dispatch_plan": 0, "seg_masks": 0,
+                            "flash_attention": 0}
 
 _LIB = None
 
@@ -61,23 +63,46 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile the sources (if this hash is not built yet); return the .so."""
+    """Compile the sources (if this hash is not built yet); return the .so.
+
+    Each ``csrc/*.cu`` compiles to an object in its own ``nvcc`` process, all
+    started together; one more ``nvcc`` links them into the library.
+    """
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    log = []
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = tmp_dir / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(str(obj))
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+        if not failed:
+            so = tmp_dir / LIB_NAME
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(so, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib
 
 
@@ -88,8 +113,10 @@ def _declare(lib) -> None:
     lib.ejfat_dispatch_tile.argtypes = []
     lib.ejfat_dispatch_plan.argtypes = [p, i, i, p, p, p, p]
     lib.ejfat_seg_masks.argtypes = [p, p, p, p, p, i, p, p, p]
+    lib.ejfat_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.ejfat_lb_route, lib.ejfat_dispatch_tile,
-               lib.ejfat_dispatch_plan, lib.ejfat_seg_masks):
+               lib.ejfat_dispatch_plan, lib.ejfat_seg_masks,
+               lib.ejfat_flash_attention):
         fn.restype = ctypes.c_int
 
 

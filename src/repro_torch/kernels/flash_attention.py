@@ -1,0 +1,64 @@
+"""Attention forward with an online softmax: wrapper of the CUDA kernel
+``csrc/flash_attention.cu``.
+
+Port of the Pallas kernel ``repro/kernels/flash_attention.py::
+flash_attention``, in the JAX layout: q ``[B, T, Hq, d]``, k and v
+``[B, T, Hkv, d]`` with ``Hq % Hkv == 0`` (query head h reads KV head
+``h // (Hq // Hkv)``), scale ``1/sqrt(d)``, causal meaning key index <= query
+index. Key positions past T are always masked, causal or not (where the
+Pallas kernel lets its zero padding into a non-causal softmax). A CUDA input
+launches the kernel (fp32 or bf16, d in ``HEAD_DIMS``); a CPU input takes
+``ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.ref import flash_attention_ref
+
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 80, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v per head -> ``[B, T, Hq, d]`` in q's dtype."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be [B, T, Hq, d] and k, v [B, T, Hkv, d]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, t, d) or hkv == 0 or hq % hkv:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
+                         "(same B, T and d; Hq a multiple of Hkv)")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(q, k, v, causal)
+
+
+def _launch(q, k, v, causal: bool):
+    dev = q.device
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no kernel instance; one of {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _lib.require(x, name, q.dtype, dev)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (vector loads of rows)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    err = _lib.lib().ejfat_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, t, hq, hkv, d, _DTYPE_CODE[q.dtype], int(bool(causal)), _lib.stream_ptr(dev))
+    _lib.check(err, "flash_attention")
+    _lib.LAUNCHES["flash_attention"] += 1
+    return out

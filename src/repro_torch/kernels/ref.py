@@ -1,12 +1,14 @@
 """Plain PyTorch versions of every CUDA kernel in this package.
 
-Each wrapper (``lb_route``, ``dispatch_plan``, ``seg_masks``) takes these for
-tensors on the CPU; ``chip_smoke.py`` holds each kernel against them on the
-card. The routing version is core/router.py itself (the single source of the
-protocol semantics); the dispatch-plan version is the sort-based pack of
-core/router.member_positions.
+Each wrapper (``lb_route``, ``dispatch_plan``, ``seg_masks``,
+``flash_attention``) takes these for tensors on the CPU; ``chip_smoke.py``
+holds each kernel against them on the card. The routing version is
+core/router.py itself (the single source of the protocol semantics); the
+dispatch-plan version is the sort-based pack of core/router.member_positions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -65,3 +67,26 @@ def seg_masks_ref(valid, ev_hi, ev_lo, daq, seg_index):
     new_group = (ok & ~same).to(torch.int32)
     dup = (ok & same & (seg_index == prev(seg_index))).to(torch.int32)
     return new_group, dup
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Plain version of kernels/flash_attention.flash_attention: softmax
+    attention with the whole [B, H, Tq, Tk] logit matrix, in fp32.
+
+    q ``[B, Tq, Hq, d]``, k/v ``[B, Tk, Hkv, d]``; the KV heads are repeated
+    to Hq, the causal mask is the bottom-right ``tril(Tk - Tq)`` (the JAX
+    oracle ``repro.kernels.ref.flash_attention_ref``), and the result is cast
+    back to q's dtype.
+    """
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=2)
+        v = v.repeat_interleave(hq // hkv, dim=2)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        lq, lk = q.shape[1], k.shape[1]
+        mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(lk - lq)
+        logits = logits.masked_fill(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)

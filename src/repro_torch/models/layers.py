@@ -1,0 +1,255 @@
+"""Shared layer primitives: norms, RoPE, MLP, GQA attention (+SWA), KV
+caches. Port of the JAX package's ``repro/models/layers.py``: functions over
+plain dicts of tensors, with the same names, layouts (``x @ W`` with W
+``[in, out]``) and arithmetic.
+
+Attention over a fresh sequence (a prefill, no sliding window) goes through
+the hand-written kernel ``kernels.flash_attention``; everything else (decode
+against a ring cache, SWA) through the plain chunked online-softmax
+``attention``, as the JAX package computes it in jnp. The port writes KV
+caches in place (the JAX package returns new arrays), so a decode step does
+not copy the cache; a caller that needs the old cache clones it first.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as _flash
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, shape, scale: float = 1.0,
+               dtype=torch.bfloat16, device="cpu") -> torch.Tensor:
+    """Truncated normal (cut at +-2 standard units) times ``scale/sqrt(fan_in)``,
+    drawn in fp32 on ``device`` from ``generator`` (on the same device)."""
+    w = torch.empty(shape, dtype=F32, device=device)
+    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
+    return w.mul_(scale / (shape[0] ** 0.5)).to(dtype)
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (fractional: chatglm applies rotary to half the head dims)
+# ---------------------------------------------------------------------------
+
+def rope_tables(positions, rot_dim: int, theta: float):
+    """positions int[...] -> (cos, sin) f32[..., rot_dim/2]."""
+    exps = torch.arange(0, rot_dim, 2, dtype=F32, device=positions.device) / rot_dim
+    freqs = 1.0 / (theta ** exps)
+    angles = positions.to(F32)[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, positions, *, fraction: float = 1.0, theta: float = 1e4):
+    """x: [..., T, H, hd]; positions broadcastable to [..., T]. Rotates the
+    interleaved pairs (0::2, 1::2) of the first ``fraction`` of the dims."""
+    hd = x.shape[-1]
+    rot = int(hd * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    cos, sin = rope_tables(positions, rot, theta)  # [..., T, rot/2]
+    cos = cos[..., None, :]  # add head dim
+    sin = sin[..., None, :]
+    xr = x[..., :rot].to(F32)
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    rotated = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([rotated, x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(generator, d_model: int, d_ff: int, act: str, n_layers: int, dtype,
+             device="cpu"):
+    out_scale = 1.0 / (2 * n_layers) ** 0.5
+    init = lambda shape, scale=1.0: dense_init(generator, shape, scale, dtype, device)
+    if act == "swiglu":
+        return {
+            "w_gate": init((d_model, d_ff)),
+            "w_up": init((d_model, d_ff)),
+            "w_down": init((d_ff, d_model), out_scale),
+        }
+    return {
+        "w_up": init((d_model, d_ff)),
+        "w_down": init((d_ff, d_model), out_scale),
+    }
+
+
+def mlp(params, x, act: str):
+    if act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = F.gelu(x @ params["w_up"], approximate="tanh")  # jax.nn.gelu's default
+    return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention (the plain path: decode, SWA)
+# ---------------------------------------------------------------------------
+
+def _attn_chunk_scan(q, k, v, qpos, kpos, kvalid, *, causal, window, k_chunk, scale):
+    """Online softmax over k chunks.
+
+    q: [B, Hkv, G, Tq, hd]; k/v: [B, Tk, Hkv, hd]; qpos [B, Tq]; kpos [B, Tk];
+    kvalid bool[B, Tk]. Returns [B, Hkv, G, Tq, hd] (f32).
+    """
+    b, hkv, g, tq, hd = q.shape
+    tk = k.shape[1]
+    qf = q.to(F32)
+    m = torch.full((b, hkv, g, tq), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((b, hkv, g, tq), dtype=F32, device=q.device)
+    acc = torch.zeros((b, hkv, g, tq, hd), dtype=F32, device=q.device)
+    for c0 in range(0, tk, k_chunk):
+        # the last chunk is short instead of padded: padded keys were masked
+        kb, vb = k[:, c0:c0 + k_chunk], v[:, c0:c0 + k_chunk]
+        pb, vb_mask = kpos[:, c0:c0 + k_chunk], kvalid[:, c0:c0 + k_chunk]
+        logits = torch.einsum("bhgqd,bchd->bhgqc", qf, kb.to(F32)) * scale
+        mask = vb_mask[:, None, None, None, :]
+        if causal:
+            ok = pb[:, None, :] <= qpos[:, :, None]  # [B, Tq, C]
+            if window is not None:
+                ok &= qpos[:, :, None] - pb[:, None, :] < window
+            mask = mask & ok[:, None, None, :, :]
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqc,bchd->bhgqd", p, vb.to(F32))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return torch.where(l[..., None] > 0, out, torch.zeros_like(out))
+
+
+def attention(q, k, v, *, qpos, kpos, kvalid=None, causal: bool = True,
+              window: Optional[int] = None, q_chunk: int = 1024, k_chunk: int = 1024):
+    """GQA attention. q: [B, Tq, Hq, hd]; k/v: [B, Tk, Hkv, hd].
+
+    qpos/kpos: int[B, Tq]/[B, Tk] absolute positions (ring caches pass
+    per-slot positions; invalid slots masked by kvalid). Returns [B, Tq, Hq, hd].
+    """
+    b, tq, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / (hd ** 0.5)
+    if kvalid is None:
+        kvalid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+    qg = q.permute(0, 2, 1, 3).reshape(b, hkv, g, tq, hd)
+    outs = [_attn_chunk_scan(qg[..., s:s + q_chunk, :], k, v, qpos[:, s:s + q_chunk],
+                             kpos, kvalid, causal=causal, window=window,
+                             k_chunk=k_chunk, scale=scale)
+            for s in range(0, tq, q_chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
+    return out.reshape(b, hq, tq, hd).permute(0, 2, 1, 3).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention block + KV cache
+# ---------------------------------------------------------------------------
+
+def attn_init(generator, cfg, dtype, device="cpu"):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    init = lambda shape, scale=1.0: dense_init(generator, shape, scale, dtype, device)
+    return {
+        "wq": init((d, hq * hd)),
+        "wk": init((d, hkv * hd)),
+        "wv": init((d, hkv * hd)),
+        "wo": init((hq * hd, d), out_scale),
+    }
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Ring-capable KV cache. ``pos[b, s]`` = absolute position in slot s
+    (-1 invalid). Full cache: size >= max_len; SWA: size == window."""
+
+    k: torch.Tensor       # [B, S, Hkv, hd]
+    v: torch.Tensor       # [B, S, Hkv, hd]
+    pos: torch.Tensor     # int32[B, S]
+    length: torch.Tensor  # int32 scalar — tokens seen so far
+
+
+def init_kv_cache(batch, size, n_kv, hd, dtype, device="cpu") -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, size, n_kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, size, n_kv, hd), dtype=dtype, device=device),
+        pos=torch.full((batch, size), -1, dtype=torch.int32, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] = None,
+                         q_chunk: int = 1024, k_chunk: int = 1024):
+    """x: [B, T, d]. Returns (out [B, T, d], new_cache); ``cache`` is
+    written in place.
+
+    With T > 1 the keys are the fresh sequence (all valid, positions
+    increasing along each row, as ``model.step_with_cache`` makes them), and
+    without a sliding window that is exactly the flash kernel's function, so
+    it goes through ``kernels.flash_attention``.
+    """
+    b, t, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ params["wq"]).reshape(b, t, hq, hd)
+    k = (x @ params["wk"]).reshape(b, t, hkv, hd)
+    v = (x @ params["wv"]).reshape(b, t, hkv, hd)
+    q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+
+    new_cache = None
+    bidx = torch.arange(b, device=x.device)[:, None]
+    if cache is None:
+        kk, vv = k, v
+        kpos, kvalid = positions, None
+    elif t > 1:
+        # Prefill: attend over the fresh sequence (a ring cache smaller than
+        # T would otherwise evict keys that early queries still need), then
+        # write only the last `size` positions into the cache.
+        size = cache.k.shape[1]
+        keep = min(t, size)
+        tail_pos = positions[:, t - keep:].to(torch.int32)
+        slots = (tail_pos % size).long()
+        cache.k[bidx, slots] = k[:, t - keep:]
+        cache.v[bidx, slots] = v[:, t - keep:]
+        cache.pos[bidx, slots] = tail_pos
+        new_cache = dataclasses.replace(cache, length=cache.length + t)
+        kk, vv = k, v
+        kpos, kvalid = positions, None
+    else:
+        # Decode: single token -> distinct ring slot.
+        size = cache.k.shape[1]
+        slots = (positions % size).long()  # [B, 1]
+        cache.k[bidx, slots] = k
+        cache.v[bidx, slots] = v
+        cache.pos[bidx, slots] = positions.to(torch.int32)
+        new_cache = dataclasses.replace(cache, length=cache.length + t)
+        kk, vv = cache.k, cache.v
+        kpos, kvalid = cache.pos, cache.pos >= 0
+
+    if t > 1 and cfg.swa_window is None:
+        o = _flash.flash_attention(q, k, v, causal=cfg.causal)
+    else:
+        o = attention(q, kk, vv, qpos=positions, kpos=kpos, kvalid=kvalid,
+                      causal=cfg.causal, window=cfg.swa_window,
+                      q_chunk=q_chunk, k_chunk=k_chunk)
+    return o.reshape(b, t, hq * hd) @ params["wo"], new_cache

@@ -1,0 +1,197 @@
+"""Model assembly of the port: the dense family's prefill/decode path.
+
+Port of the JAX package's ``repro/models/model.py`` for the dense family.
+Parameters are a plain dict of tensors with one entry per layer in
+``params["layers"]`` (a list) where the JAX package stacks the layers on a
+leading dim for ``scan``; the layers run in a Python loop. Weights keep the
+JAX layout (``x @ W``, W ``[in, out]``), so ``params_from_numpy`` carries the
+JAX parameters across with no transposes.
+
+Public API:
+    init_params(cfg, generator, device)        -> params
+    params_from_numpy(tree, cfg, device)       -> params (from the JAX pytree)
+    init_decode_state(cfg, batch, max_len, device) -> cache state
+    prefill(params, batch, state, cfg)         -> (logits_last, state)
+    decode_step(params, token, state, cfg)     -> (logits, state)
+
+``forward`` and ``train_loss`` come with the training slice; the moe, vlm,
+audio, hybrid and ssm families raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+F32 = torch.float32
+_TODO = "ROADMAP.md queue 1, item 6: the other model families"
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet ({_TODO})")
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk):
+    h, new_cache = L.self_attention_block(
+        p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+        positions=positions, cache=cache, q_chunk=q_chunk, k_chunk=k_chunk,
+    )
+    x = x + h
+    ff = L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return x + ff, new_cache, None
+
+
+def _attn_block_init(generator, cfg, dtype, device):
+    return {
+        "attn": L.attn_init(generator, cfg, dtype, device),
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, cfg.n_layers,
+                          dtype, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+    """Random parameters drawn on ``device`` from ``generator`` (a
+    ``torch.Generator`` on that device). The draws differ from
+    ``jax.random``'s; ``params_from_numpy`` carries JAX weights across."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    return {
+        "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model), 1.0, dtype, dev),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+        "head": L.dense_init(generator, (cfg.d_model, cfg.vocab), 1.0, dtype, dev),
+        "layers": [_attn_block_init(generator, cfg, dtype, dev)
+                   for _ in range(cfg.n_layers)],
+    }
+
+
+def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.array(a, copy=True)  # owned and writable (JAX leaves are read-only)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
+    """The JAX ``init_params`` pytree (dense family), taken leaf by leaf with
+    ``np.asarray``, as the port's parameters: the stacked ``layers`` leaves
+    are split on their leading dim, every leaf becomes a tensor of
+    ``cfg.dtype`` on ``device``. Same layout, so no transposes."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    conv = lambda a: _tensor_from_numpy(a, dtype, dev)
+
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {k: layer(v, i) for k, v in node.items()}
+        return conv(np.asarray(node)[i])
+
+    out = {k: conv(np.asarray(tree[k])) for k in ("embed", "ln_f", "head")}
+    out["layers"] = [layer(tree["layers"], i) for i in range(cfg.n_layers)]
+    return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of a params or decode-state tree (dicts,
+    lists, ``KVCache``s), leaf by leaf with the same leaves of ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *r) for v, *r in zip(tree, *rest)]
+    if isinstance(tree, L.KVCache):
+        return L.KVCache(*(tree_map(fn, getattr(tree, f.name),
+                                    *(getattr(r, f.name) for r in rest))
+                           for f in dataclasses.fields(L.KVCache)))
+    return fn(tree, *rest)
+
+
+def to_device(tree, device):
+    """``tree`` (params or decode state) with every tensor on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+# ---------------------------------------------------------------------------
+# decode path (serving)
+# ---------------------------------------------------------------------------
+
+def _embed(params, batch, cfg):
+    """Token or stub-frontend embedding. batch: dict with 'tokens' [B,T] int
+    or 'embeds' [B,T,d] (any precomputed stream)."""
+    if "embeds" in batch:
+        return batch["embeds"].to(_dtype(cfg))
+    return params["embed"][batch["tokens"].long()]
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Cache state for serving: one ring KV cache per layer of size
+    min(max_len, swa_window or max_len), and each lane's next position."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    size = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+    kv = [L.init_kv_cache(batch, size, cfg.n_kv_heads, cfg.hd, _dtype(cfg), dev)
+          for _ in range(cfg.n_layers)]
+    return {"kv": kv, "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def _logits_last(params, x, cfg):
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    # The JAX package takes f32 logits from bf16 operands
+    # (preferred_element_type=f32): each bf16 x bf16 product is exact in f32
+    # and the sum is kept in f32. Upcasting both operands to f32 exactly and
+    # taking an f32 product computes the same.
+    return torch.matmul(x.to(F32), params["head"].to(F32))
+
+
+def step_with_cache(params, batch, state, cfg: ModelConfig, *,
+                    q_chunk: int = 1024, k_chunk: int = 1024):
+    """Run T tokens (T=1 decode, T>1 prefill) against the cache state; the
+    caches in ``state`` are written in place."""
+    _dense_only(cfg)
+    x = _embed(params, batch, cfg)
+    b, t, _ = x.shape
+    pos0 = state["pos"]  # int32[B] — lanes advance independently
+    positions = pos0[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
+    new_state: dict[str, Any] = dict(state)
+    new_state["pos"] = pos0 + t
+    new_kv = []
+    for p, cache in zip(params["layers"], state["kv"]):
+        x, nc, _ = _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk)
+        new_kv.append(nc)
+    new_state["kv"] = new_kv
+    logits = _logits_last(params, x[:, -1:, :], cfg)
+    return logits[:, 0], new_state
+
+
+def prefill(params, batch, state, cfg: ModelConfig, **kw):
+    return step_with_cache(params, batch, state, cfg, **kw)
+
+
+def decode_step(params, tokens, state, cfg: ModelConfig, **kw):
+    """tokens: int[B] -> (logits [B, V], new_state)."""
+    return step_with_cache(params, {"tokens": tokens[:, None]}, state, cfg, **kw)

@@ -14,10 +14,14 @@ import repro_torch.core as tcore
 from repro_torch.core.dataplane import DataPlane
 from repro_torch.core.protocol import encode_headers, words_to_tensor
 from repro_torch.data.reassembly import reassembly_plan
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _lib
 from repro_torch.kernels.dispatch import dispatch_plan
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lb_route import lb_route
 from repro_torch.kernels.reassembly import seg_masks
+from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.models import model as M
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +105,61 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         lb_route(h[:, :3], t)
     with pytest.raises(ValueError):
         dispatch_plan(torch.zeros(4, dtype=torch.int32, device="cuda"), n_members=5000)
+
+
+@pytest.fixture
+def _full_f32():
+    """fp32 references in full fp32 (no TF32) for the duration of a test."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+# bf16: the kernel rounds P to bf16 before the PV product, ~4e-3 of error at
+# most in the first causal rows (few keys); atol 5e-3 stays far under what a
+# kernel letting padded keys into a non-causal softmax reads at small T
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4),
+                                             (torch.bfloat16, 5e-3, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("t", [1, 7, 64, 130, 1000])
+def test_flash_attention_equals_plain(t, d, hq, hkv, causal, dtype, atol, rtol, _full_f32):
+    rng = np.random.default_rng(t * 1000 + d + hq)
+    mk = lambda h: (torch.from_numpy(rng.normal(size=(2, t, h, d)).astype(np.float32))
+                    .to("cuda", dtype))
+    q, k, v = mk(hq), mk(hkv), mk(hkv)
+    before = _lib.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 8, 4, 16, device="cuda")
+    with pytest.raises(ValueError):  # no instance for d = 24
+        z = torch.zeros(1, 8, 4, 24, device="cuda")
+        flash_attention(z, z, z)
+    with pytest.raises(TypeError):  # mixed dtypes
+        flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(TypeError):  # no fp16 instance
+        flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "stablelm_3b"])
+def test_smoke_prefill_on_the_card_equals_the_cpu(arch, _full_f32):
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 11)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = M.init_decode_state(cfg, 2, 32, device=dev)
+        logits, st = M.prefill(M.to_device(params, dev), {"tokens": toks.to(dev)}, st, cfg)
+        logits2, _ = M.decode_step(M.to_device(params, dev), toks[:, 0].to(dev), st, cfg)
+        out[dev] = (logits.cpu(), logits2.cpu())
+    for g, w in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)

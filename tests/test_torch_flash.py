@@ -1,0 +1,96 @@
+"""The port's flash_attention on the CPU (its plain PyTorch version,
+``kernels/ref.flash_attention_ref``) against the Pallas kernel in interpret
+mode and the JAX oracle ``repro.kernels.ref.flash_attention_ref``. The CUDA
+kernel itself runs only on the card (tests/test_torch_cuda.py)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.ref import flash_attention_ref as j_flash_ref
+from repro_torch.kernels import _lib
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import flash_attention_ref
+
+TORCH_DTYPE = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _qkv(t, h, d, seed=0, hkv=None):
+    rng = np.random.default_rng(seed)
+    mk = lambda heads: (rng.normal(size=(1, t, heads, d)) * 0.3).astype(np.float32)
+    return mk(h), mk(hkv or h), mk(hkv or h)
+
+
+def _port(arrays, dtype=np.float32, causal=True):
+    ts = [torch.from_numpy(a).to(TORCH_DTYPE[dtype]) for a in arrays]
+    return flash_attention(*ts, causal=causal).float().numpy()
+
+
+def _jax_ref(q, k, v, causal):
+    return np.asarray(jax.vmap(lambda qq, kk, vv: j_flash_ref(
+        qq, kk, vv, causal=causal))(q, k, v), np.float32)
+
+
+@pytest.mark.parametrize("t,h,d", [(32, 2, 16), (64, 1, 32), (96, 2, 8),
+                                   (130, 1, 16), (256, 1, 64)])
+def test_causal_sweep_equals_pallas(t, h, d):
+    q, k, v = _qkv(t, h, d, seed=t + d)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                   block_q=32, block_k=32, interpret=True)
+    got = _port((q, k, v))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, _jax_ref(q, k, v, True), rtol=2e-5, atol=2e-5)
+
+
+def test_bf16_equals_pallas():
+    q, k, v = (jnp.asarray(a).astype(jnp.bfloat16) for a in _qkv(64, 2, 32, seed=9))
+    want = j_flash(q, k, v, causal=True, block_q=32, block_k=32, interpret=True)
+    got = _port([np.asarray(a, np.float32) for a in (q, k, v)], jnp.bfloat16)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=2e-2, atol=2e-2)
+
+
+def test_non_causal_equals_pallas():
+    q, k, v = _qkv(64, 2, 16)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+                   block_q=16, block_k=16, interpret=True)
+    np.testing.assert_allclose(_port((q, k, v), causal=False), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_equals_pallas_on_repeated_heads(causal):
+    q, k, v = _qkv(48, 4, 16, seed=4, hkv=2)
+    rep = lambda a: jnp.repeat(jnp.asarray(a), 2, axis=2)
+    want = j_flash(jnp.asarray(q), rep(k), rep(v), causal=causal, block_q=16,
+                   block_k=16, interpret=True)
+    np.testing.assert_allclose(_port((q, k, v), causal=causal), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_non_causal_ragged_tail_equals_oracle():
+    # Against the oracle only: the Pallas kernel pads K/V with zero rows to a
+    # block multiple and masks key positions only when causal, so at T=40,
+    # block 32 its non-causal output lets 24 padded keys (score 0) into the
+    # softmax (max error ~0.04 against the oracle). The port masks keys >= T
+    # always and computes the oracle's function.
+    q, k, v = _qkv(40, 2, 16, seed=1)
+    np.testing.assert_allclose(_port((q, k, v), causal=False),
+                               _jax_ref(q, k, v, False), rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_takes_the_plain_version_and_counts_nothing():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(16, 2, 16))
+    before = _lib.LAUNCHES["flash_attention"]
+    torch.testing.assert_close(flash_attention(q, k, v), flash_attention_ref(q, k, v),
+                               rtol=0, atol=0)
+    assert _lib.LAUNCHES["flash_attention"] == before
+
+
+def test_shape_checks():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(1, 9, 2, 16), torch.zeros(1, 9, 2, 16))

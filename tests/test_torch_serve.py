@@ -1,0 +1,130 @@
+"""The port's serving engine on the CPU against the JAX package's, from the
+same prompts and the same weights: the front door (event numbers, entropy,
+one batched route per tick), the routing, the lanes, the greedy tokens and
+the stats are equal; a drained replica gets no new work; lanes are
+isolated; the launcher runs; and nothing runs on the CPU by default."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as j_smoke
+from repro.models import model as JM
+from repro.serve.engine import ServeConfig as JServeConfig
+from repro.serve.engine import ServingEngine as JEngine
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import _lib
+from repro_torch.launch import serve as t_launch
+from repro_torch.models import model as TM
+from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+FIELDS = ("rid", "event_number", "entropy", "member", "node", "lane", "output", "done")
+
+
+def _engines(n_replicas, max_len, lane_bits=1):
+    cfg = j_smoke("yi_6b")
+    tree = JM.init_params(jax.random.PRNGKey(0), cfg)
+    params = TM.params_from_numpy(jax.tree.map(np.asarray, tree),
+                                  get_smoke_config("yi_6b"), "cpu")
+    j = JEngine(cfg, JServeConfig(n_replicas=n_replicas, lane_bits=lane_bits,
+                                  max_len=max_len), tree)
+    t = ServingEngine(get_smoke_config("yi_6b"),
+                      ServeConfig(n_replicas=n_replicas, lane_bits=lane_bits,
+                                  max_len=max_len, device="cpu"), params)
+    return j, t
+
+
+def _view(reqs):
+    return [{f: getattr(r, f) for f in FIELDS} for r in reqs]
+
+
+def _submit(eng, rng, n, lo, hi, max_new):
+    return [eng.submit(rng.integers(0, 256, int(rng.integers(lo, hi))), max_new_tokens=max_new)
+            for _ in range(n)]
+
+
+def test_engine_equals_jax_engine():
+    j, t = _engines(2, 64)
+    jr = _submit(j, np.random.default_rng(0), 9, 4, 10, 6)
+    tr = _submit(t, np.random.default_rng(0), 9, 4, 10, 6)
+    j.run_until_done(300)
+    t.run_until_done(300)
+    assert _view(tr) == _view(jr)
+    assert t.stats == j.stats
+    assert all(r.done and len(r.output) == 6 for r in tr)
+    assert len(t.stats["routed"]) == 2 and t.stats["route_calls"] == 1
+
+
+def test_drain_equals_jax_engine():
+    """examples/serve_lb.py: 12 requests over 3 replicas, then replica 1 is
+    weighted to 0 in the next epoch; 12 more requests never reach it."""
+    j, t = _engines(3, 96)
+    views, deltas = [], []
+    for eng in (j, t):
+        rng = np.random.default_rng(0)
+        reqs = _submit(eng, rng, 12, 4, 12, 8)
+        eng.run_until_done()
+        eng.cp.weights[1] = 0.0
+        eng.cp.schedule_epoch(eng.next_event, boundary=eng.next_event)
+        before = dict(eng.stats["routed"])
+        reqs += [eng.submit(rng.integers(0, 256, 6), max_new_tokens=6) for _ in range(12)]
+        eng.run_until_done()
+        deltas.append({k: eng.stats["routed"].get(k, 0) - before.get(k, 0) for k in (0, 1, 2)})
+        views.append(_view(reqs))
+    assert views[1] == views[0]
+    assert deltas[1] == deltas[0] and deltas[1][1] == 0
+    assert all(v["done"] for v in views[1])
+
+
+def test_lane_isolation():
+    """Two concurrent requests in different lanes don't corrupt each other:
+    outputs equal the solo runs."""
+    _, eng = _engines(2, 64)
+    p1, p2 = np.arange(6), np.arange(6)[::-1].copy()
+    solo1 = eng.submit(p1, max_new_tokens=5)
+    eng.run_until_done(100)
+    solo2 = eng.submit(p2, max_new_tokens=5)
+    eng.run_until_done(100)
+    r1 = eng.submit(p1, max_new_tokens=5)
+    r2 = eng.submit(p2, max_new_tokens=5)
+    eng.run_until_done(200)
+    assert r1.output == solo1.output
+    assert r2.output == solo2.output
+
+
+def test_rebalance_closes_the_loop():
+    """With ``rebalance_every`` the engine reweights from decode telemetry
+    and garbage-collects drained epochs; requests still all complete."""
+    cfg = get_smoke_config("yi_6b")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    eng = ServingEngine(cfg, ServeConfig(n_replicas=2, lane_bits=1, max_len=64,
+                                         rebalance_every=2, device="cpu"), params)
+    eng.hub.report_step(1, step_time=1.0, backlog=8, processed=1)  # replica 1 looks slow
+    reqs = _submit(eng, np.random.default_rng(2), 8, 4, 10, 5)
+    eng.run_until_done(300)
+    assert eng.stats["rebalances"] >= 1
+    assert all(r.done and len(r.output) == 5 for r in reqs)
+
+
+def test_prefill_counts_no_kernel_launch_on_the_cpu():
+    _, eng = _engines(2, 64)
+    _lib.reset_launches()
+    eng.submit(np.arange(7), max_new_tokens=2)
+    eng.run_until_done(50)
+    assert all(n == 0 for n in _lib.LAUNCHES.values())
+
+
+def test_launcher_on_the_cpu(capsys):
+    eng = t_launch.main(["--arch", "yi-6b", "--requests", "4", "--max-new", "3",
+                         "--device", "cpu"])
+    assert eng.stats["completed"] == 4
+    assert "served 4 requests / 12 tokens" in capsys.readouterr().out
+
+
+def test_engine_device_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would not raise")
+    cfg = get_smoke_config("yi_6b")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(cfg, ServeConfig(), params)
