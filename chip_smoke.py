@@ -14,13 +14,18 @@ result:
                 instance), dispatch_plan and seg_masks at 2^20 packets,
                 exactly equal to their plain versions; flash_attention at the
                 Yi-6B prefill shape (T=4096, 32/4 heads, d=128, bf16,
-                causal), at T=3000 causal and not, and at T=65 and T=100
-                non-causal (a ragged last tile, where a kernel that lets
-                padded keys into the softmax must fail), within atol 5e-3,
-                rtol 2e-2 of its plain version; in fp32 within 1e-4. Kernel
-                time (CUDA graph replay, L2 evicted, CUDA events, median),
-                plain time, the library call's time where one exists (SDPA
-                for flash_attention) and the bound (bytes at 3.35 TB/s, or
+                causal), at T=3000 causal and not, at B=2 with T=1000 causal
+                and not (a tensor map not bounded per batch would read the
+                next batch's rows), with Granite-20B's 48/1 heads at T=3000,
+                and at T=65 and T=100 non-causal (a ragged last tile, where a
+                kernel that lets padded keys into the softmax must fail),
+                within atol 5e-3, rtol 2e-2 of its plain version; in fp32
+                within 1e-4. Each check names the design that ran it: wgmma
+                (csrc/flash_attention_wgmma.cu, bf16 at d = 64 or 128) or
+                mma (csrc/flash_attention.cu, the rest). Kernel time (CUDA
+                graph replay, L2 evicted, CUDA events, median), plain time,
+                the library call's time where one exists (SDPA for
+                flash_attention) and the bound (bytes at 3.35 TB/s, or
                 operations at the type's peak)
   4. loop       the closed loop at a small size on the card and on the CPU
                 (summaries must be equal), then the full-width 25-step,
@@ -33,7 +38,8 @@ result:
                 prompt tokens, a drain of replica 1 (arrivals moved past
                 the events a rebalance already committed), 4 more
                 requests; every prefill launches flash_attention once per
-                layer, every routing tick launches lb_route; then the
+                layer, every one of those launches through the wgmma
+                design, every routing tick launches lb_route; then the
                 kernel's share of the longest prefill (CUDA events) and the
                 device's busy share of decode steps (torch.profiler)
   6. result     the `kernels` JSON line, the card line, and the last line
@@ -72,7 +78,13 @@ SOURCES = {
     "lb_route": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "dispatch_plan": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "seg_masks": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+}
+# flash_attention has two designs, chosen by (dtype, head dim): the main path
+# (bf16, d=128) runs the wgmma one
+DESIGN_SOURCES = {
+    "wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+    "mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 
 # the Yi-6B prefill shape of the serving phase (max_len = Yi-6B's context)
@@ -296,11 +308,14 @@ def kernel_phase(torch, np):
 
 def flash_phase(torch, np):
     """flash_attention against its plain version on the card (bf16 at the
-    Yi-6B prefill shape and at a ragged T, causal and not; fp32 at a small
-    shape), then kernel, plain and SDPA times at the prefill shape."""
+    Yi-6B prefill shape, at a ragged T causal and not, at B=2 with a ragged
+    T and with Granite-20B's 48/1 heads; fp32 at a small shape), each check
+    naming the design that ran it; then the kernel's (wgmma design), the
+    plain version's and SDPA's times at the prefill shape."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import _design, flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
     rng = np.random.default_rng(12)
@@ -311,9 +326,14 @@ def flash_phase(torch, np):
         return mk(hq), mk(hkv), mk(hkv)
 
     def compare(q, k, v, causal, atol, rtol, what):
+        before = _lib.LAUNCHES["flash_attention_wgmma"]
         got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        design = "wgmma" if _lib.LAUNCHES["flash_attention_wgmma"] > before else "mma"
+        check(design == _design(q.dtype, q.shape[-1]),
+              f"flash_attention {what}: the {design} design ran, not the one chosen")
+        what = f"[{design}] {what}"
         check(bool(torch.isfinite(got).all()), f"flash_attention {what}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
         check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
@@ -342,12 +362,20 @@ def flash_phase(torch, np):
     # (few keys, |o| up to ~3, hence rtol), ~1e-4 in rows over thousands of
     # keys. atol 5e-3 sits above that and far under a padded-key fault at
     # T=65 and 100 (|o| ~ sqrt(e/T) ~ 0.2 there)
+    # B=2 at a ragged T: a tensor map not bounded per batch would read
+    # batch 1's rows into batch 0's last tile; 48/1 heads: Granite-20B's MQA
     errs = []
-    for t, causal in ((FLASH_T, True), (3000, True), (3000, False), (65, False),
-                      (100, False)):
-        q, k, v = qkv(1, t, FLASH_HQ, FLASH_HKV, FLASH_D, torch.bfloat16)
+    for b, t, hq, hkv, causal in ((1, FLASH_T, FLASH_HQ, FLASH_HKV, True),
+                                  (1, 3000, FLASH_HQ, FLASH_HKV, True),
+                                  (1, 3000, FLASH_HQ, FLASH_HKV, False),
+                                  (2, 1000, FLASH_HQ, FLASH_HKV, True),
+                                  (2, 1000, FLASH_HQ, FLASH_HKV, False),
+                                  (1, 3000, 48, 1, True),
+                                  (1, 65, FLASH_HQ, FLASH_HKV, False),
+                                  (1, 100, FLASH_HQ, FLASH_HKV, False)):
+        q, k, v = qkv(b, t, hq, hkv, FLASH_D, torch.bfloat16)
         errs.append(compare(q, k, v, causal, 5e-3, 2e-2,
-                            f"bf16 T={t} {FLASH_HQ}/{FLASH_HKV} heads d={FLASH_D} "
+                            f"bf16 B={b} T={t} {hq}/{hkv} heads d={FLASH_D} "
                             f"{'causal' if causal else 'non-causal'}"))
     # fp32 against a full-fp32 plain version (no TF32 in its einsums); it
     # stays off for the rest of the run (the fp32 card == CPU serve needs it)
@@ -363,6 +391,8 @@ def flash_phase(torch, np):
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_err = float((sdpa().transpose(1, 2).float()
                      - flash_attention_ref(q, k, v).float()).abs().max())
+    design = _design(q.dtype, FLASH_D)
+    check(design == "wgmma", f"the Yi-6B prefill shape chose the {design} design")
     t_k = time_on_card(torch, lambda: flash_attention(q, k, v, causal=True))
     t_p = time_on_card(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5)
     t_l = time_on_card(torch, sdpa)
@@ -370,13 +400,13 @@ def flash_phase(torch, np):
     ops = 4 * FLASH_HQ * FLASH_D * FLASH_T * (FLASH_T + 1) // 2
     b_ms, b_by = bound(bytes_moved, ops, BF16_FLOPS_PER_S)
     say(f"[kernels] flash_attention bf16 B=1 T={FLASH_T} {FLASH_HQ}/{FLASH_HKV} heads "
-        f"d={FLASH_D} causal: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms "
-        f"(max |SDPA - plain| {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by}: "
-        f"{ops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); "
-        f"{ops / t_k / 1e9:.1f} TFLOP/s")
+        f"d={FLASH_D} causal: kernel ({design}) {t_k:.4f} ms ({ops / t_k / 1e9:.1f} "
+        f"TFLOP/s, {t_k / t_l:.3f}x SDPA), plain {t_p:.4f} ms, "
+        f"SDPA {t_l:.4f} ms (max |SDPA - plain| {lib_err:.3g}), bound {b_ms:.4f} ms "
+        f"({b_by}: {ops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB)")
     return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs),
-                library_ms=t_l, shape=f"B=1 T={FLASH_T} Hq={FLASH_HQ} Hkv={FLASH_HKV} "
-                                      f"d={FLASH_D} bf16 causal")
+                library_ms=t_l, design=design, design_sources=DESIGN_SOURCES,
+                shape=f"B=1 T={FLASH_T} Hq={FLASH_HQ} Hkv={FLASH_HKV} d={FLASH_D} bf16 causal")
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +653,9 @@ def full_serve(torch, np):
               f"prefill of {n} tokens launched flash_attention {fl} times")
     check(launches["flash_attention"] == cfg.n_layers * sum(n > 1 for n, _, _ in eng.prefills),
           f"flash_attention launches {launches['flash_attention']} in the serving run")
+    check(launches["flash_attention_wgmma"] == launches["flash_attention"],
+          f"{launches['flash_attention_wgmma']} of the {launches['flash_attention']} "
+          "flash_attention launches of the serving run went through the wgmma design")
     for n, lb in eng.routes:
         check(lb >= 1, f"a routing tick of {n} requests launched lb_route {lb} times")
 
@@ -645,7 +678,9 @@ def full_serve(torch, np):
         decode_step_ms_median={m: statistics.median(v) * 1e3
                                for m, v in sorted(eng.decode_s.items())},
         decode_steps={m: len(v) for m, v in sorted(eng.decode_s.items())},
-        flash_launches=launches["flash_attention"], lb_route_launches=launches["lb_route"],
+        flash_launches=launches["flash_attention"],
+        flash_wgmma_launches=launches["flash_attention_wgmma"],
+        lb_route_launches=launches["lb_route"],
         route_calls=st["route_calls"], rebalances=st["rebalances"],
         routed_first_wave=first_wave, routed_after_drain=after,
         drain_start_event=drain_start, events_committed_before_drain=committed,
@@ -685,7 +720,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s")
         log = (_lib.build().parent / "nvcc.log").read_text().splitlines()
         for ln in log:
-            if "registers" in ln or "Compiling entry" in ln:
+            if "registers" in ln or "Compiling entry" in ln or "spill" in ln or "C7508" in ln:
                 say("[build] " + ln.strip())
 
         results = kernel_phase(torch, np)
@@ -701,6 +736,10 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=loop_launches[name] + serve_launches[name], **results[name])
                for name in REPLACES]
+    for row in kernels:
+        if row["name"] == "flash_attention":  # of which through the wgmma design
+            row["launches_wgmma"] = (loop_launches["flash_attention_wgmma"]
+                                     + serve_launches["flash_attention_wgmma"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 #: launches of each kernel since the last ``reset_launches()``
+#: (``flash_attention`` counts every launch of either attention design,
+#: ``flash_attention_wgmma`` those of the wgmma design alone)
 LAUNCHES: dict[str, int] = {"lb_route": 0, "dispatch_plan": 0, "seg_masks": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_wgmma": 0}
 
 _LIB = None
 
@@ -114,9 +116,10 @@ def _declare(lib) -> None:
     lib.ejfat_dispatch_plan.argtypes = [p, i, i, p, p, p, p]
     lib.ejfat_seg_masks.argtypes = [p, p, p, p, p, i, p, p, p]
     lib.ejfat_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.ejfat_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.ejfat_lb_route, lib.ejfat_dispatch_tile,
                lib.ejfat_dispatch_plan, lib.ejfat_seg_masks,
-               lib.ejfat_flash_attention):
+               lib.ejfat_flash_attention, lib.ejfat_flash_attention_wgmma):
         fn.restype = ctypes.c_int
 
 

@@ -15,28 +15,30 @@
 //     (score 0) into the softmax; kernels/ref.flash_attention_ref, the
 //     oracle of both, does not.
 //
-// Layout: q, o [B, T, Hq, d] and k, v [B, T, Hkv, d], contiguous, fp32 or
-// bf16; d in {16, 32, 64, 80, 128}. Grid (ceil(T/64), Hq, B): one block of
-// four warps per (query tile of 64 rows, head, batch); each warp owns 16
+// Layout: q, o [B, T, Hq, d] and k, v [B, T, Hkv, d], contiguous; fp32 at
+// d in {16, 32, 64, 80, 128}, bf16 at d in {16, 32, 80} (bf16 at d = 64
+// and 128 runs the wgmma design of flash_attention_wgmma.cu). Grid
+// (ceil(T/64), Hq, B): one block of four warps per (query tile of 64 rows,
+// head, batch); each warp owns 16
 // query rows. K/V tiles of 64 rows are staged in shared memory (rows padded
 // by 16 bytes so the fragment reads are free of bank conflicts); a causal
 // block stops its K loop at the tile of its own last query.
 //
-// Bound: at the serving prefill shape (B=1, T=4096, Hq=32, Hkv=4, d=128,
-// bf16, causal) the two products are 4 Hq d T(T+1)/2 = 137.5 GFLOP against
-// 75.5 MB of q, k, v and o, so the kernel is bound by tensor-core
-// operations (0.139 ms at 989 TFLOP/s vs 0.023 ms at 3.35 TB/s). bf16 runs
-// both products on the tensor cores with mma.sync m16n8k16 (fp32
-// accumulate); P goes from the S accumulator to the A operand of P V in
-// registers, never through shared memory. fp32 (kept for exact checks at
-// small shapes) does the products with FMAs.
+// Bound: at a long prefill (B=1, T=4096, Hq=32, Hkv=4, bf16, causal; d=128
+// there, so served by the wgmma design) the two products are
+// 4 Hq d T(T+1)/2 = 137.5 GFLOP against 75.5 MB of q, k, v and o, so
+// attention is bound by tensor-core operations (0.139 ms at 989 TFLOP/s vs
+// 0.023 ms at 3.35 TB/s). bf16 runs both products on the tensor cores with
+// mma.sync m16n8k16 (fp32 accumulate); P goes from the S accumulator to the
+// A operand of P V in registers, never through shared memory. fp32 (kept
+// for exact checks at small shapes) does the products with FMAs.
 //
-// What this simple design gives up, for a later redesign: wgmma (the only
-// path to the full Hopper tensor-core rate; mma.sync reaches a fraction of
-// it), TMA and a multi-stage shared-memory ring (here every tile is loaded
-// by the threads and waited for before any product starts, so loads and
-// products never overlap), warp specialisation, and ldmatrix for the
-// transposed V operand (read here as 16-bit pairs).
+// What this simple design gives up, and flash_attention_wgmma.cu has: wgmma
+// (the only path to the full Hopper tensor-core rate; mma.sync reaches a
+// fraction of it), TMA and a multi-stage shared-memory ring (here every tile
+// is loaded by the threads and waited for before any product starts, so
+// loads and products never overlap), warp specialisation, and a transposing
+// read of the V operand (here as 16-bit pairs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -341,11 +343,14 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int batch,
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
     case 32: return launch<T, 32>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
     case 80: return launch<T, 80>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (!std::is_same<T, bf16>::value) {  // bf16 runs the wgmma design there
+    if (d == 64) return launch<T, 64>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
+    if (d == 128) return launch<T, 128>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-"""Attention forward with an online softmax: wrapper of the CUDA kernel
-``csrc/flash_attention.cu``.
+"""Attention forward with an online softmax: wrapper of two hand-written CUDA
+kernels, ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention.cu``.
 
 Port of the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention``, in the JAX layout: q ``[B, T, Hq, d]``, k and v
@@ -7,8 +7,13 @@ flash_attention``, in the JAX layout: q ``[B, T, Hq, d]``, k and v
 ``h // (Hq // Hkv)``), scale ``1/sqrt(d)``, causal meaning key index <= query
 index. Key positions past T are always masked, causal or not (where the
 Pallas kernel lets its zero padding into a non-causal softmax). A CUDA input
-launches the kernel (fp32 or bf16, d in ``HEAD_DIMS``); a CPU input takes
+launches a kernel (fp32 or bf16, d in ``HEAD_DIMS``); a CPU input takes
 ``ref.flash_attention_ref``.
+
+Two designs compute the same function, chosen by ``_design(dtype, d)``:
+``"wgmma"`` (TMA ring, wgmma, warp-specialised; bf16 at d in
+``WGMMA_HEAD_DIMS``) and ``"mma"`` (mma.sync, fp32 and the other head dims).
+The choice is by shape alone: a failed build or launch of either raises.
 """
 from __future__ import annotations
 
@@ -17,9 +22,16 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import flash_attention_ref
 
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 80, 128)
+#: head dims of the wgmma design (bf16 only)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _design(dtype: torch.dtype, d: int) -> str:
+    """The kernel that serves (dtype, head dim): ``"wgmma"`` or ``"mma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "mma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,17 +60,26 @@ def _launch(q, k, v, causal: bool):
         raise ValueError(f"head dim {d} has no kernel instance; one of {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    design = _design(q.dtype, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, x in (("q", q), ("k", k), ("v", v)):
         _lib.require(x, name, q.dtype, dev)
         if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (vector loads of rows)")
+            raise ValueError(f"{name} must be 16-byte aligned (vector and TMA loads)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = _lib.lib().ejfat_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, t, hq, hkv, d, _DTYPE_CODE[q.dtype], int(bool(causal)), _lib.stream_ptr(dev))
-    _lib.check(err, "flash_attention")
+    lib, stream = _lib.lib(), _lib.stream_ptr(dev)
+    if design == "wgmma":
+        err = lib.ejfat_flash_attention_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, t, hq, hkv, d, int(bool(causal)), stream)
+    else:
+        err = lib.ejfat_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, t, hq, hkv, d, _DTYPE_CODE[q.dtype], int(bool(causal)), stream)
+    _lib.check(err, f"flash_attention ({design})")
     _lib.LAUNCHES["flash_attention"] += 1
+    if design == "wgmma":
+        _lib.LAUNCHES["flash_attention_wgmma"] += 1
     return out

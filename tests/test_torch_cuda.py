@@ -17,7 +17,7 @@ from repro_torch.data.reassembly import reassembly_plan
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _lib
 from repro_torch.kernels.dispatch import dispatch_plan
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import _design, flash_attention
 from repro_torch.kernels.lb_route import lb_route
 from repro_torch.kernels.reassembly import seg_masks
 from repro_torch.kernels.ref import flash_attention_ref
@@ -116,27 +116,49 @@ def _full_f32():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-# bf16: the kernel rounds P to bf16 before the PV product, ~4e-3 of error at
+def _check_flash(b, t, hq, hkv, d, causal, dtype, atol, rtol, seed):
+    """One call of the wrapper against the plain version; the launch counts
+    show which design ran (wgmma for bf16 at d = 64 or 128, else mma)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda h: (torch.from_numpy(rng.normal(size=(b, t, h, d)).astype(np.float32))
+                    .to("cuda", dtype))
+    q, k, v = mk(hq), mk(hkv), mk(hkv)
+    before = dict(_lib.LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    wgmma = dtype == torch.bfloat16 and d in (64, 128)
+    assert _design(dtype, d) == ("wgmma" if wgmma else "mma")
+    assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert (_lib.LAUNCHES["flash_attention_wgmma"]
+            == before["flash_attention_wgmma"] + int(wgmma))
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# bf16: both kernels round P to bf16 before the PV product, ~4e-3 of error at
 # most in the first causal rows (few keys); atol 5e-3 stays far under what a
 # kernel letting padded keys into a non-causal softmax reads at small T
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4),
                                              (torch.bfloat16, 5e-3, 2e-2)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4), (32, 2), (48, 1)])
 @pytest.mark.parametrize("d", [16, 64, 80, 128])
 @pytest.mark.parametrize("t", [1, 7, 64, 130, 1000])
 def test_flash_attention_equals_plain(t, d, hq, hkv, causal, dtype, atol, rtol, _full_f32):
-    rng = np.random.default_rng(t * 1000 + d + hq)
-    mk = lambda h: (torch.from_numpy(rng.normal(size=(2, t, h, d)).astype(np.float32))
-                    .to("cuda", dtype))
-    q, k, v = mk(hq), mk(hkv), mk(hkv)
-    before = _lib.LAUNCHES["flash_attention"]
-    got = flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert _lib.LAUNCHES["flash_attention"] == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    want = flash_attention_ref(q, k, v, causal=causal)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    _check_flash(2, t, hq, hkv, d, causal, dtype, atol, rtol, t * 1000 + d + hq)
+
+
+# the wgmma design's edges: one 128-row tile exactly, one row short and one
+# over; the Yi-6B prefill length; and B=2 at a ragged T, where a tensor map
+# that is not bounded per batch would read batch 1's rows into batch 0's last
+# tile. Heads: Yi-6B 32/4, ChatGLM3-6B 32/2, Granite-20B 48/1 (MQA)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(32, 4), (32, 2), (48, 1)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,t", [(1, 127), (1, 128), (1, 129), (1, 4096), (2, 1000)])
+def test_flash_attention_wgmma_edges_equal_plain(b, t, d, hq, hkv, causal):
+    _check_flash(b, t, hq, hkv, d, causal, torch.bfloat16, 5e-3, 2e-2, b * 7919 + t + d + hq)
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():

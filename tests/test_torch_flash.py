@@ -10,8 +10,10 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.ref import flash_attention_ref as j_flash_ref
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, WGMMA_HEAD_DIMS, _design,
+                                                  flash_attention)
 from repro_torch.kernels.ref import flash_attention_ref
 
 TORCH_DTYPE = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -82,10 +84,43 @@ def test_non_causal_ragged_tail_equals_oracle():
 
 def test_cpu_takes_the_plain_version_and_counts_nothing():
     q, k, v = (torch.from_numpy(a) for a in _qkv(16, 2, 16))
-    before = _lib.LAUNCHES["flash_attention"]
+    before = dict(_lib.LAUNCHES)
     torch.testing.assert_close(flash_attention(q, k, v), flash_attention_ref(q, k, v),
                                rtol=0, atol=0)
-    assert _lib.LAUNCHES["flash_attention"] == before
+    assert _lib.LAUNCHES == before
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cpu_bf16_at_a_wgmma_shape_takes_the_plain_version(causal):
+    # bf16 at d=128 is the wgmma design's shape on the card; on the CPU it is
+    # the plain version, and neither design's launch count moves
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(40, 4, 128, seed=2, hkv=2))
+    before = dict(_lib.LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v, causal=causal),
+                               rtol=0, atol=0)
+    assert got.dtype == torch.bfloat16
+    assert _lib.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_design_by_dtype_and_head_dim(d, dtype):
+    # bf16 at d = 64 or 128 takes the wgmma kernel; fp32 and the other head
+    # dims keep the mma.sync kernel
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "mma"
+    assert _design(dtype, d) == want
+    assert set(WGMMA_HEAD_DIMS) <= set(HEAD_DIMS)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_ported_configs_select_wgmma_except_stablelm(arch):
+    cfg = get_config(arch)
+    dtype = getattr(torch, cfg.dtype)
+    assert dtype == torch.bfloat16
+    assert cfg.hd in HEAD_DIMS
+    assert _design(dtype, cfg.hd) == ("mma" if arch == "stablelm_3b" else "wgmma")
+    assert (cfg.hd == 80) == (arch == "stablelm_3b")
 
 
 def test_shape_checks():
