@@ -12,7 +12,9 @@ result:
   2. build      nvcc of src/repro_torch/kernels/csrc into build/kernels/
   3. kernels    lb_route (4 stacked x 512-member instances and one
                 instance), dispatch_plan and seg_masks at 2^20 packets,
-                exactly equal to their plain versions; flash_attention at the
+                exactly equal to their plain versions, and again after the
+                timing's graph replays (a flag or counter a kernel fails to
+                reset between calls shows there); flash_attention at the
                 Yi-6B prefill shape (T=4096, 32/4 heads, d=128, bf16,
                 causal), at T=3000 causal and not, at B=2 with T=1000 causal
                 and not (a tensor map not bounded per batch would read the
@@ -30,7 +32,10 @@ result:
   4. loop       the closed loop at a small size on the card and on the CPU
                 (summaries must be equal), then the full-width 25-step,
                 64-member straggler loop with its invariants, and every
-                kernel launched at least once per step
+                kernel launched at least once per step; then lb_route and
+                dispatch_plan at that loop's median window and lb_route at a
+                serving tick, inputs in L2 (graphs of 200 calls), each equal
+                to plain after the replays
   5. serve      the Yi-6B smoke config served on the card and on the CPU
                 (routing, tokens and stats must be equal), then Yi-6B at
                 full depth and width (bf16, random weights): 2 replicas x 4
@@ -80,6 +85,14 @@ SOURCES = {
     "seg_masks": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
 }
+DESIGNS = {
+    "lb_route": "persistent grid (1024-thread blocks, one per SM, from a full wave of "
+                "them; 256-thread blocks below), every instance's tables staged in "
+                "shared memory, 4 packets per thread",
+    "dispatch_plan": "one launch (+ a same-stream clear of its flags), single pass over "
+                     "4096-packet tiles, two-level decoupled look-back across tiles",
+    "seg_masks": "one thread per row, row i-1 read directly",
+}
 # flash_attention has two designs, chosen by (dtype, head dim): the main path
 # (bf16, d=128) runs the wgmma one
 DESIGN_SOURCES = {
@@ -124,8 +137,50 @@ def time_on_card(torch, fn, reps=20, rounds=7):
     evictions alone; median over ``rounds`` replays. The graph takes the
     host's launch cost out of the measurement. Fails when the difference
     is not above the spread of the eviction-only replays: the call's time
-    is then lost in the noise and there is no measurement to report."""
+    is then lost in the noise and there is no measurement to report.
+    Returns ``(ms, out)``: ``out`` is what the graph's last ``fn()`` call
+    returned, which every replay rewrites, so it holds the last replayed
+    call's outputs."""
     flush = torch.ones(32 << 20, dtype=torch.int32, device="cuda")
+    _warm_up(torch, fn)
+
+    def capture(with_fn):
+        g, out = torch.cuda.CUDAGraph(), None
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                flush.sum()
+                if with_fn:
+                    out = fn()
+        return g, out
+
+    (g_fn, out), (g_flush, _) = capture(True), capture(False)
+    graphs = {True: g_fn, False: g_flush}
+    per = {True: [], False: []}
+    for _ in range(rounds):
+        for k, g in graphs.items():
+            per[k].append(_replay_ms(torch, g) / reps)
+    ms = statistics.median(per[True]) - statistics.median(per[False])
+    noise = max(per[False]) - min(per[False])
+    check(ms > noise, f"call time {ms:.6f} ms is not above the eviction noise "
+                      f"{noise:.6f} ms: not measured")
+    return ms, out
+
+
+def time_warm(torch, fn, reps=200, rounds=7):
+    """Device time of one ``fn()`` call with its inputs in L2, as the main
+    path finds them, in ms: ``reps`` calls back to back in one CUDA graph
+    (no eviction, so a call of a few us is not lost behind a ~40 us one),
+    median over ``rounds`` replays. Returns ``(ms, out)`` as
+    ``time_on_card`` does."""
+    _warm_up(torch, fn)
+    g, out = torch.cuda.CUDAGraph(), None
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            out = fn()
+    return statistics.median(_replay_ms(torch, g) / reps for _ in range(rounds)), out
+
+
+def _warm_up(torch, fn):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -134,31 +189,21 @@ def time_on_card(torch, fn, reps=20, rounds=7):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
 
-    def capture(with_fn):
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                flush.sum()
-                if with_fn:
-                    fn()
-        return g
 
-    graphs = {True: capture(True), False: capture(False)}
-    per = {True: [], False: []}
-    for _ in range(rounds):
-        for k, g in graphs.items():
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            g.replay()
-            b.record()
-            b.synchronize()
-            per[k].append(a.elapsed_time(b) / reps)
-    ms = statistics.median(per[True]) - statistics.median(per[False])
-    noise = max(per[False]) - min(per[False])
-    check(ms > noise, f"call time {ms:.6f} ms is not above the eviction noise "
-                      f"{noise:.6f} ms: not measured")
-    return ms
+def _replay_ms(torch, g):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def check_equal(torch, what, got, want):
+    """Every output tensor of a kernel call exactly equal to the plain one."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(torch.equal(g, w), f"{what}: output {i} differs from plain")
 
 
 def max_err(got, want) -> int:
@@ -196,13 +241,13 @@ def full_width_tables(np, rng):
     return vlb, base, span
 
 
-def full_width_headers(np, rng, base, span):
+def full_width_headers(np, rng, base, span, n=N_FULL):
     from repro_torch.core.protocol import encode_headers
 
-    ev = (base + rng.integers(-span // 8, span + span // 8, N_FULL)).astype(np.uint64)
+    ev = (base + rng.integers(-span // 8, span + span // 8, n)).astype(np.uint64)
     ev[:64] = np.uint64(2**64 - 1) - np.arange(64, dtype=np.uint64)  # top of the space
-    words = encode_headers(ev, rng.integers(0, 1 << 16, N_FULL).astype(np.uint32))
-    bad = np.arange(0, N_FULL, CORRUPT_EVERY)
+    words = encode_headers(ev, rng.integers(0, 1 << 16, n).astype(np.uint32))
+    bad = np.arange(0, n, CORRUPT_EVERY)
     words[bad[0::2], 0] ^= np.uint32(1 << 16)   # wrong magic
     words[bad[1::2], 0] ^= np.uint32(1 << 9)    # wrong version
     return words, len(bad)
@@ -229,47 +274,53 @@ def kernel_phase(torch, np):
     # -- lb_route -------------------------------------------------------------
     got = lb_route(hdr, stacked, iid)
     want = ref.lb_route_ref(hdr, stacked, iid)
-    for name, g, w in zip(("member", "node", "lane", "valid"), got, want):
-        check(torch.equal(g, w), f"lb_route (4 instances) {name} differs from plain")
+    check_equal(torch, "lb_route (4 instances)", got, want)
     err = max_err(got, want)
     n_valid = int(got[3].sum())
     check(n_valid <= N_FULL - n_bad, "corrupt headers were routed")
-    got1 = lb_route(hdr, single)
     want1 = ref.lb_route_ref(hdr, single)
-    for name, g, w in zip(("member", "node", "lane", "valid"), got1, want1):
-        check(torch.equal(g, w), f"lb_route (1 instance) {name} differs from plain")
+    check_equal(torch, "lb_route (1 instance)", lb_route(hdr, single), want1)
     table_bytes = sum(t.numel() * t.element_size() for t in stacked.fields().values())
-    t_k = time_on_card(torch, lambda: lb_route(hdr, stacked, iid))
-    t_p = time_on_card(torch, lambda: ref.lb_route_ref(hdr, stacked, iid))
-    t_k1 = time_on_card(torch, lambda: lb_route(hdr, single))
+    t_k, last = time_on_card(torch, lambda: lb_route(hdr, stacked, iid))
+    check_equal(torch, "lb_route (4 instances) after graph replays", last, want)
+    t_p, _ = time_on_card(torch, lambda: ref.lb_route_ref(hdr, stacked, iid))
+    t_k1, last = time_on_card(torch, lambda: lb_route(hdr, single))
+    check_equal(torch, "lb_route (1 instance) after graph replays", last, want1)
+    single_bytes = sum(t.numel() * t.element_size() for t in single.fields().values())
     b_ms, b_by = bound(N_FULL * (16 + 4 + 16) + table_bytes, N_FULL * 120)
+    b1_ms, _ = bound(N_FULL * (16 + 16) + single_bytes, N_FULL * 120)
     results["lb_route"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                               max_abs_err=err, library_ms=None,
-                               shape=f"N=2^20, {N_INST}x{MAX_MEMBERS} stacked")
+                               max_abs_err=err, library_ms=None, design=DESIGNS["lb_route"],
+                               shape=f"N=2^20, {N_INST}x{MAX_MEMBERS} stacked",
+                               single_instance_ms=t_k1, single_instance_bound_ms=b1_ms)
     say(f"[kernels] lb_route 4x{MAX_MEMBERS} stacked, N=2^20, {n_bad} corrupt, "
-        f"{n_valid} routed: equal to plain; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); single instance kernel {t_k1:.4f} ms, equal")
+        f"{n_valid} routed: equal to plain, also after graph replays; kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / t_k:.1%} reached); "
+        f"single instance kernel {t_k1:.4f} ms, bound {b1_ms:.4f} ms "
+        f"({b1_ms / t_k1:.1%} reached), equal")
 
     # -- dispatch_plan on the routed members --------------------------------------
     member = got[0]
     pos, counts = dispatch_plan(member, n_members=MAX_MEMBERS)
     pos_r, counts_r = ref.dispatch_plan_ref(member, n_members=MAX_MEMBERS)
-    check(torch.equal(pos, pos_r), "dispatch_plan pos differs from plain")
-    check(torch.equal(counts, counts_r), "dispatch_plan counts differ from plain")
+    check_equal(torch, "dispatch_plan", (pos, counts), (pos_r, counts_r))
     err = max_err((pos, counts), (pos_r, counts_r))
     check(int(counts.sum()) == n_valid, "dispatch_plan counts do not sum to routed")
     edge = torch.tensor([3, -1, 600, 3, 511, -5, 3, 512], dtype=torch.int32, device="cuda")
     ep, ec = dispatch_plan(edge, n_members=MAX_MEMBERS)
     epr, ecr = ref.dispatch_plan_ref(edge, n_members=MAX_MEMBERS)
     check(torch.equal(ep, epr) and torch.equal(ec, ecr), "dispatch_plan edge cases differ")
-    t_k = time_on_card(torch, lambda: dispatch_plan(member, n_members=MAX_MEMBERS))
-    t_p = time_on_card(torch, lambda: ref.dispatch_plan_ref(member, n_members=MAX_MEMBERS))
+    t_k, last = time_on_card(torch, lambda: dispatch_plan(member, n_members=MAX_MEMBERS))
+    check_equal(torch, "dispatch_plan after graph replays", last, (pos_r, counts_r))
+    t_p, _ = time_on_card(torch, lambda: ref.dispatch_plan_ref(member, n_members=MAX_MEMBERS))
     b_ms, b_by = bound(N_FULL * 8 + MAX_MEMBERS * 4, N_FULL * 20)
     results["dispatch_plan"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                                     max_abs_err=err, library_ms=None,
+                                    design=DESIGNS["dispatch_plan"],
                                     shape=f"N=2^20, n_members={MAX_MEMBERS}")
-    say(f"[kernels] dispatch_plan N=2^20 n_members={MAX_MEMBERS}: equal to plain; "
-        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    say(f"[kernels] dispatch_plan N=2^20 n_members={MAX_MEMBERS}: equal to plain, also "
+        f"after graph replays; kernel {t_k:.4f} ms (its scratch clear included), plain "
+        f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / t_k:.1%} reached)")
 
     # -- seg_masks on a key-sorted 2^20-row window -------------------------------
     pool = (base + rng.integers(0, span, 1 << 16)).astype(np.uint64)
@@ -293,11 +344,13 @@ def kernel_phase(torch, np):
     for k in plan_gpu:
         check(torch.equal(plan_gpu[k].cpu(), plan_cpu[k]),
               f"reassembly_plan[{k}] on the card differs from the CPU")
-    t_k = time_on_card(torch, lambda: seg_masks(sv, s_hi, s_lo, s_daq, s_seg))
-    t_p = time_on_card(torch, lambda: ref.seg_masks_ref(sv, s_hi, s_lo, s_daq, s_seg))
+    t_k, last = time_on_card(torch, lambda: seg_masks(sv, s_hi, s_lo, s_daq, s_seg))
+    check_equal(torch, "seg_masks after graph replays", last, (ng_r, dup_r))
+    t_p, _ = time_on_card(torch, lambda: ref.seg_masks_ref(sv, s_hi, s_lo, s_daq, s_seg))
     b_ms, b_by = bound(N_FULL * 28, N_FULL * 12)
     results["seg_masks"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=err, library_ms=None, shape="N=2^20 sorted rows")
+                                max_abs_err=err, library_ms=None, design=DESIGNS["seg_masks"],
+                                shape="N=2^20 sorted rows")
     say(f"[kernels] seg_masks N=2^20 ({int(ng.sum())} groups, {int(dup.sum())} dups): "
         f"equal to plain, reassembly_plan card == CPU; kernel {t_k:.4f} ms, "
         f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -393,9 +446,9 @@ def flash_phase(torch, np):
                      - flash_attention_ref(q, k, v).float()).abs().max())
     design = _design(q.dtype, FLASH_D)
     check(design == "wgmma", f"the Yi-6B prefill shape chose the {design} design")
-    t_k = time_on_card(torch, lambda: flash_attention(q, k, v, causal=True))
-    t_p = time_on_card(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5)
-    t_l = time_on_card(torch, sdpa)
+    t_k, _ = time_on_card(torch, lambda: flash_attention(q, k, v, causal=True))
+    t_p, _ = time_on_card(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5)
+    t_l, _ = time_on_card(torch, sdpa)
     bytes_moved = 2 * FLASH_T * FLASH_D * (2 * FLASH_HQ + 2 * FLASH_HKV)  # bf16 q, o, k, v
     ops = 4 * FLASH_HQ * FLASH_D * FLASH_T * (FLASH_T + 1) // 2
     b_ms, b_by = bound(bytes_moved, ops, BF16_FLOPS_PER_S)
@@ -456,7 +509,58 @@ def loop_phase(torch):
                 step_s_median=statistics.median(steps), step_s_max=max(steps),
                 phase_s={k: round(v, 4) for k, v in res.phase_s.items()})
     say("[loop] " + json.dumps(line, sort_keys=True))
-    return launches
+    return launches, int(statistics.median(res.windows))
+
+
+def main_path_sizes(torch, np, window_n, tick_n):
+    """``lb_route`` and ``dispatch_plan`` at the main path's own sizes, with
+    their inputs in L2 as the main path leaves them (``time_warm``): the
+    loop's median window (routed padded to a power of two against one
+    512-member instance, as ``DataPlane.route_window`` does, then planned
+    unpadded over 512 members) and a serving tick (``tick_n`` requests
+    against the engine's one 64-member instance). Each against its plain
+    version after the replays."""
+    from repro_torch.core import EpochManager, MemberSpec
+    from repro_torch.core.dataplane import DataPlane
+    from repro_torch.core.protocol import encode_headers, words_to_tensor
+    from repro_torch.data.segmentation import next_pow2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dispatch import dispatch_plan
+    from repro_torch.kernels.lb_route import lb_route
+
+    rng = np.random.default_rng(13)
+    vlb, base, span = full_width_tables(np, rng)
+    single = DataPlane.from_manager(vlb.instances[0], device="cuda").tables
+    n_route = next_pow2(window_n)
+    words, _ = full_width_headers(np, rng, base, span, n_route)
+    hdr = words_to_tensor(words, "cuda")
+    t_route, last = time_warm(torch, lambda: lb_route(hdr, single))
+    check_equal(torch, f"lb_route N={n_route} after graph replays", last,
+                ref.lb_route_ref(hdr, single))
+    member = last[0][:window_n].contiguous()
+    t_plan, last = time_warm(torch, lambda: dispatch_plan(member, n_members=MAX_MEMBERS))
+    check_equal(torch, f"dispatch_plan N={window_n} after graph replays", last,
+                ref.dispatch_plan_ref(member, n_members=MAX_MEMBERS))
+
+    em = EpochManager(max_members=64)  # the serving engine's table
+    em.initialize({m: MemberSpec(node_id=m, lane_bits=FULL_SERVE["lane_bits"])
+                   for m in range(FULL_SERVE["n_replicas"])},
+                  {m: 1.0 for m in range(FULL_SERVE["n_replicas"])})
+    tick_tables = DataPlane.from_manager(em, device="cuda").tables
+    tick = words_to_tensor(encode_headers(
+        np.cumsum(rng.integers(1, 5, tick_n)).astype(np.uint64),
+        rng.integers(0, 1 << 16, tick_n).astype(np.uint32)), "cuda")
+    t_tick, last = time_warm(torch, lambda: lb_route(tick, tick_tables))
+    check_equal(torch, f"lb_route N={tick_n} after graph replays", last,
+                ref.lb_route_ref(tick, tick_tables))
+    say(f"[kernels] main-path sizes, inputs in L2 (graphs of 200 calls): lb_route "
+        f"N={n_route} (the loop's median window {window_n}, padded; one instance) "
+        f"{t_route * 1e3:.3f} us, dispatch_plan N={window_n} n_members={MAX_MEMBERS} "
+        f"{t_plan * 1e3:.3f} us, lb_route N={tick_n} (a serving tick, one 64-member "
+        f"instance) {t_tick * 1e3:.3f} us; each equal to plain after the replays")
+    return {"lb_route": dict(loop_window_n=n_route, loop_window_ms=t_route,
+                             serving_tick_n=tick_n, serving_tick_ms=t_tick),
+            "dispatch_plan": dict(loop_window_n=window_n, loop_window_ms=t_plan)}
 
 
 # ---------------------------------------------------------------------------
@@ -725,7 +829,9 @@ def main() -> int:
 
         results = kernel_phase(torch, np)
         results["flash_attention"] = flash_phase(torch, np)
-        loop_launches = loop_phase(torch)
+        loop_launches, window_n = loop_phase(torch)
+        for name, sizes in main_path_sizes(torch, np, window_n, N_REQUESTS).items():
+            results[name]["main_path"] = sizes
         small_serve(torch, np)
         serve_launches = full_serve(torch, np)
     except SmokeFailure as exc:

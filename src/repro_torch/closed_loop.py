@@ -108,6 +108,7 @@ class LoopResult:
     phase_s: dict                 # host seconds per phase, summed over steps
     step_s: list                  # host seconds per step
     step_launches: list           # kernel launches per step (``_lib.LAUNCHES`` deltas)
+    windows: list = dataclasses.field(default_factory=list)  # packets arrived per step
     packets_routed: int = 0
     packets_packed: int = 0
     pack_dropped: int = 0
@@ -152,6 +153,7 @@ def run(args) -> LoopResult:
     phase_s = dict.fromkeys(PHASES, 0.0)
     step_s: list[float] = []
     step_launches: list[dict] = []
+    windows: list[int] = []
     routed = packed = pack_dropped = 0
     clock = [time.perf_counter()]
 
@@ -188,6 +190,7 @@ def run(args) -> LoopResult:
         batch = segment_bundles(bundles, args.mtu_payload)
         lap("segment")
         arrived = wan.deliver_batch(batch)
+        windows.append(len(arrived))
         lap("wan")
         if len(arrived) == 0:
             end_step(t_step0, launches0)
@@ -290,7 +293,7 @@ def run(args) -> LoopResult:
                           f"({pack_dropped} dropped)")
     summary["violations"] = violations
     return LoopResult(summary=summary, phase_s=phase_s, step_s=step_s,
-                      step_launches=step_launches,
+                      step_launches=step_launches, windows=windows,
                       packets_routed=routed, packets_packed=packed,
                       pack_dropped=pack_dropped)
 

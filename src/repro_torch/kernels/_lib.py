@@ -110,15 +110,17 @@ def build() -> Path:
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ejfat_lb_route_smem_bytes.argtypes = [i, i, i, i]
     lib.ejfat_lb_route.argtypes = [p, p, i, p, p, p, p, p, p, p, p,
-                                   i, i, i, i, i, p, p, p, p, p]
-    lib.ejfat_dispatch_tile.argtypes = []
+                                   i, i, i, i, p, p, p, p, p]
+    lib.ejfat_dispatch_scratch_words.argtypes = [i, i]
     lib.ejfat_dispatch_plan.argtypes = [p, i, i, p, p, p, p]
     lib.ejfat_seg_masks.argtypes = [p, p, p, p, p, i, p, p, p]
     lib.ejfat_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.ejfat_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.ejfat_lb_route, lib.ejfat_dispatch_tile,
-               lib.ejfat_dispatch_plan, lib.ejfat_seg_masks,
+    for fn in (lib.ejfat_lb_route_smem_bytes, lib.ejfat_dispatch_scratch_words):
+        fn.restype = ctypes.c_longlong
+    for fn in (lib.ejfat_lb_route, lib.ejfat_dispatch_plan, lib.ejfat_seg_masks,
                lib.ejfat_flash_attention, lib.ejfat_flash_attention_wgmma):
         fn.restype = ctypes.c_int
 

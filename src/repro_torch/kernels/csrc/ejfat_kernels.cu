@@ -1,8 +1,8 @@
 // EJ-FAT data-plane kernels for Hopper (sm_90a), bound to PyTorch through a
 // plain C interface (ctypes). Each entry point takes raw device pointers,
 // sizes and the CUDA stream, launches on that stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError() so the Python wrapper can
-// raise on a refused launch.
+// allocates nothing, and returns the first CUDA error of its calls so the
+// Python wrapper can raise on a refused launch.
 //
 // Integer convention: a uint32 protocol word travels as an int32 tensor with
 // the same bits and is read here as uint32_t; the u32 epoch-segment starts
@@ -16,6 +16,7 @@ namespace {
 constexpr uint32_t kMagic = 0x4C42;
 constexpr uint32_t kVersion = 1;
 constexpr uint32_t kSlotMask = 0x1FF;  // 512-slot calendars
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -30,75 +31,312 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 // packet against a few integer compares, so the card's 3.35 TB/s memory
 // rate is the limit (~11 us at 2^20 packets).
 //
-// Design: one thread per packet. The header row is one 16-byte load
-// (row-major [N, 4]; no field-major transpose as on the TPU) and the four
-// outputs are coalesced 4-byte stores. The tables (one instance: 24.8 KB at
-// 512 members; four stacked: ~99 KB) are read through the read-only data
-// cache (__ldg) rather than staged in shared memory: every block would
-// otherwise copy the whole table set before routing its 256 packets, which
-// at 2^20 packets is ~4096 x 25-99 KB of extra L2 traffic, while the tables
-// a window actually touches (the live calendar rows, the live members) stay
-// resident in the SM's L1 after the first misses. The same code serves both
-// the single and the stacked tables (template on MULTI), so the 99 KB stack
-// needs no dynamic shared memory opt-in. Rows, members and instance ids are
-// clipped exactly as the Pallas kernel clips them, so an invalid packet never
-// reads outside a table.
+// Design: a persistent grid of min(packet groups / 64, SMs x occupancy)
+// blocks, each of which first stages every instance's tables in shared
+// memory, then walks groups of 4 consecutive packets per thread with a grid
+// stride: four 16-byte header loads in flight (the next group's are issued
+// before the current group is routed), and each of the four outputs leaves
+// as one 16-byte store. The first group's header loads are issued before
+// the staging, so they overlap it. Once the window holds a full 1024-thread
+// block of packet groups for every SM (2^20 packets: yes; the closed loop's
+// ~16k-packet window: no), blocks have 1024 threads and occupancy 1, so
+// each SM stages the tables once (132 copies in all); below that, blocks of
+// 256 threads spread over more SMs, which the loop's window runs faster
+// than on 1024-thread blocks (PERF.md).
+//
+// Shared-memory layout, per instance i of I (M members, R calendar rows of
+// S slots):
+//   member[I][M]  int4 {node, base lane, lane mask, valid}: one 16-byte
+//                 read per packet instead of four gathers
+//   cal[I][R][S]  int32 member ids
+//   start[I][17]  u64 segment starts; the row stride is 17 words, not 16,
+//                 so the four instances' start s sit in banks 2s+2i, 2s+2i+1
+//                 (i = 0..3): a warp whose lanes carry four instance ids
+//                 reads four distinct words in one wavefront (a 16-word
+//                 stride would put them all in one bank pair, 4-way)
+//   row[I][16]    int32 calendar row of each segment
+// Four stacked instances of 512 members take 99,104 B (the dynamic shared
+// memory opt-in), one instance 24,776 B. With one instance the 16 starts
+// are held in registers. Every clip of the Pallas
+// kernel is kept (instance id, row, member), so an invalid packet never
+// reads outside a table; the epoch search stays a count of starts <= event
+// over all 16 entries, since the compiled starts may come in any order.
 // ---------------------------------------------------------------------------
-template <bool MULTI>
-__global__ void lb_route_kernel(
-    const int4* __restrict__ hdr, const int32_t* __restrict__ iid, int n,
-    const long long* __restrict__ seg_hi, const long long* __restrict__ seg_lo,
-    const int32_t* __restrict__ seg_row, const int32_t* __restrict__ cal,
-    const int32_t* __restrict__ node, const int32_t* __restrict__ base,
-    const int32_t* __restrict__ mask, const int32_t* __restrict__ mvalid,
-    int n_inst, int n_seg, int n_rows, int n_slots, int n_members,
-    int32_t* __restrict__ member_out, int32_t* __restrict__ node_out,
-    int32_t* __restrict__ lane_out, int32_t* __restrict__ valid_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+constexpr int kSeg = 16;                // epoch segments per instance
+constexpr int kSegStride = kSeg + 1;    // u64 words per instance row of starts
+constexpr int kLbThreadsLarge = 1024;   // one block per SM
+constexpr int kLbThreadsSmall = 256;    // below a full wave of large blocks
+constexpr int kLbPackets = 4;           // consecutive packets per thread
+constexpr int kLbSpread = 64;           // a block per this many packet groups
 
+__host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
+
+struct LbTables {
+  int4* member;
+  int32_t* cal;
+  uint64_t* start;
+  int32_t* row;
+};
+
+__host__ __device__ inline size_t lb_member_bytes(int n_inst, int n_members) {
+  return align16(sizeof(int4) * n_inst * static_cast<size_t>(n_members));
+}
+__host__ __device__ inline size_t lb_cal_bytes(int n_inst, int n_rows, int n_slots) {
+  return align16(sizeof(int32_t) * n_inst * static_cast<size_t>(n_rows) * n_slots);
+}
+__host__ __device__ inline size_t lb_start_bytes(int n_inst) {
+  return align16(sizeof(uint64_t) * n_inst * kSegStride);
+}
+__host__ __device__ inline size_t lb_smem_bytes(int n_inst, int n_rows, int n_slots,
+                                                int n_members) {
+  return lb_member_bytes(n_inst, n_members) + lb_cal_bytes(n_inst, n_rows, n_slots) +
+         lb_start_bytes(n_inst) + sizeof(int32_t) * n_inst * kSeg;
+}
+
+__device__ inline LbTables lb_carve(unsigned char* smem, int n_inst, int n_rows, int n_slots,
+                                    int n_members) {
+  LbTables t;
+  t.member = reinterpret_cast<int4*>(smem);
+  smem += lb_member_bytes(n_inst, n_members);
+  t.cal = reinterpret_cast<int32_t*>(smem);
+  smem += lb_cal_bytes(n_inst, n_rows, n_slots);
+  t.start = reinterpret_cast<uint64_t*>(smem);
+  smem += lb_start_bytes(n_inst);
+  t.row = reinterpret_cast<int32_t*>(smem);
+  return t;
+}
+
+// Header words (and instance ids) of the packets p0 .. p0+3; past n, zero
+// words (which fail the magic check) and instance 0.
+template <bool MULTI>
+__device__ __forceinline__ void load_group(const int4* __restrict__ hdr,
+                                           const int32_t* __restrict__ iid, int n, long long p0,
+                                           int4 (&w)[kLbPackets], int (&ids)[kLbPackets]) {
+  if (p0 + kLbPackets <= n) {
+#pragma unroll
+    for (int k = 0; k < kLbPackets; ++k) w[k] = __ldg(hdr + p0 + k);
+    if (MULTI) {
+      if ((reinterpret_cast<uintptr_t>(iid) & 15) == 0) {  // p0 is a multiple of 4
+        const int4 v = __ldg(reinterpret_cast<const int4*>(iid + p0));
+        ids[0] = v.x; ids[1] = v.y; ids[2] = v.z; ids[3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kLbPackets; ++k) ids[k] = __ldg(iid + p0 + k);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLbPackets; ++k) {
+      const bool in = p0 + k < n;
+      w[k] = in ? __ldg(hdr + p0 + k) : make_int4(0, 0, 0, 0);
+      if (MULTI) ids[k] = in ? __ldg(iid + p0 + k) : 0;
+    }
+  }
+}
+
+// One packet through parse -> epoch -> calendar -> member rewrite:
+// {member, node, lane, valid}.
+template <bool MULTI>
+__device__ __forceinline__ int4 route_one(int4 w, int inst, const LbTables& t,
+                                          const uint64_t (&reg_start)[kSeg], int n_inst,
+                                          int n_rows, int n_slots, int n_members) {
   // Parsing stage (paper §III-A): field extract + magic/version check.
-  const int4 w = __ldg(hdr + i);
   const uint32_t w0 = static_cast<uint32_t>(w.x);
-  const uint32_t w1 = static_cast<uint32_t>(w.y);
-  const uint32_t e_hi = static_cast<uint32_t>(w.z);
   const uint32_t e_lo = static_cast<uint32_t>(w.w);
   bool ok = ((w0 >> 16) & 0xFFFFu) == kMagic && ((w0 >> 8) & 0xFFu) == kVersion;
-  const int entropy = static_cast<int>(w1 & 0xFFFFu);
-
-  int inst = 0;
-  if (MULTI) inst = clampi(__ldg(iid + i), 0, n_inst - 1);
+  const int entropy = static_cast<int>(static_cast<uint32_t>(w.y) & 0xFFFFu);
+  inst = MULTI ? clampi(inst, 0, n_inst - 1) : 0;
 
   // Calendar Epoch Assignment: segment = (#starts <= event) - 1, u64 compare.
-  const uint64_t ev = (static_cast<uint64_t>(e_hi) << 32) | e_lo;
-  const long long* shi = seg_hi + static_cast<long long>(inst) * n_seg;
-  const long long* slo = seg_lo + static_cast<long long>(inst) * n_seg;
+  const uint64_t ev = (static_cast<uint64_t>(static_cast<uint32_t>(w.z)) << 32) | e_lo;
   int cnt = 0;
-  for (int s = 0; s < n_seg; ++s) {
-    const uint64_t start =
-        (static_cast<uint64_t>(static_cast<uint32_t>(__ldg(shi + s))) << 32) |
-        static_cast<uint32_t>(__ldg(slo + s));
-    cnt += ev >= start ? 1 : 0;
-  }
-  const int idx = clampi(cnt - 1, 0, n_seg - 1);
-  const int row = __ldg(seg_row + inst * n_seg + idx);
+#pragma unroll
+  for (int s = 0; s < kSeg; ++s)
+    cnt += ev >= (MULTI ? t.start[inst * kSegStride + s] : reg_start[s]) ? 1 : 0;
+  const int row = t.row[inst * kSeg + clampi(cnt - 1, 0, kSeg - 1)];
 
   // Calendar to Member Map: slot = 9 LSBs of the event number.
   const int slot = static_cast<int>(e_lo & kSlotMask);
-  const int r = clampi(row, 0, n_rows - 1);
-  const int member =
-      __ldg(cal + (static_cast<long long>(inst) * n_rows + r) * n_slots + slot);
+  const int member = t.cal[(inst * n_rows + clampi(row, 0, n_rows - 1)) * n_slots + slot];
 
   // Member Lookup and Rewrite.
-  const int mb = inst * n_members + clampi(member, 0, n_members - 1);
-  const int nd = __ldg(node + mb);
-  const int lane = __ldg(base + mb) + (entropy & __ldg(mask + mb));
-  ok = ok && row >= 0 && member >= 0 && __ldg(mvalid + mb) > 0;
+  const int4 mt = t.member[inst * n_members + clampi(member, 0, n_members - 1)];
+  ok = ok && row >= 0 && member >= 0 && mt.w > 0;
+  return ok ? make_int4(member, mt.x, mt.y + (entropy & mt.z), 1) : make_int4(-1, -1, -1, 0);
+}
 
-  member_out[i] = ok ? member : -1;
-  node_out[i] = ok ? nd : -1;
-  lane_out[i] = ok ? lane : -1;
-  valid_out[i] = ok ? 1 : 0;
+template <bool MULTI, int THREADS>
+__global__ void __launch_bounds__(THREADS) lb_route_kernel(
+    const int4* __restrict__ hdr, const int32_t* __restrict__ iid, int n,
+    const long long* __restrict__ seg_hi, const long long* __restrict__ seg_lo,
+    const int32_t* __restrict__ seg_row, const int4* __restrict__ cal,
+    const int32_t* __restrict__ node, const int32_t* __restrict__ base,
+    const int32_t* __restrict__ mask, const int32_t* __restrict__ mvalid,
+    int n_inst, int n_rows, int n_slots, int n_members,
+    int32_t* __restrict__ member_out, int32_t* __restrict__ node_out,
+    int32_t* __restrict__ lane_out, int32_t* __restrict__ valid_out) {
+  extern __shared__ __align__(16) unsigned char lb_smem[];
+  const LbTables t = lb_carve(lb_smem, n_inst, n_rows, n_slots, n_members);
+  const long long n_groups = (static_cast<long long>(n) + kLbPackets - 1) / kLbPackets;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+
+  int4 w[kLbPackets];
+  int ids[kLbPackets] = {0, 0, 0, 0};
+  if (g < n_groups) load_group<MULTI>(hdr, iid, n, g * kLbPackets, w, ids);
+
+  // Stage the tables: 16-byte copies of the calendars; the four member
+  // fields interleaved into one int4 each, read 4 members at a time where
+  // the arrays allow 16-byte loads.
+  const int nm = n_inst * n_members;
+  const bool vec = nm % 4 == 0 && ((reinterpret_cast<uintptr_t>(node) |
+                                    reinterpret_cast<uintptr_t>(base) |
+                                    reinterpret_cast<uintptr_t>(mask) |
+                                    reinterpret_cast<uintptr_t>(mvalid)) & 15) == 0;
+  if (vec) {
+    for (int q = threadIdx.x; q < nm / 4; q += blockDim.x) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(node) + q);
+      const int4 b = __ldg(reinterpret_cast<const int4*>(base) + q);
+      const int4 c = __ldg(reinterpret_cast<const int4*>(mask) + q);
+      const int4 d = __ldg(reinterpret_cast<const int4*>(mvalid) + q);
+      t.member[4 * q + 0] = make_int4(a.x, b.x, c.x, d.x);
+      t.member[4 * q + 1] = make_int4(a.y, b.y, c.y, d.y);
+      t.member[4 * q + 2] = make_int4(a.z, b.z, c.z, d.z);
+      t.member[4 * q + 3] = make_int4(a.w, b.w, c.w, d.w);
+    }
+  } else {
+    for (int k = threadIdx.x; k < nm; k += blockDim.x)
+      t.member[k] =
+          make_int4(__ldg(node + k), __ldg(base + k), __ldg(mask + k), __ldg(mvalid + k));
+  }
+  const int n_cal4 = n_inst * n_rows * n_slots / 4;
+  for (int k = threadIdx.x; k < n_cal4; k += blockDim.x)
+    reinterpret_cast<int4*>(t.cal)[k] = __ldg(cal + k);
+  for (int k = threadIdx.x; k < n_inst * kSeg; k += blockDim.x) {
+    t.start[(k / kSeg) * kSegStride + k % kSeg] =
+        (static_cast<uint64_t>(static_cast<uint32_t>(__ldg(seg_hi + k))) << 32) |
+        static_cast<uint32_t>(__ldg(seg_lo + k));
+    t.row[k] = __ldg(seg_row + k);
+  }
+  __syncthreads();
+
+  uint64_t reg_start[kSeg];
+#pragma unroll
+  for (int s = 0; s < kSeg; ++s) reg_start[s] = MULTI ? 0 : t.start[s];
+
+  for (; g < n_groups; g += step) {
+    int4 wn[kLbPackets];
+    int idn[kLbPackets] = {0, 0, 0, 0};
+    if (g + step < n_groups) load_group<MULTI>(hdr, iid, n, (g + step) * kLbPackets, wn, idn);
+    int4 r[kLbPackets];
+#pragma unroll
+    for (int k = 0; k < kLbPackets; ++k)
+      r[k] = route_one<MULTI>(w[k], ids[k], t, reg_start, n_inst, n_rows, n_slots, n_members);
+    const long long p0 = g * kLbPackets;
+    if (p0 + kLbPackets <= n) {
+      *reinterpret_cast<int4*>(member_out + p0) = make_int4(r[0].x, r[1].x, r[2].x, r[3].x);
+      *reinterpret_cast<int4*>(node_out + p0) = make_int4(r[0].y, r[1].y, r[2].y, r[3].y);
+      *reinterpret_cast<int4*>(lane_out + p0) = make_int4(r[0].z, r[1].z, r[2].z, r[3].z);
+      *reinterpret_cast<int4*>(valid_out + p0) = make_int4(r[0].w, r[1].w, r[2].w, r[3].w);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLbPackets; ++k) {
+        if (p0 + k < n) {
+          member_out[p0 + k] = r[k].x;
+          node_out[p0 + k] = r[k].y;
+          lane_out[p0 + k] = r[k].z;
+          valid_out[p0 + k] = r[k].w;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLbPackets; ++k) {
+      w[k] = wn[k];
+      ids[k] = idn[k];
+    }
+  }
+}
+
+// Per device: SM count, the shared-memory opt-in, and the occupancy of each
+// kernel variant at the shared-memory size it was last launched with.
+struct LbLaunchCache {
+  int sms = 0;
+  int optin = 0;
+  int occ[2][2] = {{0, 0}, {0, 0}};           // [MULTI][large]
+  size_t occ_smem[2][2] = {{0, 0}, {0, 0}};
+};
+LbLaunchCache g_lb_cache[kMaxDevices];
+
+template <bool MULTI, int THREADS>
+cudaError_t lb_route_run(LbLaunchCache& c, size_t smem, long long groups, const int4* hdr,
+                         const int32_t* iid, int n, const long long* seg_hi,
+                         const long long* seg_lo, const int32_t* seg_row, const int4* cal,
+                         const int32_t* node, const int32_t* base, const int32_t* mask,
+                         const int32_t* mvalid, int n_inst, int n_rows, int n_slots,
+                         int n_members, int32_t* member_out, int32_t* node_out,
+                         int32_t* lane_out, int32_t* valid_out, cudaStream_t stream) {
+  constexpr bool kLarge = THREADS == kLbThreadsLarge;
+  if (c.occ_smem[MULTI][kLarge] != smem) {
+    int occ = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, lb_route_kernel<MULTI, THREADS>, THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    c.occ[MULTI][kLarge] = occ;
+    c.occ_smem[MULTI][kLarge] = smem;
+  }
+  // A block per kLbSpread packet groups, up to the resident limit.
+  const long long want = (groups + kLbSpread - 1) / kLbSpread;
+  const long long most = static_cast<long long>(c.sms) * c.occ[MULTI][kLarge];
+  const unsigned blocks = static_cast<unsigned>(want < most ? want : most);
+  lb_route_kernel<MULTI, THREADS><<<blocks, THREADS, smem, stream>>>(
+      hdr, iid, n, seg_hi, seg_lo, seg_row, cal, node, base, mask, mvalid, n_inst, n_rows,
+      n_slots, n_members, member_out, node_out, lane_out, valid_out);
+  return cudaGetLastError();
+}
+
+template <bool MULTI>
+cudaError_t lb_route_launch(const int4* hdr, const int32_t* iid, int n, const long long* seg_hi,
+                            const long long* seg_lo, const int32_t* seg_row, const int4* cal,
+                            const int32_t* node, const int32_t* base, const int32_t* mask,
+                            const int32_t* mvalid, int n_inst, int n_rows, int n_slots,
+                            int n_members, int32_t* member_out, int32_t* node_out,
+                            int32_t* lane_out, int32_t* valid_out, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  LbLaunchCache& c = g_lb_cache[dev];
+  if (c.sms == 0) {
+    err = cudaDeviceGetAttribute(&c.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    const void* kernels[] = {
+        reinterpret_cast<const void*>(lb_route_kernel<false, kLbThreadsSmall>),
+        reinterpret_cast<const void*>(lb_route_kernel<false, kLbThreadsLarge>),
+        reinterpret_cast<const void*>(lb_route_kernel<true, kLbThreadsSmall>),
+        reinterpret_cast<const void*>(lb_route_kernel<true, kLbThreadsLarge>)};
+    for (const void* k : kernels)
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, c.optin);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      c.sms = 0;
+      return err;
+    }
+  }
+  const size_t smem = lb_smem_bytes(n_inst, n_rows, n_slots, n_members);
+  if (smem > static_cast<size_t>(c.optin)) return cudaErrorInvalidValue;
+  const long long groups = (static_cast<long long>(n) + kLbPackets - 1) / kLbPackets;
+  // Large blocks once there is a full block of packet groups for every SM.
+  return groups >= static_cast<long long>(c.sms) * kLbThreadsLarge
+             ? lb_route_run<MULTI, kLbThreadsLarge>(
+                   c, smem, groups, hdr, iid, n, seg_hi, seg_lo, seg_row, cal, node, base, mask,
+                   mvalid, n_inst, n_rows, n_slots, n_members, member_out, node_out, lane_out,
+                   valid_out, stream)
+             : lb_route_run<MULTI, kLbThreadsSmall>(
+                   c, smem, groups, hdr, iid, n, seg_hi, seg_lo, seg_row, cal, node, base, mask,
+                   mvalid, n_inst, n_rows, n_slots, n_members, member_out, node_out, lane_out,
+                   valid_out, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -109,112 +347,312 @@ __global__ void lb_route_kernel(
 // member; pos = -1 for member < 0; a member >= n_members gets pos 0 and is
 // not counted (the Pallas one-hot over arange(M) is all zero there).
 //
-// Bound: bytes. 4 B read and 4 B written per packet (~2.5 us at 2^20), plus
-// the per-tile histograms, which are n/4096 x M ints (512 KB at 2^20 and
-// M = 512, L2-resident).
+// Bound: bytes. 4 B read and 4 B written per packet (~2.5 us at 2^20).
 //
-// Design: the TPU kernel walks its grid in order and carries an f32 [M]
-// running count from one block to the next. CUDA blocks run in any order,
-// so the running count becomes three launches with no carry between blocks:
-//   1. dp_count: each block takes a tile of 4096 packets and builds its
-//      per-member histogram with shared-memory atomics;
-//   2. dp_scan: one thread per member scans the tile histograms into
-//      exclusive per-tile offsets and writes counts[m];
-//   3. dp_rank: each block walks its tile again in order, 256 packets at a
-//      time: the in-warp rank is __match_any_sync + popc of the lower lanes,
-//      the earlier warps of the chunk come from per-warp counts in shared
-//      memory, and the earlier chunks and tiles from a running offset.
-// Counts are int32 and exact (the Pallas f32 carry is exact only below 2^24
-// per member).
+// Design: one launch, one pass over `member`, with a decoupled look-back
+// across tiles (the TPU kernel's in-order carry becomes published per-tile
+// counts). A block takes a tile of 4096 packets, its tile id drawn from a
+// device counter (not blockIdx.x), so a tile waits only on tiles whose
+// blocks have already started: forward progress holds however the blocks
+// are scheduled.
+//   1. Each warp loads its 512 contiguous packets into registers (16 per
+//      lane, coalesced) and counts them into its own histogram row in
+//      shared memory (shared-memory atomics).
+//   2. After one barrier, each thread takes n_members / 256 members (2 at
+//      M = 512): it turns the 8 warp counts into exclusive warp offsets and
+//      the tile's aggregate, and publishes the aggregate as one 64-bit word
+//      per (tile, member): flag in the high half (1 = aggregate, 2 =
+//      inclusive prefix), the 32-bit count in the low half (a count reaches
+//      at most N < 2^31, so a one-member skew cannot spill into the flag).
+//   3. Look-back in two levels. Tiles form groups of 8. (a) A tile sums the
+//      aggregates of its group's earlier tiles (at most 7 words, one read
+//      round); the group's last tile publishes the group's aggregate. Then
+//      each warp computes, for its 16 chunks, the lanes holding the same
+//      member (ballots over the member's bits), while the other groups
+//      publish. (b) The group's last tile looks back over the earlier
+//      groups' words (16 per round, nearest first: add aggregates until an
+//      inclusive prefix is found) and publishes the group's inclusive
+//      prefix; the group's other tiles wait for the previous group's
+//      inclusive prefix, one word. A one-level look-back over tiles, when
+//      all tiles publish at once (256 resident tiles at 2^20), reads every
+//      predecessor's word, ~T^2/2 x M words (134 MB at 2^20, M = 512); the
+//      groups bound it to ~4.5 words per tile and member. A word not yet
+//      published is read again after a pause. The tile holding the last
+//      packet writes counts. Each word carries its own value, so relaxed
+//      64-bit accesses at GPU scope suffice: no other memory is ordered by
+//      them, and an acquire on each would serialise a round's loads.
+//   4. Each warp walks its 16 register chunks in order:
+//      pos = (tile prefix + warp offset + running count, one shared row per
+//      warp, bumped by the group leader between two __syncwarp) + the rank
+//      among the lower lanes of the group. Stores are coalesced.
+// What holds it far from its bound on the H100 is this chain of phases,
+// each a latency (scripts/dispatch_plan_phases_torch.py; PERF.md): the
+// tile id, the loads, the ballots (instruction-bound, and slower on the
+// SMs that hold two tiles), the wait for the slowest tile of the earlier
+// groups, and the 16 dependent steps of the rank walk.
+// The words and the tile counter live in a scratch the host entry clears
+// with cudaMemsetAsync on the same stream before the launch, so a CUDA
+// graph replays the clear with the kernel and no reset value comes from
+// the host. Counts are int32 and exact (the Pallas f32 carry is exact only
+// below 2^24 per member).
 // ---------------------------------------------------------------------------
 constexpr int kDpThreads = 256;
 constexpr int kDpWarps = kDpThreads / 32;
-constexpr int kDpChunks = 16;
-constexpr int kDpTile = kDpThreads * kDpChunks;
+constexpr int kDpPerLane = 16;
+constexpr int kDpWarpSpan = 32 * kDpPerLane;      // 512 packets per warp
+constexpr int kDpTile = kDpThreads * kDpPerLane;  // 4096 packets per block
+constexpr int kDpMaxMembers = 1024;               // kernels/dispatch.py MAX_MEMBERS
+constexpr int kDpMembersPerThread = kDpMaxMembers / kDpThreads;
+constexpr int kDpGroup = 8;                       // tiles per group of the look-back
+constexpr int kDpLookBack = 16;                   // predecessor group words per read round
+constexpr unsigned long long kDpAggregate = 1ull << 32;
+constexpr unsigned long long kDpInclusive = 2ull << 32;
 
-__global__ void dp_count(const int32_t* __restrict__ member, int n, int n_members,
-                         int32_t* __restrict__ tile_counts) {
-  extern __shared__ int32_t hist[];
-  for (int m = threadIdx.x; m < n_members; m += blockDim.x) hist[m] = 0;
-  __syncthreads();
-  const long long base = static_cast<long long>(blockIdx.x) * kDpTile;
-  for (int k = threadIdx.x; k < kDpTile; k += blockDim.x) {
-    const long long i = base + k;
-    if (i < n) {
-      const int m = __ldg(member + i);
-      if (m >= 0 && m < n_members) atomicAdd(&hist[m], 1);
-    }
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < n_members; m += blockDim.x)
-    tile_counts[static_cast<long long>(blockIdx.x) * n_members + m] = hist[m];
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__global__ void dp_scan(int32_t* __restrict__ tile_counts, int n_tiles, int n_members,
-                        int32_t* __restrict__ counts) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= n_members) return;
-  // A serial walk over the tiles: batches of kBatch independent loads keep
-  // that many requests in flight instead of one L2 round trip per tile.
-  constexpr int kBatch = 16;
-  int run = 0;
-  for (int b0 = 0; b0 < n_tiles; b0 += kBatch) {
-    int c[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-      c[j] = b0 + j < n_tiles
-                 ? tile_counts[static_cast<long long>(b0 + j) * n_members + m]
-                 : 0;
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      if (b0 + j < n_tiles)  // in place: counts -> exclusive offsets
-        tile_counts[static_cast<long long>(b0 + j) * n_members + m] = run;
-      run += c[j];
-    }
-  }
-  counts[m] = run;
+__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__global__ void dp_rank(const int32_t* __restrict__ member, int n, int n_members,
-                        const int32_t* __restrict__ tile_offsets,
-                        int32_t* __restrict__ pos) {
-  extern __shared__ int32_t smem[];
-  int32_t* running = smem;                // [n_members]
-  int32_t* warp_cnt = smem + n_members;   // [kDpWarps][n_members]
+// A predecessor publishes within microseconds of its start; a look-back
+// stalled for this long is a fault, and the kernel traps (the launch then
+// reports an error) instead of hanging the card.
+constexpr uint64_t kDpWaitLimitNs = 4000000000ull;
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A pause before reading words that were not published yet; traps once
+// the wait since `t0` (0: not started) passes kDpWaitLimitNs.
+__device__ __forceinline__ void dp_pause(uint64_t& t0) {
+  const uint64_t now = global_ns();
+  if (t0 == 0) t0 = now;
+  else if (now - t0 > kDpWaitLimitNs) __trap();
+  __nanosleep(200);
+}
+
+// The word at `p` once its flag reaches `flag_at_least`.
+__device__ __forceinline__ unsigned long long dp_poll(const unsigned long long* p,
+                                                      unsigned flag_at_least) {
+  uint64_t t0 = 0;
+  unsigned long long v = ld_relaxed(p);
+  while ((v >> 32) < flag_at_least) {
+    dp_pause(t0);
+    v = ld_relaxed(p);
+  }
+  return v;
+}
+
+// Exclusive prefix of one member over groups 0 .. group-1; `col` points at
+// that member's word of group 0, `stride` words apart per group: read
+// kDpLookBack words per round, nearest first, adding aggregates up to the
+// first inclusive prefix; from a word not yet published, read again after a
+// pause.
+__device__ __forceinline__ int dp_look_back(const unsigned long long* col, int stride,
+                                            int group) {
+  int prefix = 0;
+  int j = group - 1;
+  uint64_t t0 = 0;
+  for (;;) {
+    unsigned long long v[kDpLookBack];
+#pragma unroll
+    for (int k = 0; k < kDpLookBack; ++k)  // group 0 is always inclusive, so k <= j
+      v[k] = k <= j ? ld_relaxed(col + static_cast<long long>(j - k) * stride) : kDpInclusive;
+    int taken = 0;
+    bool found = false, blocked = false;
+#pragma unroll
+    for (int k = 0; k < kDpLookBack; ++k) {
+      if (!found && !blocked) {
+        if ((v[k] >> 32) == 0) {
+          blocked = true;
+        } else {
+          prefix += static_cast<int>(static_cast<uint32_t>(v[k]));
+          ++taken;
+          found = (v[k] >> 32) == 2;
+        }
+      }
+    }
+    if (found) return prefix;
+    if (blocked) dp_pause(t0);
+    j -= taken;
+  }
+}
+
+__global__ void __launch_bounds__(kDpThreads) dispatch_plan_kernel(
+    const int32_t* __restrict__ member, int n, int n_members, int n_tiles,
+    unsigned int* __restrict__ tile_counter, unsigned long long* __restrict__ tile_words,
+    int32_t* __restrict__ pos, int32_t* __restrict__ counts) {
+  extern __shared__ int32_t hist[];  // [kDpWarps][n_members]
+  __shared__ int tile_s;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const unsigned lower = (1u << lane) - 1u;
-  for (int m = threadIdx.x; m < n_members; m += blockDim.x) {
-    running[m] = tile_offsets[static_cast<long long>(blockIdx.x) * n_members + m];
-    for (int w = 0; w < kDpWarps; ++w) warp_cnt[w * n_members + m] = 0;
+
+  if (threadIdx.x == 0) tile_s = static_cast<int>(atomicAdd(tile_counter, 1u));
+  for (int k = threadIdx.x; k < kDpWarps * n_members; k += kDpThreads) hist[k] = 0;
+  __syncthreads();
+  const int tile = tile_s;
+  const long long first = static_cast<long long>(tile) * kDpTile + warp * kDpWarpSpan + lane;
+
+  // 1. Load once; per-warp histogram (shared-memory atomics into the warp's
+  // own row). Members outside [0, n_members) are never counted.
+  int key[kDpPerLane];
+  unsigned peers[kDpPerLane];
+#pragma unroll
+  for (int c = 0; c < kDpPerLane; ++c) {
+    const long long i = first + c * 32;
+    key[c] = i < n ? __ldg(member + i) : -1;
+  }
+  int32_t* run = hist + warp * n_members;
+#pragma unroll
+  for (int c = 0; c < kDpPerLane; ++c)
+    if (key[c] >= 0 && key[c] < n_members) atomicAdd(&run[key[c]], 1);
+  __syncthreads();
+
+  // 2. Warp offsets and the tile aggregate; publish the aggregate.
+  const int group = tile / kDpGroup;
+  const int g0 = group * kDpGroup;
+  const bool group_last = tile == g0 + kDpGroup - 1 || tile == n_tiles - 1;
+  unsigned long long* group_words = tile_words + static_cast<long long>(n_tiles) * n_members;
+  int agg[kDpMembersPerThread];
+#pragma unroll
+  for (int j = 0; j < kDpMembersPerThread; ++j) {
+    const int m = threadIdx.x + j * kDpThreads;
+    agg[j] = 0;
+    if (m < n_members) {
+      int sum = 0;
+#pragma unroll
+      for (int w = 0; w < kDpWarps; ++w) {
+        const int cnt = hist[w * n_members + m];
+        hist[w * n_members + m] = sum;
+        sum += cnt;
+      }
+      agg[j] = sum;
+      st_relaxed(tile_words + static_cast<long long>(tile) * n_members + m,
+                 kDpAggregate | static_cast<uint32_t>(sum));
+    }
+  }
+  // 3a. The aggregates of the group's earlier tiles, both members of a
+  // thread's pair read in one round (a word not yet published is read again
+  // after a pause); the group's last tile publishes the group's aggregate
+  // (group 0: its inclusive prefix).
+  const int in_count = tile - g0;
+  int in_group[kDpMembersPerThread];
+#pragma unroll
+  for (int p = 0; p < kDpMembersPerThread; p += 2) {
+    int m[2];
+    bool has[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      m[q] = threadIdx.x + (p + q) * kDpThreads;
+      has[q] = m[q] < n_members;
+      in_group[p + q] = 0;
+    }
+    if (!has[0]) continue;
+    unsigned long long v[2][kDpGroup - 1];
+#pragma unroll
+    for (int k = 0; k < kDpGroup - 1; ++k)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        v[q][k] = has[q] && k < in_count
+                      ? ld_relaxed(tile_words + static_cast<long long>(g0 + k) * n_members + m[q])
+                      : kDpAggregate;
+    for (uint64_t t0 = 0;;) {
+      bool missing = false;
+#pragma unroll
+      for (int k = 0; k < kDpGroup - 1; ++k)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) missing |= (v[q][k] >> 32) == 0;
+      if (!missing) break;
+      dp_pause(t0);
+#pragma unroll
+      for (int k = 0; k < kDpGroup - 1; ++k)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if ((v[q][k] >> 32) == 0)
+            v[q][k] = ld_relaxed(tile_words + static_cast<long long>(g0 + k) * n_members + m[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int k = 0; k < kDpGroup - 1; ++k)
+        in_group[p + q] += static_cast<int>(static_cast<uint32_t>(v[q][k]));
+      if (group_last && has[q])
+        st_relaxed(group_words + static_cast<long long>(group) * n_members + m[q],
+                   (group == 0 ? kDpInclusive : kDpAggregate) |
+                       static_cast<uint32_t>(in_group[p + q] + agg[p + q]));
+    }
+  }
+
+  // The lanes of each chunk holding the same member, for the ranks of step
+  // 4, computed while the other groups publish: the AND over the key's bits
+  // of each bit's ballot (or its complement), bit-major so the 16 chunks'
+  // ballots are independent of each other (one __match_any_sync per chunk
+  // is a chain of long-latency instructions).
+  const int bits = 32 - __clz(n_members);  // keys 0 .. n_members
+#pragma unroll
+  for (int c = 0; c < kDpPerLane; ++c) peers[c] = 0xFFFFFFFFu;
+#pragma unroll 1
+  for (int b = 0; b < bits; ++b) {
+#pragma unroll
+    for (int c = 0; c < kDpPerLane; ++c) {
+      const bool ok = key[c] >= 0 && key[c] < n_members;
+      const unsigned bit = (static_cast<unsigned>(ok ? key[c] : n_members) >> b) & 1u;
+      const unsigned ones = __ballot_sync(0xFFFFFFFFu, bit);
+      peers[c] &= bit ? ones : ~ones;
+    }
+  }
+
+  // 3b. The group's exclusive prefix: the group's last tile looks back
+  // over the earlier groups' words and publishes the group's inclusive
+  // prefix; the other tiles wait for the previous group's inclusive prefix.
+  // Fold the tile's prefix into every warp's running row.
+#pragma unroll
+  for (int j = 0; j < kDpMembersPerThread; ++j) {
+    const int m = threadIdx.x + j * kDpThreads;
+    if (m >= n_members) continue;
+    int before = 0;
+    if (group > 0) {
+      const unsigned long long* gcol = group_words + m;
+      if (group_last) {
+        before = dp_look_back(gcol, n_members, group);
+        st_relaxed(group_words + static_cast<long long>(group) * n_members + m,
+                   kDpInclusive | static_cast<uint32_t>(before + in_group[j] + agg[j]));
+      } else {
+        before = static_cast<int>(static_cast<uint32_t>(
+            dp_poll(gcol + static_cast<long long>(group - 1) * n_members, 2)));
+      }
+    }
+    const int prefix = before + in_group[j];
+    if (tile == n_tiles - 1) counts[m] = prefix + agg[j];
+#pragma unroll
+    for (int w = 0; w < kDpWarps; ++w) hist[w * n_members + m] += prefix;
   }
   __syncthreads();
-  const long long base = static_cast<long long>(blockIdx.x) * kDpTile;
-  for (int c = 0; c < kDpChunks; ++c) {
-    const long long i = base + static_cast<long long>(c) * kDpThreads + threadIdx.x;
-    const int m = i < n ? __ldg(member + i) : -1;
+
+  // 4. Ranks, in packet order within the warp's sub-range.
+#pragma unroll
+  for (int c = 0; c < kDpPerLane; ++c) {
+    const long long i = first + c * 32;
+    const int m = key[c];
     const bool ok = m >= 0 && m < n_members;
-    // Every lane takes part in the match (full mask); lanes that are not
-    // counted share the key -1 and never touch shared memory.
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, ok ? m : -1);
-    const int rank = __popc(peers & lower);
-    const bool leader = ok && rank == 0;
-    if (leader) warp_cnt[warp * n_members + m] = __popc(peers);
-    __syncthreads();
-    int p = 0;
-    if (ok) {
-      p = running[m] + rank;
-      for (int w = 0; w < warp; ++w) p += warp_cnt[w * n_members + m];
-    }
-    __syncthreads();
-    if (leader) {
-      atomicAdd(&running[m], __popc(peers));
-      warp_cnt[warp * n_members + m] = 0;
-    }
-    __syncthreads();
-    if (i < n) pos[i] = ok ? p : (m < 0 ? -1 : 0);
+    const int p = ok ? run[m] + __popc(peers[c] & lower) : (m < 0 ? -1 : 0);
+    __syncwarp();
+    if (ok && (peers[c] & lower) == 0) run[m] += __popc(peers[c]);
+    __syncwarp();
+    if (i < n) pos[i] = p;
   }
 }
+
+inline long long dp_tiles(int n) { return (static_cast<long long>(n) + kDpTile - 1) / kDpTile; }
+inline long long dp_groups(long long n_tiles) { return (n_tiles + kDpGroup - 1) / kDpGroup; }
 
 // ---------------------------------------------------------------------------
 // seg_masks — replaces the Pallas kernel src/repro/kernels/reassembly.py
@@ -264,49 +702,53 @@ inline unsigned blocks_for(long long n, int threads) {
 
 extern "C" {
 
+// Shared memory one block of lb_route stages its tables in (the wrapper
+// refuses tables above the card's opt-in limit).
+long long ejfat_lb_route_smem_bytes(int n_inst, int n_rows, int n_slots, int n_members) {
+  return static_cast<long long>(lb_smem_bytes(n_inst, n_rows, n_slots, n_members));
+}
+
+// seg_* have kSeg (16) entries per instance; cal rows n_slots (a multiple of
+// 4) int32; hdr and cal 16-byte aligned.
 int ejfat_lb_route(const int32_t* hdr, const int32_t* iid, int n,
                    const long long* seg_hi, const long long* seg_lo,
                    const int32_t* seg_row, const int32_t* cal,
                    const int32_t* node, const int32_t* base,
                    const int32_t* mask, const int32_t* mvalid, int n_inst,
-                   int n_seg, int n_rows, int n_slots, int n_members,
+                   int n_rows, int n_slots, int n_members,
                    int32_t* member_out, int32_t* node_out, int32_t* lane_out,
                    int32_t* valid_out, cudaStream_t stream) {
-  constexpr int threads = 256;
-  const unsigned blocks = blocks_for(n, threads);
   const int4* h = reinterpret_cast<const int4*>(hdr);
-  if (iid != nullptr) {
-    lb_route_kernel<true><<<blocks, threads, 0, stream>>>(
-        h, iid, n, seg_hi, seg_lo, seg_row, cal, node, base, mask, mvalid,
-        n_inst, n_seg, n_rows, n_slots, n_members, member_out, node_out,
-        lane_out, valid_out);
-  } else {
-    lb_route_kernel<false><<<blocks, threads, 0, stream>>>(
-        h, nullptr, n, seg_hi, seg_lo, seg_row, cal, node, base, mask, mvalid,
-        1, n_seg, n_rows, n_slots, n_members, member_out, node_out, lane_out,
-        valid_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int4* c = reinterpret_cast<const int4*>(cal);
+  const cudaError_t err =
+      iid != nullptr
+          ? lb_route_launch<true>(h, iid, n, seg_hi, seg_lo, seg_row, c, node, base, mask,
+                                  mvalid, n_inst, n_rows, n_slots, n_members, member_out,
+                                  node_out, lane_out, valid_out, stream)
+          : lb_route_launch<false>(h, nullptr, n, seg_hi, seg_lo, seg_row, c, node, base,
+                                   mask, mvalid, 1, n_rows, n_slots, n_members, member_out,
+                                   node_out, lane_out, valid_out, stream);
+  return static_cast<int>(err);
 }
 
-int ejfat_dispatch_tile() { return kDpTile; }
+// 64-bit words of dispatch_plan's scratch: the tile counter, one word per
+// (tile, member), then one per (group of tiles, member).
+long long ejfat_dispatch_scratch_words(int n, int n_members) {
+  return 1 + (dp_tiles(n) + dp_groups(dp_tiles(n))) * n_members;
+}
 
-// tile_counts: int32 scratch of n_tiles * n_members, n_tiles = ceil(n / tile).
 int ejfat_dispatch_plan(const int32_t* member, int n, int n_members,
-                        int32_t* tile_counts, int32_t* pos, int32_t* counts,
+                        unsigned long long* scratch, int32_t* pos, int32_t* counts,
                         cudaStream_t stream) {
-  const unsigned n_tiles = blocks_for(n, kDpTile);
-  const size_t hist_bytes = sizeof(int32_t) * n_members;
-  dp_count<<<n_tiles, kDpThreads, hist_bytes, stream>>>(member, n, n_members,
-                                                         tile_counts);
-  cudaError_t err = cudaGetLastError();
+  const long long n_tiles = dp_tiles(n);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(unsigned long long) * ejfat_dispatch_scratch_words(n, n_members),
+      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dp_scan<<<blocks_for(n_members, 256), 256, 0, stream>>>(
-      tile_counts, static_cast<int>(n_tiles), n_members, counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dp_rank<<<n_tiles, kDpThreads, hist_bytes * (1 + kDpWarps), stream>>>(
-      member, n, n_members, tile_counts, pos);
+  dispatch_plan_kernel<<<static_cast<unsigned>(n_tiles), kDpThreads,
+                         sizeof(int32_t) * kDpWarps * n_members, stream>>>(
+      member, n, n_members, static_cast<int>(n_tiles),
+      reinterpret_cast<unsigned int*>(scratch), scratch + 1, pos, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

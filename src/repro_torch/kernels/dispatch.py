@@ -1,11 +1,12 @@
 """Dispatch planning — per-packet buffer positions: wrapper of the CUDA
-kernels ``csrc/ejfat_kernels.cu::dp_count / dp_scan / dp_rank``.
+kernel ``csrc/ejfat_kernels.cu::dispatch_plan_kernel`` (one launch, single
+pass, decoupled look-back across tiles).
 
 Port of the Pallas kernel ``repro/kernels/dispatch.py::dispatch_plan``. For
 packet i with member m, pos_i = #packets j<i with member j == m (stable);
 pos = -1 for member < 0, and a member >= n_members gets pos 0 and is not
 counted. Returns (pos int32[N], counts int32[n_members]). A CUDA input
-launches the kernels; a CPU input takes ``ref.dispatch_plan_ref``.
+launches the kernel; a CPU input takes ``ref.dispatch_plan_ref``.
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import dispatch_plan_ref
 
-#: shared memory of the rank pass is 9 x n_members int32; keep it under the
-#: 48 KB a block gets without an opt-in
+#: the kernel's per-warp histograms are 8 x n_members int32 of shared memory
+#: (32 KB at the limit) and each thread owns n_members / 256 of them
+#: (``kDpMaxMembers`` in the source)
 MAX_MEMBERS = 1024
 
 
@@ -36,8 +38,10 @@ def dispatch_plan(member: torch.Tensor, *, n_members: int):
     if n == 0:
         return pos, counts.zero_()
     lib = _lib.lib()
-    n_tiles = -(-n // lib.ejfat_dispatch_tile())
-    scratch = torch.empty(n_tiles * n_members, dtype=torch.int32, device=dev)
+    # the tile counter and the look-back's words (per tile and per group of
+    # tiles, per member), cleared by the kernel's host entry on the stream
+    scratch = torch.empty(lib.ejfat_dispatch_scratch_words(n, n_members),
+                          dtype=torch.int64, device=dev)
     err = lib.ejfat_dispatch_plan(member.data_ptr(), n, n_members, scratch.data_ptr(),
                                   pos.data_ptr(), counts.data_ptr(), _lib.stream_ptr(dev))
     _lib.check(err, "dispatch_plan")

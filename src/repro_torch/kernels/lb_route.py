@@ -1,6 +1,7 @@
 """The EJ-FAT data plane (parse -> validate -> epoch -> calendar -> member
 rewrite) for a batch of packets: wrapper of the CUDA kernel
-``csrc/ejfat_kernels.cu::lb_route_kernel``.
+``csrc/ejfat_kernels.cu::lb_route_kernel`` (a persistent grid whose blocks
+stage the tables in shared memory, 4 packets per thread).
 
 Port of the Pallas kernel ``repro/kernels/lb_route.py::lb_route``. Headers
 are ``int32[N, 4]`` (the u32 wire words' bits, row-major); tables are one
@@ -13,9 +14,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.protocol import CALENDAR_SLOTS
-from repro_torch.core.tables import DeviceTables
+from repro_torch.core.tables import MAX_EPOCH_SEGMENTS, DeviceTables
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import lb_route_ref
+
+#: shared memory a block of an H100 can opt in to (227 KB); every block of
+#: the kernel holds all instances' tables
+MAX_SHARED_BYTES = 232_448
 
 
 def lb_route(headers: torch.Tensor, tables: DeviceTables, instance_id=None):
@@ -45,6 +50,8 @@ def _launch(headers, tables: DeviceTables, instance_id):
     _lib.require(headers, "headers", torch.int32, dev, (n, 4))
     if headers.data_ptr() % 16:
         raise ValueError("headers must be 16-byte aligned (one vector load per packet)")
+    if n_seg != MAX_EPOCH_SEGMENTS:
+        raise ValueError(f"tables must have {MAX_EPOCH_SEGMENTS} epoch segments, got {n_seg}")
     if instance_id is not None:
         _lib.require(instance_id, "instance_id", torch.int32, dev, (n,))
     _lib.require(tables.seg_start_hi, "seg_start_hi", torch.int64, dev, lead + (n_seg,))
@@ -54,17 +61,23 @@ def _launch(headers, tables: DeviceTables, instance_id):
                  lead + (n_rows, CALENDAR_SLOTS))
     for name in ("member_node", "member_base_lane", "member_lane_mask", "member_valid"):
         _lib.require(getattr(tables, name), name, torch.int32, dev, lead + (n_members,))
+    if tables.calendars.data_ptr() % 16:
+        raise ValueError("calendars must be 16-byte aligned (staged in 16-byte copies)")
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
     if n == 0:
         return tuple(outs)
     lib = _lib.lib()
+    smem = lib.ejfat_lb_route_smem_bytes(n_inst, n_rows, CALENDAR_SLOTS, n_members)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"{n_inst} x {n_members}-member tables need {smem} B of shared "
+                         f"memory per block, above the {MAX_SHARED_BYTES} B a block can hold")
     err = lib.ejfat_lb_route(
         headers.data_ptr(), None if instance_id is None else instance_id.data_ptr(), n,
         tables.seg_start_hi.data_ptr(), tables.seg_start_lo.data_ptr(),
         tables.seg_row.data_ptr(), tables.calendars.data_ptr(),
         tables.member_node.data_ptr(), tables.member_base_lane.data_ptr(),
         tables.member_lane_mask.data_ptr(), tables.member_valid.data_ptr(),
-        n_inst, n_seg, n_rows, CALENDAR_SLOTS, n_members,
+        n_inst, n_rows, CALENDAR_SLOTS, n_members,
         *(o.data_ptr() for o in outs), _lib.stream_ptr(dev))
     _lib.check(err, "lb_route")
     _lib.LAUNCHES["lb_route"] += 1

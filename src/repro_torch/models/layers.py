@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as _flash
 
 F32 = torch.float32
@@ -29,10 +30,10 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def dense_init(generator: torch.Generator, shape, scale: float = 1.0,
-               dtype=torch.bfloat16, device="cpu") -> torch.Tensor:
+               dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
     """Truncated normal (cut at +-2 standard units) times ``scale/sqrt(fan_in)``,
     drawn in fp32 on ``device`` from ``generator`` (on the same device)."""
-    w = torch.empty(shape, dtype=F32, device=device)
+    w = torch.empty(shape, dtype=F32, device=resolve_device(device))
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
     return w.mul_(scale / (shape[0] ** 0.5)).to(dtype)
 
@@ -79,7 +80,7 @@ def apply_rope(x, positions, *, fraction: float = 1.0, theta: float = 1e4):
 # ---------------------------------------------------------------------------
 
 def mlp_init(generator, d_model: int, d_ff: int, act: str, n_layers: int, dtype,
-             device="cpu"):
+             device="cuda"):
     out_scale = 1.0 / (2 * n_layers) ** 0.5
     init = lambda shape, scale=1.0: dense_init(generator, shape, scale, dtype, device)
     if act == "swiglu":
@@ -166,7 +167,7 @@ def attention(q, k, v, *, qpos, kpos, kvalid=None, causal: bool = True,
 # Attention block + KV cache
 # ---------------------------------------------------------------------------
 
-def attn_init(generator, cfg, dtype, device="cpu"):
+def attn_init(generator, cfg, dtype, device="cuda"):
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
     init = lambda shape, scale=1.0: dense_init(generator, shape, scale, dtype, device)
@@ -189,7 +190,8 @@ class KVCache:
     length: torch.Tensor  # int32 scalar — tokens seen so far
 
 
-def init_kv_cache(batch, size, n_kv, hd, dtype, device="cpu") -> KVCache:
+def init_kv_cache(batch, size, n_kv, hd, dtype, device="cuda") -> KVCache:
+    device = resolve_device(device)
     return KVCache(
         k=torch.zeros((batch, size, n_kv, hd), dtype=dtype, device=device),
         v=torch.zeros((batch, size, n_kv, hd), dtype=dtype, device=device),

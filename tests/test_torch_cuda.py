@@ -6,6 +6,8 @@ Imports nothing of JAX, so it runs on a GPU machine that has only PyTorch:
 
 Without a CUDA device every test skips (the kernels have no CPU mode).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ import torch
 import repro_torch.core as tcore
 from repro_torch.core.dataplane import DataPlane
 from repro_torch.core.protocol import encode_headers, words_to_tensor
+from repro_torch.core.tables import device_tables_from_numpy, stack_tables
 from repro_torch.data.reassembly import reassembly_plan
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _lib
@@ -22,6 +25,7 @@ from repro_torch.kernels.lb_route import lb_route
 from repro_torch.kernels.reassembly import seg_masks
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import model as M
+from torch_helpers import EDGE_BOUNDARIES, edge_headers, program, seg_starts
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +83,126 @@ def test_dispatch_plan_equals_plain(n, m):
         assert torch.equal(g.cpu(), w)
 
 
+def _plan_equal(member_cpu, m, got=None):
+    if got is None:
+        got = dispatch_plan(member_cpu.cuda(), n_members=m)
+    for g, w in zip(got, dispatch_plan(member_cpu, n_members=m)):
+        assert torch.equal(g.cpu(), w)
+
+
+# around the 4096-packet tile and at 2^20 + 3 (256 full tiles and a ragged
+# one: the look-back walks 256 predecessors), at 1, 512 and 1024 members
+@pytest.mark.parametrize("m", [1, 512, 1024])
+@pytest.mark.parametrize("n", [4095, 4096, 4097, (1 << 20) + 3])
+def test_dispatch_plan_tiles_equal_plain(n, m):
+    rng = np.random.default_rng(n + m)
+    _plan_equal(torch.from_numpy(rng.integers(-2, m + 3, n).astype(np.int32)), m)
+
+
+@pytest.mark.parametrize("n", [4097, (1 << 20) + 3])
+def test_dispatch_plan_one_member_skew(n):
+    """Every packet to member 511: the inclusive prefix reaches n."""
+    member = torch.full((n,), 511, dtype=torch.int32)
+    pos, counts = dispatch_plan(member.cuda(), n_members=512)
+    assert torch.equal(pos.cpu(), torch.arange(n, dtype=torch.int32))
+    assert int(counts[511]) == n and int(counts.sum()) == n
+    _plan_equal(member, 512, (pos, counts))
+
+
+def test_dispatch_plan_successive_calls():
+    """Two calls in a row with different inputs: nothing of the first
+    call's flags or tile counter leaks into the second."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.integers(-1, 70, 300_000).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 64, 300_000).astype(np.int32))
+    got_a = dispatch_plan(a.cuda(), n_members=64)
+    got_b = dispatch_plan(b.cuda(), n_members=64)
+    _plan_equal(a, 64, got_a)
+    _plan_equal(b, 64, got_b)
+
+
+def test_dispatch_plan_graph_replays_equal_plain():
+    """One call captured in a CUDA graph and replayed 5 times, each on new
+    members copied into the captured input: every replay equals plain (a
+    flag or tile counter not cleared on the stream would fail here)."""
+    n, m = (1 << 18) + 5, 512
+    rng = np.random.default_rng(21)
+    static = torch.from_numpy(rng.integers(-1, m + 2, n).astype(np.int32)).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dispatch_plan(static, n_members=m)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = dispatch_plan(static, n_members=m)
+    for r in range(5):
+        new = torch.from_numpy(rng.integers(-1, m + 2 - 3 * r, n).astype(np.int32))
+        static.copy_(new)
+        g.replay()
+        torch.cuda.synchronize()
+        _plan_equal(new, m, out)
+
+
+def _edge_dataplanes(stacked):
+    if stacked:
+        ems = [program(tcore, max_members=64, seed=i, switches=1 + i,
+                       boundaries=EDGE_BOUNDARIES) for i in range(4)]
+        return (DataPlane.from_instances(ems, device="cuda"),
+                DataPlane.from_instances(ems, device="cpu"))
+    em = program(tcore, max_members=64, switches=4, boundaries=EDGE_BOUNDARIES)
+    return DataPlane.from_manager(em, device="cuda"), DataPlane.from_manager(em, device="cpu")
+
+
+# N at 1-5 packets (a tail of every length below one 4-packet group), at
+# 4k + 3 and at 2^20 + 5 (many groups per thread of the persistent grid);
+# events on the epoch search's edges; instance ids below 0 and past 3
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 4 * 1025 + 3, (1 << 20) + 5])
+def test_lb_route_edges_equal_plain(n, stacked):
+    gpu, cpu = _edge_dataplanes(stacked)
+    t = cpu.tables
+    h = edge_headers(seg_starts(t.seg_start_hi, t.seg_start_lo), n, seed=n)
+    iid = (torch.from_numpy(np.random.default_rng(n).integers(-3, 7, n).astype(np.int32))
+           if stacked else None)
+    before = _lib.LAUNCHES["lb_route"]
+    got = lb_route(words_to_tensor(h, "cuda"), gpu.tables,
+                   None if iid is None else iid.cuda())
+    assert _lib.LAUNCHES["lb_route"] == before + 1
+    for g, w in zip(got, lb_route(words_to_tensor(h, "cpu"), t, iid)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_lb_route_member_count_not_a_multiple_of_4(stacked):
+    """30 member slots: the kernel stages the member table one member at a
+    time (its 16-byte staging needs a multiple of 4)."""
+    ems = [program(tcore, max_members=30, seed=i, switches=1 + i % 3,
+                   boundaries=EDGE_BOUNDARIES) for i in range(4 if stacked else 1)]
+    make = DataPlane.from_instances if stacked else (lambda e, device: DataPlane.from_manager(
+        e[0], device))
+    gpu, cpu = make(ems, device="cuda"), make(ems, device="cpu")
+    n = 5003
+    h = edge_headers(seg_starts(cpu.tables.seg_start_hi, cpu.tables.seg_start_lo), n, seed=3)
+    iid = (torch.from_numpy(np.random.default_rng(5).integers(0, 4, n).astype(np.int32))
+           if stacked else None)
+    got = lb_route(words_to_tensor(h, "cuda"), gpu.tables, None if iid is None else iid.cuda())
+    for g, w in zip(got, lb_route(words_to_tensor(h, "cpu"), cpu.tables, iid)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_lb_route_unaligned_instance_ids():
+    """Instance ids that start off a 16-byte boundary (a view into a larger
+    tensor) take the kernel's scalar loads and route the same."""
+    gpu, cpu = _edge_dataplanes(True)
+    n = 4099
+    h = edge_headers(seg_starts(cpu.tables.seg_start_hi, cpu.tables.seg_start_lo), n)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 4, n + 1).astype(np.int32))
+    got = lb_route(words_to_tensor(h, "cuda"), gpu.tables, ids.cuda()[1:])
+    for g, w in zip(got, lb_route(words_to_tensor(h, "cpu"), cpu.tables, ids[1:])):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("n", [1, 1000, 1 << 17])
 def test_seg_masks_and_plan_equal_plain(n):
     rng = np.random.default_rng(n)
@@ -105,6 +229,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         lb_route(h[:, :3], t)
     with pytest.raises(ValueError):
         dispatch_plan(torch.zeros(4, dtype=torch.int32, device="cuda"), n_members=5000)
+    # tables a block cannot hold in shared memory (4 x 4096 members: 328 KB)
+    big = stack_tables([device_tables_from_numpy(dict(
+        {k: v.cpu().numpy() for k, v in t.fields().items()},
+        **{k: np.zeros(4096, np.int32) for k in ("member_node", "member_base_lane",
+                                                  "member_lane_mask", "member_valid")}),
+        "cuda")] * 4)
+    with pytest.raises(ValueError, match="shared"):
+        lb_route(h, big, torch.zeros(8, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="epoch segments"):  # the kernel takes 16
+        lb_route(h, dataclasses.replace(t, seg_start_hi=t.seg_start_hi[:8],
+                                        seg_start_lo=t.seg_start_lo[:8],
+                                        seg_row=t.seg_row[:8]))
 
 
 @pytest.fixture

@@ -118,7 +118,7 @@ def test_self_attention_block_prefill_then_decode(size):
     b, t = 2, 9
     x = _rand(rng, b, t + 2, cfg.d_model)
     jc = JL.init_kv_cache(b, size, cfg.n_kv_heads, cfg.hd, jnp.float32)
-    tc = TL.init_kv_cache(b, size, cfg.n_kv_heads, cfg.hd, torch.float32)
+    tc = TL.init_kv_cache(b, size, cfg.n_kv_heads, cfg.hd, torch.float32, device="cpu")
     pos = np.broadcast_to(np.arange(t, dtype=np.int32), (b, t))
     jo, jc = JL.self_attention_block(p, x[:, :t], cfg, positions=pos, cache=jc)
     to, tc = TL.self_attention_block(tp, _t(x[:, :t]), cfg, positions=_t(pos.copy()),
@@ -211,3 +211,22 @@ def test_device_defaults_to_cuda():
         TM.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="cuda"):
         TM.init_decode_state(cfg, 1, 8)
+
+
+def test_layer_helpers_default_to_cuda():
+    """The public init helpers of ``models/layers.py`` take the card unless
+    the caller asks for the CPU: without CUDA the default raises."""
+    cfg = t_configs.get_smoke_config("yi_6b")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would not raise")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        TL.init_kv_cache(1, 8, cfg.n_kv_heads, cfg.hd, torch.float32)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        TL.dense_init(gen, (4, 4))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        TL.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.n_layers, torch.float32)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        TL.attn_init(gen, cfg, torch.float32)
+    assert TL.init_kv_cache(1, 8, cfg.n_kv_heads, cfg.hd, torch.float32,
+                            device="cpu").k.device.type == "cpu"

@@ -43,9 +43,10 @@ def headers(n, seed=0, corrupt_every=0, spread=1 << 48):
     return h
 
 
-def program(pkg, max_members=32, n_members=10, seed=0, switches=2):
+def program(pkg, max_members=32, n_members=10, seed=0, switches=2, boundaries=None):
     """Program one LB instance the same way in either package: members with
-    mixed lane widths, seeded weights, then ``switches`` epoch switches."""
+    mixed lane widths, seeded weights, then ``switches`` epoch switches (at
+    ``boundaries[k]`` when given)."""
     rng = np.random.default_rng(seed)
     em = pkg.EpochManager(max_members=max_members)
     weights = {i: float(rng.uniform(0.5, 2.0)) for i in range(n_members)}
@@ -55,5 +56,38 @@ def program(pkg, max_members=32, n_members=10, seed=0, switches=2):
         ids = range(k + 1, n_members)
         em.reconfigure({i: pkg.MemberSpec(node_id=i + 100, lane_bits=1) for i in ids},
                        {i: float(rng.uniform(0.5, 2.0)) for i in ids},
-                       boundary_event=(1 << 40) + (k + 1) * (1 << 30))
+                       boundary_event=(boundaries[k] if boundaries is not None
+                                       else (1 << 40) + (k + 1) * (1 << 30)))
     return em
+
+
+#: epoch switches on 2^32 boundaries (the hi word of the event changes there)
+EDGE_BOUNDARIES = (1 << 32, (2 << 32) + 5, 255 << 32, 1 << 63)
+
+
+def seg_starts(hi, lo) -> list[int]:
+    """The u64 segment starts of one instance from its hi/lo words."""
+    return [(int(h) << 32) | int(l) for h, l in zip(np.asarray(hi).ravel(),
+                                                    np.asarray(lo).ravel())]
+
+
+def edge_headers(starts, n, seed=0) -> np.ndarray:
+    """``n`` wire headers (uint32[n, 4]) whose events sit on the epoch
+    search's edges — every segment start and its neighbours, the 2^32
+    boundaries, 0 and the top of the u64 space — cycled, then random events
+    in the same ranges; every 7th header has a wrong magic."""
+    from repro_torch.core.protocol import encode_headers
+
+    top = 2**64 - 1
+    ev = {0, 1, top, top - 1}
+    for s in list(starts) + [k << 32 for k in (1, 2, 3, 255, 256, 1 << 31, (1 << 32) - 1)]:
+        ev.update(v for v in (s - 1, s, s + 1) if 0 <= v <= top)
+    edges = np.array(sorted(ev), np.uint64)
+    rng = np.random.default_rng(seed)
+    events = edges[np.arange(n) % len(edges)]
+    rand = np.arange(n) >= 2 * len(edges)
+    events[rand] = edges[rng.integers(0, len(edges), int(rand.sum()))] + rng.integers(
+        0, 1 << 20, int(rand.sum())).astype(np.uint64)  # wraps past the top
+    h = encode_headers(events, rng.integers(0, 1 << 16, n).astype(np.uint32))
+    h[::7, 0] ^= np.uint32(0x1_0000)
+    return h
