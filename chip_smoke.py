@@ -47,7 +47,21 @@ result:
                 design, every routing tick launches lb_route; then the
                 kernel's share of the longest prefill (CUDA events) and the
                 device's busy share of decode steps (torch.profiler)
-  6. result     the `kernels` JSON line, the card line, and the last line
+  6. simnet     the virtual-time simulator (repro_torch.simnet): the
+                hook-free, non-controld scenarios at their small presets,
+                host engine on the card == on the CPU (whole report);
+                farm_serve, seq_cumsum and build_calendar exactly equal to
+                their plain versions at full width; then the full-width straggler
+                traffic (16 DAQs, 128 triggers of 64 kB bundles per window,
+                ~16k jumbo frames, 1.024 GB/s offered, the farm at ~0.7 of
+                capacity): the fused engine at 16 members, 96 windows, K=8
+                (one capture, 12 replays, lb_route / farm_serve /
+                seq_cumsum / build_calendar in every window) against the
+                host engine on
+                the card (counters exact, latencies rel 1e-9), the same
+                config fused on the CPU at 8 windows against the host
+                engine, and the host engine at 64 members for 12 windows
+  7. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -66,6 +80,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12          # H100 SXM 32-bit rate outside the tensor cores
+FP64_OPS_PER_S = 34e12         # H100 SXM float64 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 N_FULL = 1 << 20               # packets per window at full width
 MAX_MEMBERS = 512
@@ -78,12 +93,19 @@ REPLACES = {
     "dispatch_plan": "src/repro/kernels/dispatch.py:63",
     "seg_masks": "src/repro/kernels/reassembly.py:76",
     "flash_attention": "src/repro/kernels/flash_attention.py:85",
+    # the simulator's device helpers replace lax.scan loops, not Pallas kernels
+    "farm_serve": "src/repro/simnet/queues.py:99 (_serve_jnp)",
+    "seq_cumsum": "src/repro/simnet/fused.py:242 (jnp.cumsum of the downlink FIFO)",
+    "build_calendar": "src/repro/simnet/fused.py:144 (_device_calendar)",
 }
 SOURCES = {
     "lb_route": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "dispatch_plan": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "seg_masks": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+    "farm_serve": "src/repro_torch/kernels/csrc/simnet_kernels.cu",
+    "seq_cumsum": "src/repro_torch/kernels/csrc/simnet_kernels.cu",
+    "build_calendar": "src/repro_torch/kernels/csrc/simnet_kernels.cu",
 }
 DESIGNS = {
     "lb_route": "persistent grid (1024-thread blocks, one per SM, from a full wave of "
@@ -92,6 +114,12 @@ DESIGNS = {
     "dispatch_plan": "one launch (+ a same-stream clear of its flags), single pass over "
                      "4096-packet tiles, two-level decoupled look-back across tiles",
     "seg_masks": "one thread per row, row i-1 read directly",
+    "farm_serve": "one thread per member walks its rows in order, the next row's loads "
+                  "issued before the current row's float64 chain",
+    "seq_cumsum": "one block: its threads stage 4096-row tiles in shared memory, thread 0 "
+                  "adds each tile in row order",
+    "build_calendar": "one warp, lane i owns member i: quotas, 512 SWRR steps and the "
+                      "quota walk as shuffle reductions; returns at once when do_sw is false",
 }
 # flash_attention has two designs, chosen by (dtype, head dim): the main path
 # (bf16, d=128) runs the wgmma one
@@ -796,6 +824,325 @@ def full_serve(torch, np):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the virtual-time simulator
+# ---------------------------------------------------------------------------
+
+SIMNET_KERNELS = ("lb_route", "farm_serve", "seq_cumsum", "build_calendar")
+SIMNET_SMALL = ("baseline", "straggler", "hetero_farm", "correlated_loss", "multi_instance")
+SIMNET_SMALL_STEPS = 30
+# the closed loop's full-width traffic (closed_loop.FULL_WIDTH) on the
+# straggler: 16 DAQs x 128 triggers of 64 kB mean bundles per 128 ms window
+# (1.024 GB/s offered, ~16k jumbo frames), 10 GbE member links, and a farm
+# whose byte cost puts it at ~0.7 of capacity with the per-packet cost
+SIMNET_OFFERED_BPS = 16 * 128 * 64_000 / 0.128
+SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, SIMNET_K = 16, 96, 8
+SIMNET_CPU_WINDOWS = 8
+SIMNET_HOST_MEMBERS, SIMNET_HOST_WINDOWS = 64, 12
+# chain bounds (reasoned, not measured): a farm row's carried chain is 5
+# dependent float64 operations (max, sub, max, add, select) of at least 4
+# cycles each; a running sum one add per row; a calendar is 512 round-robin
+# steps of 5 dependent shuffle rounds and 512 walk steps of 2, each at least
+# ~23 cycles; at the H100 SXM boost clock
+FARM_CHAIN_OPS, CHAIN_CYCLES_PER_OP = 5, 4
+CAL_CHAIN_SHUFFLES, SHUFFLE_CYCLES = 512 * 5 + 512 * 2, 23
+SM_CLOCK_HZ = 1.98e9
+
+
+def simnet_config(n_members, steps, engine, device, **extra):
+    from repro_torch.data.segmentation import DEFAULT_MTU_PAYLOAD
+    from repro_torch.simnet import get_scenario
+    from repro_torch.simnet.links import LinkConfig
+
+    scn = get_scenario("straggler")
+    cfg = scn.build_config(
+        steps=steps, n_members=n_members, n_daqs=16, triggers_per_step=128,
+        mean_bundle_bytes=64_000, mtu_payload=DEFAULT_MTU_PAYLOAD,
+        member_link=LinkConfig(rate_Bps=1.25e9, prop_delay_s=5e-5, jitter_s=2e-5),
+        service_per_byte_s=0.55 * n_members / 1.024e9, engine=engine, device=device,
+        **extra)
+    return cfg, scn
+
+
+def farm_utilisation(cfg) -> float:
+    """Offered work over the farm's capacity (the straggler's member 0 at 4x
+    its service cost), from the mean frame of the run's traffic."""
+    from repro_torch.data.segmentation import DEFAULT_MTU_PAYLOAD
+
+    pkts_per_s = SIMNET_OFFERED_BPS / DEFAULT_MTU_PAYLOAD
+    per_member = (cfg.service_per_packet_s * pkts_per_s
+                  + cfg.service_per_byte_s * SIMNET_OFFERED_BPS) / cfg.n_members
+    scale = cfg.service_scale if cfg.service_scale is not None else [1.0] * cfg.n_members
+    return float(sum(per_member * x for x in scale) / cfg.n_members)
+
+
+def time_eager(torch, fn, reps=3):
+    """Device time of one eager ``fn()`` call (host launches included), in
+    ms: CUDA events around ``reps`` calls after one warm-up call. For the
+    plain versions, which read device values on the host and so cannot be
+    captured in a graph."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _comparable(report) -> dict:
+    d = report.to_dict(with_traces=True)
+    d.pop("wall_s")
+    d.pop("packets_per_sec")
+    return d
+
+
+def simnet_small(torch):
+    """Every hook-free, non-controld preset: host engine on the card == on
+    the CPU, the whole report."""
+    import dataclasses
+
+    from repro_torch.simnet import Simulator, get_scenario
+
+    done = {}
+    for name in SIMNET_SMALL:
+        scn = get_scenario(name)
+        runs = [Simulator(scn.build_config(steps=SIMNET_SMALL_STEPS, engine="host",
+                                           device=dev), dataclasses.replace(scn)).run()
+                for dev in ("cuda", "cpu")]
+        a, b = (_comparable(r) for r in runs)
+        check(a == b, f"simnet {name}: the host engine on the card differs from the CPU:"
+                      f"\n{a}\n{b}")
+        check(not runs[0].violations and runs[0].bundles_completed > 0,
+              f"simnet {name}: {runs[0].violations}")
+        done[name] = runs[0].bundles_completed
+    say(f"[simnet] small presets ({SIMNET_SMALL_STEPS} windows each), host engine card == "
+        f"CPU, whole report: bundles completed {done}")
+
+
+def simnet_kernels(torch, np):
+    """farm_serve, seq_cumsum and build_calendar against their plain
+    versions at the full-width window's size, exact; kernel times in graphs
+    of 200 calls (inputs in L2, as the fused step leaves them), plain times
+    eager."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.calendar import build_calendar
+    from repro_torch.kernels.farm_serve import farm_serve
+    from repro_torch.kernels.seq_cumsum import seq_cumsum
+
+    rng = np.random.default_rng(15)
+    n = 16_384
+    results, lines = {}, []
+    for m in (SIMNET_FUSED_MEMBERS, SIMNET_HOST_MEMBERS):
+        member = np.sort(rng.integers(0, m, n))
+        counts = np.bincount(member, minlength=m)
+        t = np.concatenate([np.sort(rng.uniform(0.0, 0.128, c)) for c in counts])
+        nbytes = rng.uniform(1_000, 9_000, n)
+        svc = 2e-5 + nbytes * (0.55 * m / 1.024e9)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+            t, svc, np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+            rng.uniform(0, 0.01, m), np.zeros(m), np.full(m, 0.05))]
+        got = farm_serve(*args)
+        want = ref.farm_serve_ref(*args)
+        check_equal(torch, f"farm_serve {n} rows over {m} members", got, want)
+        t_k, last = time_warm(torch, lambda: farm_serve(*args))
+        check_equal(torch, f"farm_serve {m} members after graph replays", last, want)
+        t_p = time_eager(torch, lambda: ref.farm_serve_ref(*args), reps=2)
+        b_ms, b_by = bound(n * (8 + 8 + 8 + 1) + (m + 1) * 4 + 6 * m * 8, n * 10,
+                           FP64_OPS_PER_S)
+        chain_ms = int(counts.max()) * FARM_CHAIN_OPS * CHAIN_CYCLES_PER_OP / SM_CLOCK_HZ * 1e3
+        results[m] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                          chain_bound_ms=chain_ms, rows_longest_member=int(counts.max()),
+                          dropped=int(got[1].sum()))
+        lines.append(f"{m} members (longest {int(counts.max())} rows, {int(got[1].sum())} "
+                     f"dropped): kernel {t_k * 1e3:.2f} us, plain {t_p:.2f} ms, bound "
+                     f"{b_ms * 1e3:.3f} us ({b_by}), chain bound {chain_ms * 1e3:.2f} us")
+    say(f"[simnet] farm_serve N={n}, exactly equal to plain, also after graph replays: "
+        + "; ".join(lines))
+    farm = dict(results[SIMNET_FUSED_MEMBERS], max_abs_err=0, library_ms=None,
+                design=DESIGNS["farm_serve"], shape=f"N={n} sorted rows, 16 members",
+                members_64=results[SIMNET_HOST_MEMBERS])
+
+    x = torch.from_numpy(rng.uniform(0.0, 7e-6, n) * rng.choice([1.0, 1e-3, 1e3], n)).cuda()
+    got = seq_cumsum(x)
+    want = ref.seq_cumsum_ref(x)
+    check_equal(torch, f"seq_cumsum N={n}", (got,), (want,))
+    tree_ulps = int((torch.cumsum(x, 0) != want).sum())
+    t_k, last = time_warm(torch, lambda: seq_cumsum(x))
+    check_equal(torch, "seq_cumsum after graph replays", (last,), (want,))
+    t_p = time_eager(torch, lambda: ref.seq_cumsum_ref(x))
+    t_l, _ = time_warm(torch, lambda: torch.cumsum(x, 0))
+    b_ms, b_by = bound(n * 16, n, FP64_OPS_PER_S)
+    chain_ms = n * CHAIN_CYCLES_PER_OP / SM_CLOCK_HZ * 1e3
+    say(f"[simnet] seq_cumsum N={n}: exactly equal to plain (numpy's order), also after "
+        f"graph replays; torch.cumsum on the card differs from it in {tree_ulps} of {n} "
+        f"sums; kernel {t_k * 1e3:.2f} us, plain {t_p:.3f} ms, torch.cumsum {t_l * 1e3:.2f} "
+        f"us, bound {b_ms * 1e3:.4f} us ({b_by}), chain bound {chain_ms * 1e3:.2f} us")
+    scan = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, chain_bound_ms=chain_ms,
+                max_abs_err=0, library_ms=t_l, library_call="torch.cumsum (tree order)",
+                library_sums_differing=tree_ulps, design=DESIGNS["seq_cumsum"],
+                shape=f"N={n} float64")
+
+    w = torch.from_numpy(np.repeat(rng.uniform(0.3, 2.0, 6), 3)[:SIMNET_FUSED_MEMBERS]).cuda()
+    flag = torch.tensor([True], device="cuda")
+    out = torch.full((512,), -1, dtype=torch.int32, device="cuda")
+    want = ref.build_calendar_ref(w, flag, torch.full_like(out, -1)).clone()
+    check_equal(torch, "build_calendar (16 members, weights in tied triples)",
+                (build_calendar(w, flag, out),), (want,))
+    for m in (1, 5, 16, 32):
+        wm = torch.from_numpy(rng.uniform(0.05, 8.0, m)).cuda()
+        check_equal(torch, f"build_calendar M={m}", (build_calendar(wm, flag, out.clone()),),
+                    (ref.build_calendar_ref(wm, flag, out.clone()),))
+    off = torch.tensor([False], device="cuda")
+    kept = torch.full_like(out, -7)
+    build_calendar(w, off, kept)
+    check(bool((kept == -7).all()), "build_calendar wrote its output with do_sw false")
+    t_k, last = time_warm(torch, lambda: build_calendar(w, flag, out))
+    check_equal(torch, "build_calendar after graph replays", (last,), (want,))
+    t_off, _ = time_warm(torch, lambda: build_calendar(w, off, kept))
+    t_p = time_eager(torch, lambda: ref.build_calendar_ref(w, flag, out), reps=2)
+    b_ms, b_by = bound(16 * 8 + 1 + 512 * 4, 2 * 512 * 16, FP64_OPS_PER_S)
+    chain_ms = CAL_CHAIN_SHUFFLES * SHUFFLE_CYCLES / SM_CLOCK_HZ * 1e3
+    say(f"[simnet] build_calendar 16 members (tied triples), M=1/5/16/32, do_sw false "
+        f"untouched: exactly equal to plain, also after graph replays; kernel "
+        f"{t_k * 1e3:.2f} us ({t_off * 1e3:.2f} us with do_sw false), plain {t_p:.2f} ms, "
+        f"bound {b_ms * 1e3:.4f} us ({b_by}), chain bound {chain_ms * 1e3:.1f} us")
+    cal = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, chain_bound_ms=chain_ms,
+               ms_without_switch=t_off, max_abs_err=0, library_ms=None,
+               design=DESIGNS["build_calendar"], shape="16 members, 512 slots")
+    return {"farm_serve": farm, "seq_cumsum": scan, "build_calendar": cal}
+
+
+def _profiled(torch, fn):
+    """``fn()`` under torch.profiler: (its result, wall s, device busy s as
+    the sum of the card's kernel, copy and set intervals; one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, wall, busy_us / 1e6
+
+
+def _simnet_line(what, report, wall, busy_s, launches, busy_how, **extra):
+    line = dict(run=what, engine=report.engine, windows=report.steps, wall_s=wall,
+                windows_per_s=report.steps / wall, packets_per_s=report.packets_sent / wall,
+                packets_sent=report.packets_sent, bundles_completed=report.bundles_completed,
+                packets_dropped_queue=report.packets_dropped_queue,
+                latency_p50_s=report.latency_p50_s, latency_p99_s=report.latency_p99_s,
+                epoch_switches=report.epoch_switches, device_busy_s=busy_s,
+                device_busy_share=busy_s / wall, busy_measured_by=busy_how,
+                launches=launches, **extra)
+    say("[simnet] " + json.dumps(line, sort_keys=True))
+
+
+def _hold_fused_to_host(what, rf, rh):
+    """The JAX package's host-vs-fused contract: counters exact, latencies
+    rel 1e-9, the same segments per member, weights close."""
+    counters = ("packets_sent", "packets_delivered", "packets_lost_wan",
+                "packets_lost_downlink", "packets_dropped_queue",
+                "packets_discarded_invalid", "duplicates_absorbed", "bundles_sent",
+                "bundles_completed", "bundles_pending", "bundles_timed_out",
+                "bundles_vanished", "epoch_switches")
+    for f in counters:
+        check(getattr(rf, f) == getattr(rh, f),
+              f"{what}: {f} fused {getattr(rf, f)} != host {getattr(rh, f)}")
+    worst = 0.0
+    for f in ("latency_p50_s", "latency_p99_s", "latency_max_s", "latency_mean_s"):
+        a, b = getattr(rf, f), getattr(rh, f)
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        check(rel <= 1e-9 or abs(a - b) <= 1e-12, f"{what}: {f} fused {a} vs host {b}")
+        worst = max(worst, rel)
+    check(rf.per_member_segments == rh.per_member_segments, f"{what}: segments per member")
+    for m, w in rh.final_weights.items():
+        check(abs(rf.final_weights[m] - w) <= 1e-6, f"{what}: final weight of {m}")
+    check(not rf.violations and not rh.violations, f"{what}: {rf.violations} {rh.violations}")
+    return worst
+
+
+def simnet_phase(torch, np):
+    """The simulator's main path on the card; returns (kernel results,
+    launches of each simnet kernel on the path)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.simnet import Simulator, fused
+
+    simnet_small(torch)
+    results = simnet_kernels(torch, np)
+
+    cfg, scn = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, "fused", "cuda")
+    say(f"[simnet] full-width traffic: {SIMNET_OFFERED_BPS / 1e9:.3f} GB/s offered, farm "
+        f"utilisation {farm_utilisation(cfg):.3f} at {SIMNET_FUSED_MEMBERS} members and "
+        f"{farm_utilisation(simnet_config(SIMNET_HOST_MEMBERS, 1, 'host', 'cuda')[0]):.3f} "
+        f"at {SIMNET_HOST_MEMBERS} (the straggler's member 0 at 4x)")
+    traces0, calls0 = fused.FUSED_TRACES, fused.FUSED_STEP_CALLS
+    _lib.reset_launches()
+    sim = Simulator(cfg, scn)
+    eng = fused.FusedEngine(sim, superblock=SIMNET_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rf = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    captured = dict(_lib.LAUNCHES)
+    check(rf.engine == "fused", f"the fused config ran the {rf.engine} engine")
+    n_cap, n_rep = fused.FUSED_TRACES - traces0, fused.FUSED_STEP_CALLS - calls0
+    check((n_cap, n_rep) == (1, SIMNET_FUSED_WINDOWS // SIMNET_K),
+          f"fused engine: {n_cap} captures and {n_rep} replays")
+    per_run = eng.program.launches_per_run
+    for name in SIMNET_KERNELS:
+        check(per_run.get(name, 0) == SIMNET_K,
+              f"{name} launched {per_run.get(name, 0)} times per {SIMNET_K}-window replay")
+    fused_launches = {k: v * n_rep for k, v in per_run.items()}
+    _simnet_line(
+        f"fused, {SIMNET_FUSED_MEMBERS} members", rf, wall, sum(eng.replay_ms) / 1e3,
+        fused_launches, "CUDA events around each graph replay", captures=n_cap,
+        replays=n_rep, launches_per_replay=per_run, launches_at_capture=captured,
+        replay_ms_median=statistics.median(eng.replay_ms))
+
+    cfg_h, _ = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, "host", "cuda")
+    _lib.reset_launches()
+    rh, wall_h, busy_h = _profiled(torch, lambda: Simulator(cfg_h, scn).run())
+    host_launches = dict(_lib.LAUNCHES)
+    check(host_launches["lb_route"] == SIMNET_FUSED_WINDOWS,
+          f"the host engine launched lb_route {host_launches['lb_route']} times")
+    worst = _hold_fused_to_host("fused vs host on the card", rf, rh)
+    _simnet_line(f"host, {SIMNET_FUSED_MEMBERS} members", rh, wall_h, busy_h, host_launches,
+                 "torch.profiler (its own cost in the wall)",
+                 fused_vs_host_worst_latency_rel=worst)
+
+    cfg_c, _ = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_CPU_WINDOWS, "fused", "cpu")
+    rc = Simulator(cfg_c, scn).run()
+    cfg_hc, _ = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_CPU_WINDOWS, "host", "cuda")
+    worst_cpu = _hold_fused_to_host("fused on the CPU vs host on the card", rc,
+                                    Simulator(cfg_hc, scn).run())
+    say(f"[simnet] fused engine on the CPU plain path, {SIMNET_CPU_WINDOWS} windows: "
+        f"counters equal to the host engine on the card, latencies within rel "
+        f"{worst_cpu:.3g}")
+
+    cfg_64, _ = simnet_config(SIMNET_HOST_MEMBERS, SIMNET_HOST_WINDOWS, "fused", "cuda",
+                              queue_engine="torch")
+    _lib.reset_launches()
+    r64, wall_64, busy_64 = _profiled(torch, lambda: Simulator(cfg_64, scn).run())
+    launches_64 = dict(_lib.LAUNCHES)
+    check(r64.engine == "host", "64 members ran the fused engine, outside its scope")
+    check(not r64.violations and r64.bundles_completed > 0, f"64 members: {r64.violations}")
+    for name in ("lb_route", "farm_serve"):
+        check(launches_64[name] == SIMNET_HOST_WINDOWS,
+              f"{name} launched {launches_64[name]} times in {SIMNET_HOST_WINDOWS} windows")
+    _simnet_line(f"host, {SIMNET_HOST_MEMBERS} members, torch queue engine", r64, wall_64,
+                 busy_64, launches_64, "torch.profiler (its own cost in the wall)")
+    launches = {k: fused_launches.get(k, 0) + host_launches.get(k, 0) + launches_64.get(k, 0)
+                for k in SIMNET_KERNELS}
+    return results, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -834,13 +1181,16 @@ def main() -> int:
             results[name]["main_path"] = sizes
         small_serve(torch, np)
         serve_launches = full_serve(torch, np)
+        simnet_results, simnet_launches = simnet_phase(torch, np)
+        results.update(simnet_results)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
 
-    # launches: the sum over the two main-path runs (each checked on its own)
+    # launches: the sum over the main-path runs (each checked on its own)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-                    launches=loop_launches[name] + serve_launches[name], **results[name])
+                    launches=(loop_launches[name] + serve_launches[name]
+                              + simnet_launches.get(name, 0)), **results[name])
                for name in REPLACES]
     for row in kernels:
         if row["name"] == "flash_attention":  # of which through the wgmma design

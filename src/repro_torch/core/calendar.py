@@ -51,7 +51,10 @@ def quotas_from_weights(weights: np.ndarray, n_slots: int = CALENDAR_SLOTS) -> n
         # Remove from the largest over-represented count (never below 1 for active).
         over = np.where(counts > 1, counts - ideal, -np.inf)
         counts[int(np.argmax(over))] -= 1
-    order = np.argsort(-rem)
+    # stable: members with equal remainders take the spare slots in id
+    # order, on every machine (numpy's default argsort keeps that order on
+    # some CPUs and not on others)
+    order = np.argsort(-rem, kind="stable")
     i = 0
     while counts.sum() < n_slots:
         m = int(order[i % len(order)])

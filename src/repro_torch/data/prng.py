@@ -75,11 +75,23 @@ def random_bits(key: tuple[int, int], shape, device) -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(key: tuple[int, int], shape, device) -> torch.Tensor:
-    """float32 uniforms in [0, 1): ``jax.random.uniform(key, shape)``.
+def uniform(key: tuple[int, int], shape, device, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval):
+    ``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``.
 
-    The 23 high random bits become the mantissa of a float in [1, 2), less 1.
+    The 23 high random bits become the mantissa of a float in [1, 2), less 1;
+    then ``max(minval, u * (maxval - minval) + minval)`` with float32
+    operands, as JAX computes it. XLA contracts the multiply-add into one
+    fused rounding, so the product (exact in float64) and the sum are taken
+    in float64 and rounded to float32 once.
     """
     bits = random_bits(key, shape, device)
     one_bits = (bits >> 9) | 0x3F800000
-    return one_bits.to(torch.int32).view(torch.float32) - 1.0
+    u = one_bits.to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return u
+    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    fused = (u.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fused)

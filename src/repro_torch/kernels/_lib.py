@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: (``flash_attention`` counts every launch of either attention design,
 #: ``flash_attention_wgmma`` those of the wgmma design alone)
 LAUNCHES: dict[str, int] = {"lb_route": 0, "dispatch_plan": 0, "seg_masks": 0,
-                            "flash_attention": 0, "flash_attention_wgmma": 0}
+                            "flash_attention": 0, "flash_attention_wgmma": 0,
+                            "farm_serve": 0, "seq_cumsum": 0, "build_calendar": 0}
 
 _LIB = None
 
@@ -118,10 +119,14 @@ def _declare(lib) -> None:
     lib.ejfat_seg_masks.argtypes = [p, p, p, p, p, i, p, p, p]
     lib.ejfat_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.ejfat_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.ejfat_farm_serve.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p]
+    lib.ejfat_seq_cumsum.argtypes = [p, i, p, p]
+    lib.ejfat_build_calendar.argtypes = [p, i, p, i, p, p]
     for fn in (lib.ejfat_lb_route_smem_bytes, lib.ejfat_dispatch_scratch_words):
         fn.restype = ctypes.c_longlong
     for fn in (lib.ejfat_lb_route, lib.ejfat_dispatch_plan, lib.ejfat_seg_masks,
-               lib.ejfat_flash_attention, lib.ejfat_flash_attention_wgmma):
+               lib.ejfat_flash_attention, lib.ejfat_flash_attention_wgmma,
+               lib.ejfat_farm_serve, lib.ejfat_seq_cumsum, lib.ejfat_build_calendar):
         fn.restype = ctypes.c_int
 
 

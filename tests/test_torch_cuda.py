@@ -321,3 +321,132 @@ def test_smoke_prefill_on_the_card_equals_the_cpu(arch, _full_f32):
         out[dev] = (logits.cpu(), logits2.cpu())
     for g, w in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+# -- the simulator's device helpers (farm_serve, build_calendar) and its fused
+# -- engine on the card ------------------------------------------------------
+
+def _serve_case(counts, seed, cap=0.05, before_t_last=False, s_scale=1.0):
+    """Rows sorted by (member, arrival) with ``counts[m]`` rows of member m,
+    float64 on the CPU; ``before_t_last`` puts arrivals before the carried
+    clock, as jittered next-window packets do."""
+    rng = np.random.default_rng(seed)
+    m = len(counts)
+    t = np.concatenate([np.sort(rng.uniform(0.0, 0.01, c)) for c in counts])
+    s = rng.uniform(1e-5, 2e-3, len(t)) * s_scale
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    t0 = np.full(m, 0.02 if before_t_last else 0.0)
+    w0 = rng.uniform(0.0, 0.01, m)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (f(t), f(s), f(offsets), f(w0), f(t0), f(np.full(m, cap)))
+
+
+def _serve_equal(args):
+    from repro_torch.kernels.farm_serve import farm_serve
+
+    before = _lib.LAUNCHES["farm_serve"]
+    got = farm_serve(*(a.cuda() for a in args))
+    assert _lib.LAUNCHES["farm_serve"] == before + 1
+    want = farm_serve(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    return want
+
+
+@pytest.mark.parametrize("counts", [[1], [0, 5, 0, 3], [7, 0], [400] * 16,
+                                    np.random.default_rng(0).integers(0, 300, 64).tolist()])
+def test_farm_serve_equals_plain(counts):
+    _serve_equal(_serve_case(counts, sum(counts)))
+
+
+def test_farm_serve_every_row_dropped():
+    args = _serve_case([50, 20], 3, cap=1e-6)
+    dep, drop, _, _, w_max = _serve_equal(args)
+    # nothing accepted: no completion, and the peak backlog is the carried one
+    assert bool(drop.all()) and bool(torch.isinf(dep).all()) and torch.equal(w_max, args[3])
+
+
+def test_farm_serve_cap_hit_exactly():
+    """w + s == cap is kept (drop-tail is strict), the next row is dropped."""
+    f = lambda *a: torch.tensor(a, dtype=torch.float64)
+    args = (f(1.0, 1.0), f(0.25, 0.25), torch.tensor([0, 2], dtype=torch.int32),
+            f(0.0), f(0.0), f(0.25))
+    dep, drop, w, _, _ = _serve_equal(args)
+    assert drop.tolist() == [False, True] and dep[0] == 1.25 and float(w) == 0.25
+
+
+def test_farm_serve_rows_before_t_last():
+    _serve_equal(_serve_case([30, 12, 0, 9], 5, before_t_last=True))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4095, 4096, 4097, 16_384, 100_003])
+def test_seq_cumsum_equals_numpy_order(n):
+    from repro_torch.kernels.seq_cumsum import seq_cumsum
+
+    rng = np.random.default_rng(n)
+    x = rng.uniform(0.0, 7e-6, n) * rng.choice([1.0, 1e-3, 1e3], n)
+    before = _lib.LAUNCHES["seq_cumsum"]
+    got = seq_cumsum(torch.from_numpy(x).cuda())
+    assert _lib.LAUNCHES["seq_cumsum"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), np.cumsum(x))
+
+
+def _calendar_equal(w, do_sw=True):
+    from repro_torch.kernels.calendar import build_calendar
+
+    out_gpu = torch.full((512,), -7, dtype=torch.int32, device="cuda")
+    flag = torch.tensor([do_sw], device="cuda")
+    before = _lib.LAUNCHES["build_calendar"]
+    build_calendar(w.cuda(), flag, out_gpu)
+    assert _lib.LAUNCHES["build_calendar"] == before + 1
+    want = build_calendar(w, torch.tensor([do_sw]), torch.full((512,), -7, dtype=torch.int32))
+    assert torch.equal(out_gpu.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("m", [1, 5, 16, 32])
+@pytest.mark.parametrize("kind", ["equal", "dominant", "random", "ties"])
+def test_build_calendar_equals_plain(m, kind):
+    rng = np.random.default_rng(m)
+    w = {"equal": np.ones(m), "dominant": np.r_[40.0, np.full(m - 1, 0.05)][:m],
+         "random": rng.uniform(0.05, 8.0, m),
+         "ties": np.repeat(rng.uniform(0.3, 2.0, (m + 2) // 3), 3)[:m]}[kind]
+    cal = _calendar_equal(torch.from_numpy(w))
+    assert int(cal.min()) >= 0 and int(cal.max()) < m
+
+
+def test_build_calendar_without_switch_leaves_out_untouched():
+    cal = _calendar_equal(torch.linspace(0.5, 2.0, 16, dtype=torch.float64), do_sw=False)
+    assert bool((cal == -7).all())
+
+
+def test_fused_engine_on_the_card_equals_the_host_engine():
+    """The straggler at 6 members: the fused engine on the card (one capture,
+    one replay per 8 windows, every kernel launched in every window of the
+    captured superblock) against the host engine on the card."""
+    from repro_torch.simnet import Simulator, get_scenario
+    from repro_torch.simnet import fused
+
+    scn = get_scenario("straggler")
+    cfg = lambda engine: scn.build_config(steps=24, n_members=6, engine=engine,
+                                          device="cuda")
+    host = Simulator(cfg("host"), dataclasses.replace(scn)).run()
+    traces0, calls0 = fused.FUSED_TRACES, fused.FUSED_STEP_CALLS
+    sim = Simulator(cfg("fused"), dataclasses.replace(scn))
+    eng = fused.FusedEngine(sim)
+    got = eng.run()
+    assert got.engine == "fused"
+    assert fused.FUSED_TRACES - traces0 <= 1 and fused.FUSED_STEP_CALLS - calls0 == 3
+    for name in ("lb_route", "farm_serve", "seq_cumsum", "build_calendar"):
+        assert eng.program.launches_per_run[name] == 8, name
+    for f in ("packets_sent", "packets_delivered", "packets_dropped_queue",
+              "duplicates_absorbed", "bundles_completed", "bundles_pending",
+              "bundles_timed_out", "bundles_vanished", "epoch_switches"):
+        assert getattr(got, f) == getattr(host, f), f
+    for f in ("latency_p50_s", "latency_p99_s", "latency_max_s", "latency_mean_s"):
+        assert getattr(got, f) == pytest.approx(getattr(host, f), rel=1e-9, abs=1e-12), f
+    assert got.per_member_segments == host.per_member_segments
+    # a second run of the same shape replays the same capture
+    traces1 = fused.FUSED_TRACES
+    again = Simulator(cfg("fused"), dataclasses.replace(scn)).run()
+    assert fused.FUSED_TRACES == traces1 and again.bundles_completed == got.bundles_completed
