@@ -14,7 +14,12 @@ result:
                 instance), dispatch_plan and seg_masks at 2^20 packets,
                 exactly equal to their plain versions, and again after the
                 timing's graph replays (a flag or counter a kernel fails to
-                reset between calls shows there); flash_attention at the
+                reset between calls shows there); lb_route's "global"
+                design over tables above a block's shared memory (farm_1k's
+                4 x 4096 member slots, the fabric's K = 8: 16 x 64) and
+                dispatch_plan past one chunk of 1024 members (M = 1024,
+                2048, 4096, 16,384), each exactly equal to plain and timed
+                in the same run as the shared-memory design; flash_attention at the
                 Yi-6B prefill shape (T=4096, 32/4 heads, d=128, bf16,
                 causal), at T=3000 causal and not, at B=2 with T=1000 causal
                 and not (a tensor map not bounded per batch would read the
@@ -32,7 +37,9 @@ result:
   4. loop       the closed loop at a small size on the card and on the CPU
                 (summaries must be equal), then the full-width 25-step,
                 64-member straggler loop with its invariants, and every
-                kernel launched at least once per step; then lb_route and
+                kernel launched at least once per step, then 5 steps of it
+                at the paper's 512-member instance (2048 member slots:
+                dispatch_plan over two chunks of members); then lb_route and
                 dispatch_plan at that loop's median window and lb_route at a
                 serving tick, inputs in L2 (graphs of 200 calls), each equal
                 to plain after the replays
@@ -61,7 +68,19 @@ result:
                 the card (counters exact, latencies rel 1e-9), the same
                 config fused on the CPU at 8 windows against the host
                 engine, and the host engine at 64 members for 12 windows
-  7. result     the `kernels` JSON line, the card line, and the last line
+  7. controld   the control plane as a service (repro_torch.controld) on
+                the simulator's host engine: farm_1k at full width (1024
+                CN clients over 4 instances of 4096 member slots, 20
+                windows), whose tables take lb_route's "global" design in
+                every window, card == CPU (whole report and the daemon's
+                state_digest), its windows/s, heartbeats/s, median daemon
+                tick and the card's busy share; lease_churn, cp_restart,
+                multi_tenant and leader_failover at their preset sizes,
+                card == CPU, with their gates (a lease lapse, a restart
+                that recovers the same digest, a failover that loses no
+                bundle); the card run's journal replayed into a fresh
+                daemon to the same digest
+  8. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -97,9 +116,12 @@ REPLACES = {
     "farm_serve": "src/repro/simnet/queues.py:99 (_serve_jnp)",
     "seq_cumsum": "src/repro/simnet/fused.py:242 (jnp.cumsum of the downlink FIFO)",
     "build_calendar": "src/repro/simnet/fused.py:144 (_device_calendar)",
+    # lb_route's second design (tables above shared memory): the same Pallas kernel
+    "lb_route_global": "src/repro/kernels/lb_route.py:188",
 }
 SOURCES = {
     "lb_route": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
+    "lb_route_global": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "dispatch_plan": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "seg_masks": "src/repro_torch/kernels/csrc/ejfat_kernels.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -111,8 +133,12 @@ DESIGNS = {
     "lb_route": "persistent grid (1024-thread blocks, one per SM, from a full wave of "
                 "them; 256-thread blocks below), every instance's tables staged in "
                 "shared memory, 4 packets per thread",
+    "lb_route_global": "the same grid and walk; blocks stage only the epoch segments, "
+                       "calendars and member fields read from device memory through "
+                       "the read-only path (tables above a block's shared memory)",
     "dispatch_plan": "one launch (+ a same-stream clear of its flags), single pass over "
-                     "4096-packet tiles, two-level decoupled look-back across tiles",
+                     "4096-packet tiles, two-level decoupled look-back across tiles; "
+                     "past 1024 members one grid row per chunk of 1024",
     "seg_masks": "one thread per row, row i-1 read directly",
     "farm_serve": "one thread per member walks its rows in order, the next row's loads "
                   "issued before the current row's float64 chain",
@@ -162,7 +188,8 @@ def time_on_card(torch, fn, reps=20, rounds=7):
     CUDA graph, each behind a read of 128 MB that evicts the 50 MB L2 (so
     every call finds its inputs in device memory; a read leaves no dirty
     lines for the call to write back), minus the same graph with the
-    evictions alone; median over ``rounds`` replays. The graph takes the
+    evictions alone; median over ``rounds`` replays after one untimed replay
+    of each graph (its upload to the card). The graph takes the
     host's launch cost out of the measurement. Fails when the difference
     is not above the spread of the eviction-only replays: the call's time
     is then lost in the noise and there is no measurement to report.
@@ -183,6 +210,8 @@ def time_on_card(torch, fn, reps=20, rounds=7):
 
     (g_fn, out), (g_flush, _) = capture(True), capture(False)
     graphs = {True: g_fn, False: g_flush}
+    for g in graphs.values():  # a graph's first replay uploads it: not timed
+        g.replay()
     per = {True: [], False: []}
     for _ in range(rounds):
         for k, g in graphs.items():
@@ -205,6 +234,7 @@ def time_warm(torch, fn, reps=200, rounds=7):
     with torch.cuda.graph(g):
         for _ in range(reps):
             out = fn()
+    g.replay()  # the first replay uploads the graph: not timed
     return statistics.median(_replay_ms(torch, g) / reps for _ in range(rounds)), out
 
 
@@ -387,6 +417,113 @@ def kernel_phase(torch, np):
     return results
 
 
+# lb_route's "global" design: farm_1k's stacked tables (4 x 4096 member
+# slots, 256 live members per instance) and the fabric's at K = 8 LBs
+# (2K = 16 instances of 64 slots, 48 live); dispatch_plan past one chunk of
+# 1024 members (the closed loop asks 4 slots per member: 2048 at the
+# paper's 512-member instance)
+WIDE_TABLES = {"farm_1k": (4, 4096, 256), "fabric_k8": (16, 64, 48)}
+PLAN_MEMBERS = (1024, 2048, 4096, 16_384)
+
+
+def wide_tables(np, rng, n_inst, max_members, n_live, base, span):
+    """``n_inst`` LB instances of ``max_members`` slots, each with
+    ``n_live`` members on slots spread over the table and four epochs whose
+    boundaries lie in [base, base + span), as ``full_width_tables``."""
+    from repro_torch.core import EpochManager
+    from repro_torch.core.tables import MemberSpec
+
+    ems = []
+    for inst in range(n_inst):
+        em = EpochManager(max_members=max_members)
+        for k in range(4):
+            ids = np.sort(rng.choice(max_members, n_live, replace=False)).tolist()
+            members = {m: MemberSpec(node_id=m, base_lane=4 * (m % 1024),
+                                     lane_bits=int(rng.integers(0, 5))) for m in ids}
+            weights = {m: float(rng.uniform(0.5, 2.0)) for m in members}
+            if k == 0:
+                em.initialize(members, weights)
+            else:
+                em.reconfigure(members, weights, base + (k + inst % 4) * span // 5)
+        ems.append(em)
+    return ems
+
+
+def wide_kernel_phase(torch, np):
+    """lb_route over tables above a block's shared memory (the "global"
+    design) and dispatch_plan past one chunk of members, at 2^20 packets:
+    each exactly equal to plain, also after the timing's graph replays,
+    timed in this run beside the shared-memory design's time."""
+    from repro_torch.core.dataplane import DataPlane
+    from repro_torch.core.protocol import CALENDAR_SLOTS, words_to_tensor
+    from repro_torch.core.tables import MAX_EPOCH_ROWS
+    from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels.dispatch import dispatch_plan
+    from repro_torch.kernels.lb_route import _design, lb_route, smem_bytes
+
+    rng = np.random.default_rng(17)
+    base, span = 1 << 40, 1 << 24
+    words, n_bad = full_width_headers(np, rng, base, span)
+    hdr = words_to_tensor(words, "cuda")
+    per_shape = {}
+    for name, (n_inst, max_members, n_live) in WIDE_TABLES.items():
+        ems = wide_tables(np, rng, n_inst, max_members, n_live, base, span)
+        tables = DataPlane.from_instances(ems, device="cuda").tables
+        design = _design(n_inst, MAX_EPOCH_ROWS, max_members)
+        need = smem_bytes("shared", n_inst, MAX_EPOCH_ROWS, max_members)
+        check(design == "global" and need == _lib.lib().ejfat_lb_route_smem_bytes(
+            0, n_inst, MAX_EPOCH_ROWS, CALENDAR_SLOTS, max_members),
+            f"{name}: {need} B of tables picked the {design} design")
+        iid = torch.from_numpy(rng.integers(0, n_inst, N_FULL).astype(np.int32)).cuda()
+        before = _lib.LAUNCHES["lb_route_global"]
+        got = lb_route(hdr, tables, iid)
+        check(_lib.LAUNCHES["lb_route_global"] == before + 1,
+              f"{name}: lb_route did not launch its global design")
+        want = ref.lb_route_ref(hdr, tables, iid)
+        check_equal(torch, f"lb_route ({name}: {n_inst} x {max_members})", got, want)
+        n_valid = int(got[3].sum())
+        check(0 < n_valid <= N_FULL - n_bad, f"{name}: {n_valid} packets routed")
+        t_k, last = time_on_card(torch, lambda: lb_route(hdr, tables, iid))
+        check_equal(torch, f"lb_route ({name}) after graph replays", last, want)
+        t_p, _ = time_on_card(torch, lambda: ref.lb_route_ref(hdr, tables, iid))
+        table_bytes = sum(t.numel() * t.element_size() for t in tables.fields().values())
+        b_ms, b_by = bound(N_FULL * (16 + 4 + 16) + table_bytes, N_FULL * 120)
+        per_shape[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                               max_abs_err=max_err(got, want), routed=n_valid,
+                               shape=f"N=2^20, {n_inst}x{max_members} stacked",
+                               table_bytes=need)
+        say(f"[kernels] lb_route global design, {name} {n_inst}x{max_members} stacked "
+            f"({need} B of tables, above the 232448 B a block holds), N=2^20, {n_bad} "
+            f"corrupt, {n_valid} routed: equal to plain, also after graph replays; kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_ms / t_k:.1%} reached)")
+    farm = per_shape["farm_1k"]
+    glob = dict(farm, library_ms=None, design=DESIGNS["lb_route_global"],
+                fabric_k8=per_shape["fabric_k8"])
+
+    chunks = {}
+    lib = _lib.lib()
+    for m in PLAN_MEMBERS:
+        member = torch.from_numpy(np.where(rng.random(N_FULL) < 0.03, -1,
+                                           rng.integers(0, m, N_FULL)).astype(np.int32)).cuda()
+        got = dispatch_plan(member, n_members=m)
+        want = ref.dispatch_plan_ref(member, n_members=m)
+        check_equal(torch, f"dispatch_plan N=2^20 n_members={m}", got, want)
+        t_k, last = time_on_card(torch, lambda: dispatch_plan(member, n_members=m))
+        check_equal(torch, f"dispatch_plan n_members={m} after graph replays", last, want)
+        t_p, _ = time_on_card(torch, lambda: ref.dispatch_plan_ref(member, n_members=m))
+        b_ms, b_by = bound(N_FULL * 8 + m * 4, N_FULL * 20)
+        scratch = 8 * lib.ejfat_dispatch_scratch_words(N_FULL, m)
+        chunks[m] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=max_err(got, want), scratch_bytes=scratch,
+                         chunks=-(-m // 1024))
+        say(f"[kernels] dispatch_plan N=2^20 n_members={m} ({-(-m // 1024)} chunks of "
+            f"members, scratch {scratch / 1e6:.2f} MB cleared per call): equal to plain, "
+            f"also after graph replays; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {b_ms / t_k:.1%} reached)")
+    return glob, chunks
+
+
 def flash_phase(torch, np):
     """flash_attention against its plain version on the card (bf16 at the
     Yi-6B prefill shape, at a ragged T causal and not, at B=2 with a ragged
@@ -495,6 +632,7 @@ def flash_phase(torch, np):
 # ---------------------------------------------------------------------------
 
 LOOP_KERNELS = ("lb_route", "dispatch_plan", "seg_masks")
+LOOP_WIDE_MEMBERS, LOOP_WIDE_STEPS = 512, 5
 SMALL_LOOP = ["--steps", "12", "--scenario", "straggler", "--n-members", "4",
               "--n-daqs", "2", "--mtu-payload", "2048", "--seed", "3"]
 
@@ -537,7 +675,30 @@ def loop_phase(torch):
                 step_s_median=statistics.median(steps), step_s_max=max(steps),
                 phase_s={k: round(v, 4) for k, v in res.phase_s.items()})
     say("[loop] " + json.dumps(line, sort_keys=True))
-    return launches, int(statistics.median(res.windows))
+    window_n = int(statistics.median(res.windows))
+
+    # the paper's 512-member instance: 4 slots per member, so dispatch_plan
+    # packs over 2048 member slots (two chunks of the kernel's members)
+    args = closed_loop.parse_args(closed_loop.FULL_WIDTH + [
+        "--n-members", str(LOOP_WIDE_MEMBERS), "--max-members", str(4 * LOOP_WIDE_MEMBERS),
+        "--steps", str(LOOP_WIDE_STEPS), "--device", "cuda"])
+    _lib.reset_launches()
+    res = closed_loop.run(args)
+    torch.cuda.synchronize()
+    wide = dict(_lib.LAUNCHES)
+    s = res.summary
+    check(not s["violations"], f"512-member loop violations: {s['violations']}")
+    check(s["split_events"] == 0 and s["corrupt_bundles"] == 0 and s["bundles_completed"] > 0,
+          "512-member loop: split, corrupt or no bundles")
+    for step, per_step in enumerate(res.step_launches):
+        for name in LOOP_KERNELS:
+            check(per_step[name] >= 1, f"512-member loop: {name} not launched in step {step}")
+    say(f"[loop] 512 members, {4 * LOOP_WIDE_MEMBERS} member slots, {LOOP_WIDE_STEPS} "
+        f"steps: step median {statistics.median(res.step_s):.4f} s, max "
+        f"{max(res.step_s):.4f} s; {res.packets_routed} packets routed and all packed; "
+        f"{s['bundles_completed']} of {s['bundles_sent']} bundles completed; launches "
+        + json.dumps({k: v for k, v in wide.items() if v}, sort_keys=True))
+    return {k: launches[k] + wide[k] for k in launches}, window_n
 
 
 def main_path_sizes(torch, np, window_n, tick_n):
@@ -1143,6 +1304,127 @@ def simnet_phase(torch, np):
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the control plane as a service
+# ---------------------------------------------------------------------------
+
+CONTROLD_PRESETS = ("lease_churn", "cp_restart", "multi_tenant", "leader_failover")
+FARM_1K_WINDOWS = 20
+
+
+def _controld_sim(name, device, steps=None):
+    import dataclasses
+
+    from repro_torch.simnet import Simulator, get_scenario
+
+    scn = get_scenario(name)
+    extra = {} if steps is None else dict(steps=steps)
+    return Simulator(scn.build_config(engine="host", device=device, **extra),
+                     dataclasses.replace(scn))
+
+
+def controld_phase(torch, np):
+    """farm_1k at full width on the card against the CPU, with its rates
+    and the card's busy share; the other controld presets card == CPU with
+    their gates; the card run's journal replayed into a fresh daemon.
+    Returns the launches of the farm_1k run (the main path)."""
+    import tempfile
+
+    from repro_torch.controld import ControlDaemon, Journal
+    from repro_torch.kernels import _lib
+
+    sim = _controld_sim("farm_1k", "cuda", FARM_1K_WINDOWS)
+    cfg = sim.cfg
+    ticks = []
+    tick = sim.client.tick
+
+    def timed_tick(*a, **kw):
+        t0 = time.perf_counter()
+        out = tick(*a, **kw)
+        ticks.append(time.perf_counter() - t0)
+        return out
+
+    sim.client.tick = timed_tick
+    tables = sim.dataplane().tables
+    check(tuple(tables.member_node.shape) == (4, 4096),
+          f"farm_1k tables are {tuple(tables.member_node.shape)}, not 4 x 4096")
+    _lib.reset_launches()
+    report, wall, busy = _profiled(torch, sim.run)
+    launches = dict(_lib.LAUNCHES)
+    # every farm_1k window delivers packets: one route per window
+    check(launches["lb_route_global"] == launches["lb_route"] == cfg.steps,
+          f"farm_1k: lb_route launched {launches['lb_route']} times, its global design "
+          f"{launches['lb_route_global']}, in {cfg.steps} windows")
+    heartbeats = sum(s.counters["heartbeats"] for s in sim.daemon.sessions.values())
+    cpu_sim = _controld_sim("farm_1k", "cpu", FARM_1K_WINDOWS)
+    cpu = cpu_sim.run()
+    check(_comparable(report) == _comparable(cpu),
+          f"farm_1k: the card's report differs from the CPU's:\n{_comparable(report)}\n"
+          f"{_comparable(cpu)}")
+    digest = sim.daemon.state_digest()
+    check(digest == cpu_sim.daemon.state_digest(), "farm_1k: daemon digests differ")
+    check(not report.violations and report.bundles_completed > 0,
+          f"farm_1k: {report.violations}")
+    line = dict(run="farm_1k", members=cfg.n_members, instances=cfg.n_instances,
+                member_slots=int(tables.member_node.shape[1]), windows=cfg.steps,
+                wall_s=wall, windows_per_s=cfg.steps / wall, heartbeats=heartbeats,
+                heartbeats_per_s=heartbeats / wall, ticks=len(ticks),
+                tick_ms_median=statistics.median(ticks) * 1e3, device_busy_s=busy,
+                device_busy_share=busy / wall,
+                busy_measured_by="torch.profiler (its own cost in the wall)",
+                bundles_completed=report.bundles_completed,
+                bundles_sent=report.bundles_sent, epoch_switches=report.epoch_switches,
+                latency_p50_s=report.latency_p50_s, latency_p99_s=report.latency_p99_s,
+                launches={k: v for k, v in launches.items() if v}, digest=digest[:16])
+    say("[controld] " + json.dumps(line, sort_keys=True) + " — card == CPU (whole report, "
+        "daemon digest)")
+
+    # the card run's journal, written to a file, into a fresh daemon
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "farm_1k.jsonl"
+        with open(path, "w", encoding="utf-8") as f:
+            for e in sim.daemon.journal.entries:
+                f.write(e.to_line() + "\n")
+        journal = Journal.load(str(path))
+        fresh = ControlDaemon.recover(
+            journal, n_instances=cfg.n_instances, clock=sim.clock.now,
+            lease_s=sim._lease_s(), epoch_horizon=max(16, 8 * cfg.triggers_per_step),
+            max_members=max(64, 4 * cfg.n_members))
+        journal.close()
+        check(fresh.state_digest() == digest,
+              "farm_1k: the card run's journal replays to another digest")
+    say(f"[controld] farm_1k journal ({len(sim.daemon.journal.entries)} entries) replayed "
+        f"into a fresh daemon: the same digest")
+
+    gates = {}
+    for name in CONTROLD_PRESETS:
+        card_sim, cpu_sim = _controld_sim(name, "cuda"), _controld_sim(name, "cpu")
+        r, rc = card_sim.run(), cpu_sim.run()
+        check(_comparable(r) == _comparable(rc), f"{name}: the card's report differs "
+                                                 f"from the CPU's")
+        check(card_sim.daemon.state_digest() == cpu_sim.daemon.state_digest(),
+              f"{name}: daemon digests differ card vs CPU")
+        check(not r.violations, f"{name}: {r.violations}")
+        if name == "lease_churn":
+            check(r.leases_expired >= 1, "lease_churn: no lease lapsed")
+        if name == "cp_restart":
+            check(r.daemon_restarts >= 1 and card_sim.restart_digest_mismatches == 0,
+                  "cp_restart: no restart, or a recovered digest differs")
+        if name == "leader_failover":
+            check(r.ha_failovers >= 1 and card_sim.ha_digest_mismatches == 0,
+                  "leader_failover: no failover, or a resumed digest differs")
+            check(r.bundles_completed == r.bundles_sent and r.bundles_timed_out == 0,
+                  f"leader_failover lost bundles: {r.bundles_completed} of "
+                  f"{r.bundles_sent} completed, {r.bundles_timed_out} timed out")
+        gates[name] = dict(windows=r.steps, bundles_completed=r.bundles_completed,
+                           bundles_sent=r.bundles_sent, leases_expired=r.leases_expired,
+                           daemon_restarts=r.daemon_restarts, ha_failovers=r.ha_failovers,
+                           ha_failover_durations=r.ha_failover_durations)
+    say("[controld] presets, host engine card == CPU (whole report, daemon digest): "
+        + json.dumps(gates, sort_keys=True))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1175,6 +1457,8 @@ def main() -> int:
                 say("[build] " + ln.strip())
 
         results = kernel_phase(torch, np)
+        results["lb_route_global"], chunks = wide_kernel_phase(torch, np)
+        results["dispatch_plan"]["member_chunks"] = chunks
         results["flash_attention"] = flash_phase(torch, np)
         loop_launches, window_n = loop_phase(torch)
         for name, sizes in main_path_sizes(torch, np, window_n, N_REQUESTS).items():
@@ -1183,6 +1467,7 @@ def main() -> int:
         serve_launches = full_serve(torch, np)
         simnet_results, simnet_launches = simnet_phase(torch, np)
         results.update(simnet_results)
+        controld_launches = controld_phase(torch, np)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -1190,7 +1475,8 @@ def main() -> int:
     # launches: the sum over the main-path runs (each checked on its own)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=(loop_launches[name] + serve_launches[name]
-                              + simnet_launches.get(name, 0)), **results[name])
+                              + simnet_launches.get(name, 0) + controld_launches[name]),
+                    **results[name])
                for name in REPLACES]
     for row in kernels:
         if row["name"] == "flash_attention":  # of which through the wgmma design

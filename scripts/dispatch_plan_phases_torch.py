@@ -40,9 +40,9 @@ PATCHES = (
      "  unsigned long long* stamp = tile_words + (static_cast<long long>(n_tiles) +"
      " (n_tiles + kDpGroup - 1) / kDpGroup) * n_members + tile * 8;\n"
      "  if (threadIdx.x == 0) { stamp[0] = t_entry; stamp[1] = global_ns(); }\n"),
-    ("    if (key[c] >= 0 && key[c] < n_members) atomicAdd(&run[key[c]], 1);\n"
+    ("    if (in_chunk(raw[c])) atomicAdd(&run[raw[c] - m0], 1);\n"
      "  __syncthreads();\n",
-     "    if (key[c] >= 0 && key[c] < n_members) atomicAdd(&run[key[c]], 1);\n"
+     "    if (in_chunk(raw[c])) atomicAdd(&run[raw[c] - m0], 1);\n"
      "  __syncthreads();\n  if (threadIdx.x == 0) stamp[2] = global_ns();\n"),
     ("  // The lanes of each chunk holding the same member",
      "  if (threadIdx.x == 0) stamp[3] = global_ns();\n"
@@ -51,11 +51,13 @@ PATCHES = (
      "  if (threadIdx.x == 0) stamp[4] = global_ns();\n  // 3b. The group's exclusive prefix"),
     ("  // 4. Ranks, in packet order",
      "  if (threadIdx.x == 0) stamp[5] = global_ns();\n  // 4. Ranks, in packet order"),
-    ("    if (i < n) pos[i] = p;\n  }\n}",
-     "    if (i < n) pos[i] = p;\n  }\n  __syncthreads();\n"
+    ("    if (i < n && mine) pos[i] = p;\n  }\n}",
+     "    if (i < n && mine) pos[i] = p;\n  }\n  __syncthreads();\n"
      "  if (threadIdx.x == 0) stamp[6] = global_ns();\n}"),
-    ("  return 1 + (dp_tiles(n) + dp_groups(dp_tiles(n))) * n_members;",
-     "  return 1 + (dp_tiles(n) + dp_groups(dp_tiles(n))) * n_members + dp_tiles(n) * 8;"),
+    # (one chunk of members: the stamps follow its words)
+    ("(1 + (dp_tiles(n) + dp_groups(dp_tiles(n))) * dp_chunk_members(n_members));",
+     "(1 + (dp_tiles(n) + dp_groups(dp_tiles(n))) * dp_chunk_members(n_members))"
+     " + dp_tiles(n) * 8;"),
 )
 
 

@@ -4,13 +4,17 @@
       -> per-member pack -> per-member batched reassembly -> telemetry
       -> CP reweight -> hit-less epoch switch -> back around.
 
-The port of the JAX package's ``scripts/run_closed_loop.py`` (its per-step
-``--engine loop``), through the port's entry points: one ``segment_bundles``
+The port of the JAX package's ``scripts/run_closed_loop.py``. Its per-step
+``--engine loop`` runs through the port's entry points: one ``segment_bundles``
 pass, one ``deliver_batch`` permutation (threefry draws on the device), one
 ``DataPlane.route_window`` (the ``lb_route`` kernel), one ``DataPlane.plan``
 + ``combine`` pack of the routed window (the ``dispatch_plan`` kernel), and
 one device reassembly plan per member per step (the ``seg_masks`` kernel).
 The control plane consumes the real incomplete-buffer backlog.
+``--engine fused|host`` runs the same closed loop on the virtual-time
+simulator (``simnet``) instead, with the WAN loss/dup knobs on its WAN link
+and the straggler as a 4x slow farm member; ``--metrics-interval`` runs the
+live metrics registry (the loop and the host engine).
 
 Scenarios (``--scenario``):
   baseline   clean WAN, static membership
@@ -20,11 +24,14 @@ Scenarios (``--scenario``):
   elastic    members join at 1/3 and leave at 2/3 of the run
 
 The summary has the reference driver's keys and, from the same seed and
-sizes, the same values (``wall_s`` aside). Exits non-zero if an invariant
-breaks: an event split across members, a corrupt bundle, unaccounted
-segments, a pack that dropped or lost a packet.
+sizes, the same values (``wall_s`` aside; with ``--engine fused|host``
+also ``packets_per_sec``). Exits non-zero if an invariant breaks: an event
+split across members, a corrupt bundle, unaccounted segments, a pack that
+dropped or lost a packet; 2 for ``--engine fused|host`` with the elastic
+scenario, or for the fused engine with metrics (not ported yet).
 
     PYTHONPATH=src python -m repro_torch.closed_loop --steps 50 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.closed_loop --steps 50 --engine host
 """
 from __future__ import annotations
 
@@ -84,6 +91,17 @@ def parse_args(argv=None):
     ap.add_argument("--timeout-windows", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", choices=["loop", "fused", "host"], default="loop",
+                    help="loop = this module's inline per-step loop; "
+                         "fused/host = run the equivalent virtual-time "
+                         "simulation through simnet's fused (CUDA-graph "
+                         "superblock) or host engine")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    help="emit a metrics time-series row every N steps "
+                         "(enables the live registry; the loop and the host "
+                         "engine). 0 = off")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="JSONL path for --metrics-interval rows")
     ap.add_argument("--json", default=None, help="write the summary here")
     return ap.parse_args(argv)
 
@@ -100,6 +118,60 @@ def scenario_transport(args) -> TransportConfig:
         duplicate_prob=dup if args.dup is None else args.dup,
         seed=args.seed,
     )
+
+
+def run_simulator(args) -> int:
+    """--engine fused/host: the same closed loop on the virtual-time
+    simulator (``simnet``), where the engine choice is meaningful. The WAN
+    loss/dup knobs map onto the simnet WAN link; ``reorder`` arrives via
+    jitter (the simnet WAN has no explicit reorder window)."""
+    from repro_torch.simnet import SimConfig, Simulator
+    from repro_torch.simnet.links import LinkConfig
+
+    if args.scenario == "elastic":
+        print("--engine fused/host does not support the elastic scenario "
+              "(membership hooks run per-step on host); use --engine loop",
+              file=sys.stderr)
+        return 2
+    tcfg = scenario_transport(args)
+    scale = None
+    if args.scenario == "straggler":
+        scale = np.ones((args.n_members,))
+        scale[0] = 4.0
+    cfg = SimConfig(
+        steps=args.steps, n_members=args.n_members, n_daqs=args.n_daqs,
+        triggers_per_step=args.triggers_per_step,
+        mean_bundle_bytes=args.mean_bundle_bytes,
+        mtu_payload=args.mtu_payload, seed=args.seed, device=args.device,
+        wan=LinkConfig(prop_delay_s=1e-3, jitter_s=2e-4,
+                       loss_prob=tcfg.loss_prob,
+                       duplicate_prob=tcfg.duplicate_prob, seed=args.seed),
+        service_scale=scale, reweight_every=args.reweight_every,
+        timeout_windows=max(args.timeout_windows, 1), engine=args.engine,
+        metrics_every=(max(args.metrics_interval, 1)
+                       if args.metrics_interval or args.metrics_jsonl else 0),
+        metrics_path=args.metrics_jsonl)
+    sim = Simulator(cfg)
+    try:
+        report = sim.run()
+    except NotImplementedError as e:  # the fused engine's metrics replay
+        print(f"--engine {args.engine}: {e}", file=sys.stderr)
+        return 2
+    summary = report.to_dict()
+    print(json.dumps(summary, indent=2))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(summary, f, indent=2)
+    violations = list(report.violations)
+    if args.scenario == "straggler" and args.steps >= 20:
+        weights = {int(k): v for k, v in report.final_weights.items()}
+        w = weights.get(0, 1.0)
+        if w >= 1.0:
+            violations.append(f"straggler weight not shed (w={w:.2f})")
+    if violations:
+        print("FAILED: " + "; ".join(violations), file=sys.stderr)
+        return 1
+    return 0
 
 
 @dataclasses.dataclass
@@ -138,6 +210,23 @@ def run(args) -> LoopResult:
     reassemblers: dict[int, object] = {}
     reported_timeouts: dict[int, int] = defaultdict(int)
 
+    metrics = ts_writer = None
+    if args.metrics_interval or args.metrics_jsonl:
+        from repro_torch.telemetry.export import TimeSeriesWriter
+        from repro_torch.telemetry.registry import MetricsRegistry
+        metrics = MetricsRegistry()
+        mx_windows = metrics.counter("loop_windows_total",
+                                     "Ingest windows completed.")
+        mx_step = metrics.histogram("loop_step_seconds",
+                                    "Wall time per ingest window.")
+        metrics.gauge("loop_bundles_completed", "Bundles fully reassembled."
+                      ).set_function(lambda: completed)
+        metrics.gauge("loop_epoch_switches",
+                      "Hit-less epoch switches scheduled."
+                      ).set_function(lambda: epoch_switches)
+        if args.metrics_jsonl:
+            ts_writer = TimeSeriesWriter(args.metrics_jsonl, metrics)
+
     def reassembler(member: int):
         if member not in reassemblers:
             reassemblers[member] = dp_cache.get().make_reassembler(
@@ -165,6 +254,9 @@ def run(args) -> LoopResult:
     def end_step(t_step0, launches0):
         step_s.append(time.perf_counter() - t_step0)
         step_launches.append({k: n - launches0[k] for k, n in _lib.LAUNCHES.items()})
+        if metrics is not None:
+            mx_step.observe(step_s[-1])
+            mx_windows.inc()
 
     for step in range(args.steps):
         t_step0 = clock[0] = time.perf_counter()
@@ -248,6 +340,10 @@ def run(args) -> LoopResult:
             cp.garbage_collect(fleet.event_number)
         lap("control")
         end_step(t_step0, launches0)
+        if ts_writer is not None and (step + 1) % max(args.metrics_interval, 1) == 0:
+            ts_writer.write(step=step)
+    if ts_writer is not None:
+        ts_writer.close()
 
     # -- audit ----------------------------------------------------------------
     split_events = sum(1 for ms in event_members.values() if len(ms) > 1)
@@ -300,6 +396,8 @@ def run(args) -> LoopResult:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.engine != "loop":
+        return run_simulator(args)
     res = run(args)
     print(json.dumps(res.summary, indent=2))
     if args.json:

@@ -32,8 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches of each kernel since the last ``reset_launches()``
 #: (``flash_attention`` counts every launch of either attention design,
-#: ``flash_attention_wgmma`` those of the wgmma design alone)
-LAUNCHES: dict[str, int] = {"lb_route": 0, "dispatch_plan": 0, "seg_masks": 0,
+#: ``flash_attention_wgmma`` those of the wgmma design alone; likewise
+#: ``lb_route`` and ``lb_route_global``)
+LAUNCHES: dict[str, int] = {"lb_route": 0, "lb_route_global": 0,
+                            "dispatch_plan": 0, "seg_masks": 0,
                             "flash_attention": 0, "flash_attention_wgmma": 0,
                             "farm_serve": 0, "seq_cumsum": 0, "build_calendar": 0}
 
@@ -111,8 +113,8 @@ def build() -> Path:
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ejfat_lb_route_smem_bytes.argtypes = [i, i, i, i]
-    lib.ejfat_lb_route.argtypes = [p, p, i, p, p, p, p, p, p, p, p,
+    lib.ejfat_lb_route_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.ejfat_lb_route.argtypes = [i, p, p, i, p, p, p, p, p, p, p, p,
                                    i, i, i, i, p, p, p, p, p]
     lib.ejfat_dispatch_scratch_words.argtypes = [i, i]
     lib.ejfat_dispatch_plan.argtypes = [p, i, i, p, p, p, p]

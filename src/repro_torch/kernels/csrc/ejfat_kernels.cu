@@ -31,21 +31,34 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 // packet against a few integer compares, so the card's 3.35 TB/s memory
 // rate is the limit (~11 us at 2^20 packets).
 //
-// Design: a persistent grid of min(packet groups / 64, SMs x occupancy)
-// blocks, each of which first stages every instance's tables in shared
-// memory, then walks groups of 4 consecutive packets per thread with a grid
-// stride: four 16-byte header loads in flight (the next group's are issued
-// before the current group is routed), and each of the four outputs leaves
-// as one 16-byte store. The first group's header loads are issued before
-// the staging, so they overlap it. Once the window holds a full 1024-thread
+// Two designs, picked by table bytes (kernels/lb_route.py::_design):
+//
+// "shared" (tables within the card's shared-memory opt-in, 232,448 B): a
+// persistent grid of min(packet groups / 64, SMs x occupancy) blocks, each
+// of which first stages every instance's tables in shared memory, then
+// walks groups of 4 consecutive packets per thread with a grid stride:
+// four 16-byte header loads in flight (the next group's are issued before
+// the current group is routed), and each of the four outputs leaves as one
+// 16-byte store. The first group's header loads are issued before the
+// staging, so they overlap it. Once the window holds a full 1024-thread
 // block of packet groups for every SM (2^20 packets: yes; the closed loop's
 // ~16k-packet window: no), blocks have 1024 threads and occupancy 1, so
 // each SM stages the tables once (132 copies in all); below that, blocks of
 // 256 threads spread over more SMs, which the loop's window runs faster
 // than on 1024-thread blocks (PERF.md).
 //
-// Shared-memory layout, per instance i of I (M members, R calendar rows of
-// S slots):
+// "global" (larger tables: farm_1k's 4 x 4096 member slots, 328,480 B; the
+// fabric's 14-16 stacked 64-slot instances, whose calendars alone pass the
+// opt-in at 16): the same grid and walk, but a block stages only the epoch
+// segments (starts and rows, 200 B per instance); the calendar entry and
+// the four member fields of each packet are read from device memory
+// through the read-only path (__ldg), where L1 and the 50 MB L2 hold the
+// tables (farm_1k's are 320 KB) after the first touches. Five gathers per
+// packet instead of shared-memory reads: a first design, whose time beside
+// the shared design's is in PERF.md.
+//
+// Shared-memory layout of the "shared" design, per instance i of I (M
+// members, R calendar rows of S slots):
 //   member[I][M]  int4 {node, base lane, lane mask, valid}: one 16-byte
 //                 read per packet instead of four gathers
 //   cal[I][R][S]  int32 member ids
@@ -56,11 +69,12 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 //                 stride would put them all in one bank pair, 4-way)
 //   row[I][16]    int32 calendar row of each segment
 // Four stacked instances of 512 members take 99,104 B (the dynamic shared
-// memory opt-in), one instance 24,776 B. With one instance the 16 starts
-// are held in registers. Every clip of the Pallas
-// kernel is kept (instance id, row, member), so an invalid packet never
-// reads outside a table; the epoch search stays a count of starts <= event
-// over all 16 entries, since the compiled starts may come in any order.
+// memory opt-in), one instance 24,776 B. The "global" design keeps only
+// start and row. With one instance the 16 starts are held in registers.
+// Every clip of the Pallas kernel is kept (instance id, row, member), so an
+// invalid packet never reads outside a table; the epoch search stays a
+// count of starts <= event over all 16 entries, since the compiled starts
+// may come in any order.
 // ---------------------------------------------------------------------------
 constexpr int kSeg = 16;                // epoch segments per instance
 constexpr int kSegStride = kSeg + 1;    // u64 words per instance row of starts
@@ -87,10 +101,13 @@ __host__ __device__ inline size_t lb_cal_bytes(int n_inst, int n_rows, int n_slo
 __host__ __device__ inline size_t lb_start_bytes(int n_inst) {
   return align16(sizeof(uint64_t) * n_inst * kSegStride);
 }
+__host__ __device__ inline size_t lb_segment_bytes(int n_inst) {
+  return lb_start_bytes(n_inst) + sizeof(int32_t) * n_inst * kSeg;
+}
 __host__ __device__ inline size_t lb_smem_bytes(int n_inst, int n_rows, int n_slots,
                                                 int n_members) {
   return lb_member_bytes(n_inst, n_members) + lb_cal_bytes(n_inst, n_rows, n_slots) +
-         lb_start_bytes(n_inst) + sizeof(int32_t) * n_inst * kSeg;
+         lb_segment_bytes(n_inst);
 }
 
 __device__ inline LbTables lb_carve(unsigned char* smem, int n_inst, int n_rows, int n_slots,
@@ -134,10 +151,31 @@ __device__ __forceinline__ void load_group(const int4* __restrict__ hdr,
   }
 }
 
+// Where route_one reads a calendar entry and a member's four fields.
+struct LbSharedTab {  // staged in shared memory
+  const int32_t* cal;
+  const int4* member;
+  __device__ __forceinline__ int calendar(int k) const { return cal[k]; }
+  __device__ __forceinline__ int4 fields(int k) const { return member[k]; }
+};
+struct LbGlobalTab {  // device memory, through the read-only path
+  const int32_t* __restrict__ cal;
+  const int32_t* __restrict__ node;
+  const int32_t* __restrict__ base;
+  const int32_t* __restrict__ mask;
+  const int32_t* __restrict__ mvalid;
+  __device__ __forceinline__ int calendar(int k) const { return __ldg(cal + k); }
+  __device__ __forceinline__ int4 fields(int k) const {
+    return make_int4(__ldg(node + k), __ldg(base + k), __ldg(mask + k), __ldg(mvalid + k));
+  }
+};
+
 // One packet through parse -> epoch -> calendar -> member rewrite:
-// {member, node, lane, valid}.
-template <bool MULTI>
-__device__ __forceinline__ int4 route_one(int4 w, int inst, const LbTables& t,
+// {member, node, lane, valid}. `start` and `seg_row` are the staged
+// segments (shared memory).
+template <bool MULTI, class Tab>
+__device__ __forceinline__ int4 route_one(int4 w, int inst, const uint64_t* start,
+                                          const int32_t* seg_row, const Tab& tab,
                                           const uint64_t (&reg_start)[kSeg], int n_inst,
                                           int n_rows, int n_slots, int n_members) {
   // Parsing stage (paper §III-A): field extract + magic/version check.
@@ -152,34 +190,95 @@ __device__ __forceinline__ int4 route_one(int4 w, int inst, const LbTables& t,
   int cnt = 0;
 #pragma unroll
   for (int s = 0; s < kSeg; ++s)
-    cnt += ev >= (MULTI ? t.start[inst * kSegStride + s] : reg_start[s]) ? 1 : 0;
-  const int row = t.row[inst * kSeg + clampi(cnt - 1, 0, kSeg - 1)];
+    cnt += ev >= (MULTI ? start[inst * kSegStride + s] : reg_start[s]) ? 1 : 0;
+  const int row = seg_row[inst * kSeg + clampi(cnt - 1, 0, kSeg - 1)];
 
   // Calendar to Member Map: slot = 9 LSBs of the event number.
   const int slot = static_cast<int>(e_lo & kSlotMask);
-  const int member = t.cal[(inst * n_rows + clampi(row, 0, n_rows - 1)) * n_slots + slot];
+  const int member = tab.calendar((inst * n_rows + clampi(row, 0, n_rows - 1)) * n_slots + slot);
 
   // Member Lookup and Rewrite.
-  const int4 mt = t.member[inst * n_members + clampi(member, 0, n_members - 1)];
+  const int4 mt = tab.fields(inst * n_members + clampi(member, 0, n_members - 1));
   ok = ok && row >= 0 && member >= 0 && mt.w > 0;
   return ok ? make_int4(member, mt.x, mt.y + (entropy & mt.z), 1) : make_int4(-1, -1, -1, 0);
 }
 
+// Stage the segments (starts as u64 rows of kSegStride, calendar rows).
+__device__ __forceinline__ void stage_segments(uint64_t* start, int32_t* row,
+                                               const long long* __restrict__ seg_hi,
+                                               const long long* __restrict__ seg_lo,
+                                               const int32_t* __restrict__ seg_row,
+                                               int n_inst) {
+  for (int k = threadIdx.x; k < n_inst * kSeg; k += blockDim.x) {
+    start[(k / kSeg) * kSegStride + k % kSeg] =
+        (static_cast<uint64_t>(static_cast<uint32_t>(__ldg(seg_hi + k))) << 32) |
+        static_cast<uint32_t>(__ldg(seg_lo + k));
+    row[k] = __ldg(seg_row + k);
+  }
+}
+
+// The grid-stride walk over groups of 4 packets from group g on (the
+// first group's words already in w/ids): route each group while the next
+// one's loads are in flight, store each output as one 16-byte store.
+template <bool MULTI, class Route>
+__device__ __forceinline__ void lb_walk(const int4* __restrict__ hdr,
+                                        const int32_t* __restrict__ iid, int n, long long g,
+                                        int4 (&w)[kLbPackets], int (&ids)[kLbPackets],
+                                        const Route& route, int32_t* __restrict__ member_out,
+                                        int32_t* __restrict__ node_out,
+                                        int32_t* __restrict__ lane_out,
+                                        int32_t* __restrict__ valid_out) {
+  const long long n_groups = (static_cast<long long>(n) + kLbPackets - 1) / kLbPackets;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (; g < n_groups; g += step) {
+    int4 wn[kLbPackets];
+    int idn[kLbPackets] = {0, 0, 0, 0};
+    if (g + step < n_groups) load_group<MULTI>(hdr, iid, n, (g + step) * kLbPackets, wn, idn);
+    int4 r[kLbPackets];
+#pragma unroll
+    for (int k = 0; k < kLbPackets; ++k) r[k] = route(w[k], ids[k]);
+    const long long p0 = g * kLbPackets;
+    if (p0 + kLbPackets <= n) {
+      *reinterpret_cast<int4*>(member_out + p0) = make_int4(r[0].x, r[1].x, r[2].x, r[3].x);
+      *reinterpret_cast<int4*>(node_out + p0) = make_int4(r[0].y, r[1].y, r[2].y, r[3].y);
+      *reinterpret_cast<int4*>(lane_out + p0) = make_int4(r[0].z, r[1].z, r[2].z, r[3].z);
+      *reinterpret_cast<int4*>(valid_out + p0) = make_int4(r[0].w, r[1].w, r[2].w, r[3].w);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLbPackets; ++k) {
+        if (p0 + k < n) {
+          member_out[p0 + k] = r[k].x;
+          node_out[p0 + k] = r[k].y;
+          lane_out[p0 + k] = r[k].z;
+          valid_out[p0 + k] = r[k].w;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLbPackets; ++k) {
+      w[k] = wn[k];
+      ids[k] = idn[k];
+    }
+  }
+}
+
+#define LB_ROUTE_PARAMS                                                                    \
+  const int4 *__restrict__ hdr, const int32_t *__restrict__ iid, int n,                    \
+      const long long *__restrict__ seg_hi, const long long *__restrict__ seg_lo,          \
+      const int32_t *__restrict__ seg_row, const int4 *__restrict__ cal,                   \
+      const int32_t *__restrict__ node, const int32_t *__restrict__ base,                  \
+      const int32_t *__restrict__ mask, const int32_t *__restrict__ mvalid, int n_inst,    \
+      int n_rows, int n_slots, int n_members, int32_t *__restrict__ member_out,            \
+      int32_t *__restrict__ node_out, int32_t *__restrict__ lane_out,                      \
+      int32_t *__restrict__ valid_out
+
+// The "shared" design: all tables staged in shared memory.
 template <bool MULTI, int THREADS>
-__global__ void __launch_bounds__(THREADS) lb_route_kernel(
-    const int4* __restrict__ hdr, const int32_t* __restrict__ iid, int n,
-    const long long* __restrict__ seg_hi, const long long* __restrict__ seg_lo,
-    const int32_t* __restrict__ seg_row, const int4* __restrict__ cal,
-    const int32_t* __restrict__ node, const int32_t* __restrict__ base,
-    const int32_t* __restrict__ mask, const int32_t* __restrict__ mvalid,
-    int n_inst, int n_rows, int n_slots, int n_members,
-    int32_t* __restrict__ member_out, int32_t* __restrict__ node_out,
-    int32_t* __restrict__ lane_out, int32_t* __restrict__ valid_out) {
+__global__ void __launch_bounds__(THREADS) lb_route_kernel(LB_ROUTE_PARAMS) {
   extern __shared__ __align__(16) unsigned char lb_smem[];
   const LbTables t = lb_carve(lb_smem, n_inst, n_rows, n_slots, n_members);
   const long long n_groups = (static_cast<long long>(n) + kLbPackets - 1) / kLbPackets;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
 
   int4 w[kLbPackets];
   int ids[kLbPackets] = {0, 0, 0, 0};
@@ -212,96 +311,78 @@ __global__ void __launch_bounds__(THREADS) lb_route_kernel(
   const int n_cal4 = n_inst * n_rows * n_slots / 4;
   for (int k = threadIdx.x; k < n_cal4; k += blockDim.x)
     reinterpret_cast<int4*>(t.cal)[k] = __ldg(cal + k);
-  for (int k = threadIdx.x; k < n_inst * kSeg; k += blockDim.x) {
-    t.start[(k / kSeg) * kSegStride + k % kSeg] =
-        (static_cast<uint64_t>(static_cast<uint32_t>(__ldg(seg_hi + k))) << 32) |
-        static_cast<uint32_t>(__ldg(seg_lo + k));
-    t.row[k] = __ldg(seg_row + k);
-  }
+  stage_segments(t.start, t.row, seg_hi, seg_lo, seg_row, n_inst);
   __syncthreads();
 
   uint64_t reg_start[kSeg];
 #pragma unroll
   for (int s = 0; s < kSeg; ++s) reg_start[s] = MULTI ? 0 : t.start[s];
-
-  for (; g < n_groups; g += step) {
-    int4 wn[kLbPackets];
-    int idn[kLbPackets] = {0, 0, 0, 0};
-    if (g + step < n_groups) load_group<MULTI>(hdr, iid, n, (g + step) * kLbPackets, wn, idn);
-    int4 r[kLbPackets];
-#pragma unroll
-    for (int k = 0; k < kLbPackets; ++k)
-      r[k] = route_one<MULTI>(w[k], ids[k], t, reg_start, n_inst, n_rows, n_slots, n_members);
-    const long long p0 = g * kLbPackets;
-    if (p0 + kLbPackets <= n) {
-      *reinterpret_cast<int4*>(member_out + p0) = make_int4(r[0].x, r[1].x, r[2].x, r[3].x);
-      *reinterpret_cast<int4*>(node_out + p0) = make_int4(r[0].y, r[1].y, r[2].y, r[3].y);
-      *reinterpret_cast<int4*>(lane_out + p0) = make_int4(r[0].z, r[1].z, r[2].z, r[3].z);
-      *reinterpret_cast<int4*>(valid_out + p0) = make_int4(r[0].w, r[1].w, r[2].w, r[3].w);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kLbPackets; ++k) {
-        if (p0 + k < n) {
-          member_out[p0 + k] = r[k].x;
-          node_out[p0 + k] = r[k].y;
-          lane_out[p0 + k] = r[k].z;
-          valid_out[p0 + k] = r[k].w;
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kLbPackets; ++k) {
-      w[k] = wn[k];
-      ids[k] = idn[k];
-    }
-  }
+  const LbSharedTab tab{t.cal, t.member};
+  lb_walk<MULTI>(
+      hdr, iid, n, g, w, ids,
+      [&](int4 wk, int inst) {
+        return route_one<MULTI>(wk, inst, t.start, t.row, tab, reg_start, n_inst, n_rows,
+                                n_slots, n_members);
+      },
+      member_out, node_out, lane_out, valid_out);
 }
+
+// The "global" design: segments in shared memory, calendars and member
+// fields read from device memory.
+template <bool MULTI, int THREADS>
+__global__ void __launch_bounds__(THREADS) lb_route_global_kernel(LB_ROUTE_PARAMS) {
+  extern __shared__ __align__(16) unsigned char lb_smem[];
+  uint64_t* start = reinterpret_cast<uint64_t*>(lb_smem);
+  int32_t* row = reinterpret_cast<int32_t*>(lb_smem + lb_start_bytes(n_inst));
+  const long long n_groups = (static_cast<long long>(n) + kLbPackets - 1) / kLbPackets;
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+
+  int4 w[kLbPackets];
+  int ids[kLbPackets] = {0, 0, 0, 0};
+  if (g < n_groups) load_group<MULTI>(hdr, iid, n, g * kLbPackets, w, ids);
+  stage_segments(start, row, seg_hi, seg_lo, seg_row, n_inst);
+  __syncthreads();
+
+  uint64_t reg_start[kSeg];
+#pragma unroll
+  for (int s = 0; s < kSeg; ++s) reg_start[s] = MULTI ? 0 : start[s];
+  const LbGlobalTab tab{reinterpret_cast<const int32_t*>(cal), node, base, mask, mvalid};
+  lb_walk<MULTI>(
+      hdr, iid, n, g, w, ids,
+      [&](int4 wk, int inst) {
+        return route_one<MULTI>(wk, inst, start, row, tab, reg_start, n_inst, n_rows, n_slots,
+                                n_members);
+      },
+      member_out, node_out, lane_out, valid_out);
+}
+
+using LbKernel = void (*)(const int4*, const int32_t*, int, const long long*, const long long*,
+                          const int32_t*, const int4*, const int32_t*, const int32_t*,
+                          const int32_t*, const int32_t*, int, int, int, int, int32_t*,
+                          int32_t*, int32_t*, int32_t*);
+
+// The kernel variants, [design (0 shared, 1 global)][MULTI][large blocks].
+const LbKernel kLbKernels[2][2][2] = {
+    {{lb_route_kernel<false, kLbThreadsSmall>, lb_route_kernel<false, kLbThreadsLarge>},
+     {lb_route_kernel<true, kLbThreadsSmall>, lb_route_kernel<true, kLbThreadsLarge>}},
+    {{lb_route_global_kernel<false, kLbThreadsSmall>,
+      lb_route_global_kernel<false, kLbThreadsLarge>},
+     {lb_route_global_kernel<true, kLbThreadsSmall>,
+      lb_route_global_kernel<true, kLbThreadsLarge>}}};
 
 // Per device: SM count, the shared-memory opt-in, and the occupancy of each
 // kernel variant at the shared-memory size it was last launched with.
 struct LbLaunchCache {
   int sms = 0;
   int optin = 0;
-  int occ[2][2] = {{0, 0}, {0, 0}};           // [MULTI][large]
-  size_t occ_smem[2][2] = {{0, 0}, {0, 0}};
+  int occ[2][2][2] = {};           // [design][MULTI][large]
+  size_t occ_smem[2][2][2] = {};
 };
 LbLaunchCache g_lb_cache[kMaxDevices];
 
-template <bool MULTI, int THREADS>
-cudaError_t lb_route_run(LbLaunchCache& c, size_t smem, long long groups, const int4* hdr,
-                         const int32_t* iid, int n, const long long* seg_hi,
-                         const long long* seg_lo, const int32_t* seg_row, const int4* cal,
-                         const int32_t* node, const int32_t* base, const int32_t* mask,
-                         const int32_t* mvalid, int n_inst, int n_rows, int n_slots,
-                         int n_members, int32_t* member_out, int32_t* node_out,
-                         int32_t* lane_out, int32_t* valid_out, cudaStream_t stream) {
-  constexpr bool kLarge = THREADS == kLbThreadsLarge;
-  if (c.occ_smem[MULTI][kLarge] != smem) {
-    int occ = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, lb_route_kernel<MULTI, THREADS>, THREADS, smem);
-    if (err != cudaSuccess) return err;
-    if (occ < 1) return cudaErrorInvalidConfiguration;
-    c.occ[MULTI][kLarge] = occ;
-    c.occ_smem[MULTI][kLarge] = smem;
-  }
-  // A block per kLbSpread packet groups, up to the resident limit.
-  const long long want = (groups + kLbSpread - 1) / kLbSpread;
-  const long long most = static_cast<long long>(c.sms) * c.occ[MULTI][kLarge];
-  const unsigned blocks = static_cast<unsigned>(want < most ? want : most);
-  lb_route_kernel<MULTI, THREADS><<<blocks, THREADS, smem, stream>>>(
-      hdr, iid, n, seg_hi, seg_lo, seg_row, cal, node, base, mask, mvalid, n_inst, n_rows,
-      n_slots, n_members, member_out, node_out, lane_out, valid_out);
-  return cudaGetLastError();
-}
-
-template <bool MULTI>
-cudaError_t lb_route_launch(const int4* hdr, const int32_t* iid, int n, const long long* seg_hi,
-                            const long long* seg_lo, const int32_t* seg_row, const int4* cal,
-                            const int32_t* node, const int32_t* base, const int32_t* mask,
-                            const int32_t* mvalid, int n_inst, int n_rows, int n_slots,
-                            int n_members, int32_t* member_out, int32_t* node_out,
-                            int32_t* lane_out, int32_t* valid_out, cudaStream_t stream) {
+// Per-device set-up on the first call: the opt-in of every variant (done
+// before any CUDA-graph capture: the fused engine warms up first).
+cudaError_t lb_cache(LbLaunchCache** out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -309,14 +390,12 @@ cudaError_t lb_route_launch(const int4* hdr, const int32_t* iid, int n, const lo
   LbLaunchCache& c = g_lb_cache[dev];
   if (c.sms == 0) {
     err = cudaDeviceGetAttribute(&c.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    const void* kernels[] = {
-        reinterpret_cast<const void*>(lb_route_kernel<false, kLbThreadsSmall>),
-        reinterpret_cast<const void*>(lb_route_kernel<false, kLbThreadsLarge>),
-        reinterpret_cast<const void*>(lb_route_kernel<true, kLbThreadsSmall>),
-        reinterpret_cast<const void*>(lb_route_kernel<true, kLbThreadsLarge>)};
-    for (const void* k : kernels)
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, c.optin);
+    for (int d = 0; d < 2; ++d)
+      for (int m = 0; m < 2; ++m)
+        for (int l = 0; l < 2; ++l)
+          if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kLbKernels[d][m][l]),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, c.optin);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) {
@@ -324,19 +403,48 @@ cudaError_t lb_route_launch(const int4* hdr, const int32_t* iid, int n, const lo
       return err;
     }
   }
-  const size_t smem = lb_smem_bytes(n_inst, n_rows, n_slots, n_members);
+  *out = &c;
+  return cudaSuccess;
+}
+
+template <bool MULTI>
+cudaError_t lb_route_launch(int design, const int4* hdr, const int32_t* iid, int n,
+                            const long long* seg_hi, const long long* seg_lo,
+                            const int32_t* seg_row, const int4* cal, const int32_t* node,
+                            const int32_t* base, const int32_t* mask, const int32_t* mvalid,
+                            int n_inst, int n_rows, int n_slots, int n_members,
+                            int32_t* member_out, int32_t* node_out, int32_t* lane_out,
+                            int32_t* valid_out, cudaStream_t stream) {
+  if (design != 0 && design != 1) return cudaErrorInvalidValue;
+  LbLaunchCache* cp = nullptr;
+  cudaError_t err = lb_cache(&cp);
+  if (err != cudaSuccess) return err;
+  LbLaunchCache& c = *cp;
+  const size_t smem = design == 0 ? lb_smem_bytes(n_inst, n_rows, n_slots, n_members)
+                                  : lb_segment_bytes(n_inst);
   if (smem > static_cast<size_t>(c.optin)) return cudaErrorInvalidValue;
   const long long groups = (static_cast<long long>(n) + kLbPackets - 1) / kLbPackets;
   // Large blocks once there is a full block of packet groups for every SM.
-  return groups >= static_cast<long long>(c.sms) * kLbThreadsLarge
-             ? lb_route_run<MULTI, kLbThreadsLarge>(
-                   c, smem, groups, hdr, iid, n, seg_hi, seg_lo, seg_row, cal, node, base, mask,
-                   mvalid, n_inst, n_rows, n_slots, n_members, member_out, node_out, lane_out,
-                   valid_out, stream)
-             : lb_route_run<MULTI, kLbThreadsSmall>(
-                   c, smem, groups, hdr, iid, n, seg_hi, seg_lo, seg_row, cal, node, base, mask,
-                   mvalid, n_inst, n_rows, n_slots, n_members, member_out, node_out, lane_out,
-                   valid_out, stream);
+  const bool large = groups >= static_cast<long long>(c.sms) * kLbThreadsLarge;
+  const int threads = large ? kLbThreadsLarge : kLbThreadsSmall;
+  const LbKernel kernel = kLbKernels[design][MULTI][large];
+  if (c.occ_smem[design][MULTI][large] != smem) {
+    int occ = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    c.occ[design][MULTI][large] = occ;
+    c.occ_smem[design][MULTI][large] = smem;
+  }
+  // A block per kLbSpread packet groups, up to the resident limit.
+  const long long want = (groups + kLbSpread - 1) / kLbSpread;
+  const long long most = static_cast<long long>(c.sms) * c.occ[design][MULTI][large];
+  const unsigned blocks = static_cast<unsigned>(want < most ? want : most);
+  kernel<<<blocks, threads, smem, stream>>>(hdr, iid, n, seg_hi, seg_lo, seg_row, cal, node,
+                                            base, mask, mvalid, n_inst, n_rows, n_slots,
+                                            n_members, member_out, node_out, lane_out,
+                                            valid_out);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -395,13 +503,28 @@ cudaError_t lb_route_launch(const int4* hdr, const int32_t* iid, int n, const lo
 // graph replays the clear with the kernel and no reset value comes from
 // the host. Counts are int32 and exact (the Pallas f32 carry is exact only
 // below 2^24 per member).
+//
+// Members past kDpMaxMembers (1024): the grid's second dimension splits the
+// members into chunks of 1024, and chunk c's blocks run the whole scheme
+// above over the members [1024c, 1024c + 1024) with their own tile counter
+// and words: every block reads its tile's packets, counts and ranks only
+// the chunk's members and writes only their positions (chunk 0 also writes
+// those of members outside [0, n_members)). The histograms stay 8 x 1024
+// int32 (32 KB, no opt-in, the occupancy of M = 1024), the members are read
+// once per chunk (L2 holds them: 4 MB at 2^20), and the scratch grows as
+// chunks x (tiles + groups) x 1024 words: 37.7 MB at 2^20 packets and
+// M = 16,384, cleared by one memset. At M <= 1024 the kernel is compiled
+// without chunks (CHUNKED = false): the one-chunk scheme it was, at its
+// registers and times. A design whose scratch does
+// not grow with M x tiles (per-tile lists of the members present) is later
+// work (PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int kDpThreads = 256;
 constexpr int kDpWarps = kDpThreads / 32;
 constexpr int kDpPerLane = 16;
 constexpr int kDpWarpSpan = 32 * kDpPerLane;      // 512 packets per warp
 constexpr int kDpTile = kDpThreads * kDpPerLane;  // 4096 packets per block
-constexpr int kDpMaxMembers = 1024;               // kernels/dispatch.py MAX_MEMBERS
+constexpr int kDpMaxMembers = 1024;               // kernels/dispatch.py CHUNK_MEMBERS
 constexpr int kDpMembersPerThread = kDpMaxMembers / kDpThreads;
 constexpr int kDpGroup = 8;                       // tiles per group of the look-back
 constexpr int kDpLookBack = 16;                   // predecessor group words per read round
@@ -485,15 +608,27 @@ __device__ __forceinline__ int dp_look_back(const unsigned long long* col, int s
   }
 }
 
+template <bool CHUNKED>
 __global__ void __launch_bounds__(kDpThreads) dispatch_plan_kernel(
-    const int32_t* __restrict__ member, int n, int n_members, int n_tiles,
-    unsigned int* __restrict__ tile_counter, unsigned long long* __restrict__ tile_words,
-    int32_t* __restrict__ pos, int32_t* __restrict__ counts) {
+    const int32_t* __restrict__ member, int n, int n_members_all, int n_tiles,
+    unsigned long long* __restrict__ scratch, int32_t* __restrict__ pos,
+    int32_t* __restrict__ counts) {
   extern __shared__ int32_t hist[];  // [kDpWarps][n_members]
   __shared__ int tile_s;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const unsigned lower = (1u << lane) - 1u;
+  // This block's chunk of members: [m0, m0 + n_members) (without chunks:
+  // chunk 0, all members).
+  const int chunk = CHUNKED ? static_cast<int>(blockIdx.y) : 0;
+  const int m0 = chunk * kDpMaxMembers;
+  const int n_members = CHUNKED ? min(kDpMaxMembers, n_members_all - m0) : n_members_all;
+  unsigned int* tile_counter = reinterpret_cast<unsigned int*>(scratch + chunk);
+  unsigned long long* tile_words =
+      scratch + (CHUNKED ? gridDim.y : 1) +
+      (CHUNKED ? static_cast<long long>(chunk) *
+                     (n_tiles + (n_tiles + kDpGroup - 1) / kDpGroup) * kDpMaxMembers
+               : 0);
 
   if (threadIdx.x == 0) tile_s = static_cast<int>(atomicAdd(tile_counter, 1u));
   for (int k = threadIdx.x; k < kDpWarps * n_members; k += kDpThreads) hist[k] = 0;
@@ -502,18 +637,25 @@ __global__ void __launch_bounds__(kDpThreads) dispatch_plan_kernel(
   const long long first = static_cast<long long>(tile) * kDpTile + warp * kDpWarpSpan + lane;
 
   // 1. Load once; per-warp histogram (shared-memory atomics into the warp's
-  // own row). Members outside [0, n_members) are never counted.
-  int key[kDpPerLane];
+  // own row). key is the member's index in the chunk; members outside the
+  // chunk are never counted here.
+  int raw[kDpPerLane];
   unsigned peers[kDpPerLane];
 #pragma unroll
   for (int c = 0; c < kDpPerLane; ++c) {
     const long long i = first + c * 32;
-    key[c] = i < n ? __ldg(member + i) : -1;
+    raw[c] = i < n ? __ldg(member + i) : -1;
   }
+  // in the chunk: 0 <= raw - m0 < n_members (unsigned: raw < 0 is never in)
+  auto in_chunk = [&](int r) {
+    return CHUNKED ? static_cast<unsigned>(r) - static_cast<unsigned>(m0) <
+                         static_cast<unsigned>(n_members)
+                   : r >= 0 && r < n_members;
+  };
   int32_t* run = hist + warp * n_members;
 #pragma unroll
   for (int c = 0; c < kDpPerLane; ++c)
-    if (key[c] >= 0 && key[c] < n_members) atomicAdd(&run[key[c]], 1);
+    if (in_chunk(raw[c])) atomicAdd(&run[raw[c] - m0], 1);
   __syncthreads();
 
   // 2. Warp offsets and the tile aggregate; publish the aggregate.
@@ -603,8 +745,8 @@ __global__ void __launch_bounds__(kDpThreads) dispatch_plan_kernel(
   for (int b = 0; b < bits; ++b) {
 #pragma unroll
     for (int c = 0; c < kDpPerLane; ++c) {
-      const bool ok = key[c] >= 0 && key[c] < n_members;
-      const unsigned bit = (static_cast<unsigned>(ok ? key[c] : n_members) >> b) & 1u;
+      const bool ok = in_chunk(raw[c]);
+      const unsigned bit = (static_cast<unsigned>(ok ? raw[c] - m0 : n_members) >> b) & 1u;
       const unsigned ones = __ballot_sync(0xFFFFFFFFu, bit);
       peers[c] &= bit ? ones : ~ones;
     }
@@ -631,28 +773,37 @@ __global__ void __launch_bounds__(kDpThreads) dispatch_plan_kernel(
       }
     }
     const int prefix = before + in_group[j];
-    if (tile == n_tiles - 1) counts[m] = prefix + agg[j];
+    if (tile == n_tiles - 1) counts[m0 + m] = prefix + agg[j];
 #pragma unroll
     for (int w = 0; w < kDpWarps; ++w) hist[w * n_members + m] += prefix;
   }
   __syncthreads();
 
-  // 4. Ranks, in packet order within the warp's sub-range.
+  // 4. Ranks, in packet order within the warp's sub-range. A position
+  // belongs to the member's chunk; chunk 0 also writes -1 for members < 0
+  // and 0 for members >= n_members (uncounted).
 #pragma unroll
   for (int c = 0; c < kDpPerLane; ++c) {
     const long long i = first + c * 32;
-    const int m = key[c];
-    const bool ok = m >= 0 && m < n_members;
-    const int p = ok ? run[m] + __popc(peers[c] & lower) : (m < 0 ? -1 : 0);
+    const bool ok = in_chunk(raw[c]);
+    const int m = raw[c] - m0;
+    const int p = ok ? run[m] + __popc(peers[c] & lower) : (raw[c] < 0 ? -1 : 0);
     __syncwarp();
     if (ok && (peers[c] & lower) == 0) run[m] += __popc(peers[c]);
     __syncwarp();
-    if (i < n) pos[i] = p;
+    const bool mine = !CHUNKED || ok || (chunk == 0 && (raw[c] < 0 || raw[c] >= n_members_all));
+    if (i < n && mine) pos[i] = p;
   }
 }
 
 inline long long dp_tiles(int n) { return (static_cast<long long>(n) + kDpTile - 1) / kDpTile; }
 inline long long dp_groups(long long n_tiles) { return (n_tiles + kDpGroup - 1) / kDpGroup; }
+inline int dp_chunk_members(int n_members) {
+  return n_members < kDpMaxMembers ? n_members : kDpMaxMembers;
+}
+inline long long dp_chunks(int n_members) {
+  return (n_members + kDpMaxMembers - 1) / kDpMaxMembers;
+}
 
 // ---------------------------------------------------------------------------
 // seg_masks — replaces the Pallas kernel src/repro/kernels/reassembly.py
@@ -702,15 +853,19 @@ inline unsigned blocks_for(long long n, int threads) {
 
 extern "C" {
 
-// Shared memory one block of lb_route stages its tables in (the wrapper
-// refuses tables above the card's opt-in limit).
-long long ejfat_lb_route_smem_bytes(int n_inst, int n_rows, int n_slots, int n_members) {
-  return static_cast<long long>(lb_smem_bytes(n_inst, n_rows, n_slots, n_members));
+// Shared memory one block of lb_route's "shared" design stages its tables
+// in (design 0), or the "global" design its segments in (design 1).
+long long ejfat_lb_route_smem_bytes(int design, int n_inst, int n_rows, int n_slots,
+                                    int n_members) {
+  return static_cast<long long>(design == 0
+                                    ? lb_smem_bytes(n_inst, n_rows, n_slots, n_members)
+                                    : lb_segment_bytes(n_inst));
 }
 
-// seg_* have kSeg (16) entries per instance; cal rows n_slots (a multiple of
-// 4) int32; hdr and cal 16-byte aligned.
-int ejfat_lb_route(const int32_t* hdr, const int32_t* iid, int n,
+// design: 0 "shared", 1 "global"; seg_* have kSeg (16) entries per
+// instance; cal rows n_slots (a multiple of 4) int32; hdr and cal 16-byte
+// aligned.
+int ejfat_lb_route(int design, const int32_t* hdr, const int32_t* iid, int n,
                    const long long* seg_hi, const long long* seg_lo,
                    const int32_t* seg_row, const int32_t* cal,
                    const int32_t* node, const int32_t* base,
@@ -722,19 +877,21 @@ int ejfat_lb_route(const int32_t* hdr, const int32_t* iid, int n,
   const int4* c = reinterpret_cast<const int4*>(cal);
   const cudaError_t err =
       iid != nullptr
-          ? lb_route_launch<true>(h, iid, n, seg_hi, seg_lo, seg_row, c, node, base, mask,
+          ? lb_route_launch<true>(design, h, iid, n, seg_hi, seg_lo, seg_row, c, node, base, mask,
                                   mvalid, n_inst, n_rows, n_slots, n_members, member_out,
                                   node_out, lane_out, valid_out, stream)
-          : lb_route_launch<false>(h, nullptr, n, seg_hi, seg_lo, seg_row, c, node, base,
+          : lb_route_launch<false>(design, h, nullptr, n, seg_hi, seg_lo, seg_row, c, node, base,
                                    mask, mvalid, 1, n_rows, n_slots, n_members, member_out,
                                    node_out, lane_out, valid_out, stream);
   return static_cast<int>(err);
 }
 
-// 64-bit words of dispatch_plan's scratch: the tile counter, one word per
-// (tile, member), then one per (group of tiles, member).
+// 64-bit words of dispatch_plan's scratch: one tile counter per chunk of
+// members, then per chunk one word per (tile, member) and one per (group of
+// tiles, member), chunks of min(n_members, 1024) members.
 long long ejfat_dispatch_scratch_words(int n, int n_members) {
-  return 1 + (dp_tiles(n) + dp_groups(dp_tiles(n))) * n_members;
+  return dp_chunks(n_members) *
+         (1 + (dp_tiles(n) + dp_groups(dp_tiles(n))) * dp_chunk_members(n_members));
 }
 
 int ejfat_dispatch_plan(const int32_t* member, int n, int n_members,
@@ -745,10 +902,14 @@ int ejfat_dispatch_plan(const int32_t* member, int n, int n_members,
       scratch, 0, sizeof(unsigned long long) * ejfat_dispatch_scratch_words(n, n_members),
       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dispatch_plan_kernel<<<static_cast<unsigned>(n_tiles), kDpThreads,
-                         sizeof(int32_t) * kDpWarps * n_members, stream>>>(
-      member, n, n_members, static_cast<int>(n_tiles),
-      reinterpret_cast<unsigned int*>(scratch), scratch + 1, pos, counts);
+  const dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(dp_chunks(n_members)));
+  const size_t smem = sizeof(int32_t) * kDpWarps * dp_chunk_members(n_members);
+  if (n_members > kDpMaxMembers)
+    dispatch_plan_kernel<true><<<grid, kDpThreads, smem, stream>>>(
+        member, n, n_members, static_cast<int>(n_tiles), scratch, pos, counts);
+  else
+    dispatch_plan_kernel<false><<<grid, kDpThreads, smem, stream>>>(
+        member, n, n_members, static_cast<int>(n_tiles), scratch, pos, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,10 +15,13 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import dispatch_plan_ref
 
-#: the kernel's per-warp histograms are 8 x n_members int32 of shared memory
-#: (32 KB at the limit) and each thread owns n_members / 256 of them
-#: (``kDpMaxMembers`` in the source)
-MAX_MEMBERS = 1024
+#: members per chunk: the kernel's per-warp histograms are 8 x 1024 int32
+#: of shared memory (32 KB) and each thread owns 4 of a chunk's members
+#: (``kDpMaxMembers`` in the source); more members run as more chunks, one
+#: per row of the grid's second dimension
+CHUNK_MEMBERS = 1024
+#: the grid's second dimension (65,535 chunks)
+MAX_MEMBERS = 65_535 * CHUNK_MEMBERS
 
 
 def dispatch_plan(member: torch.Tensor, *, n_members: int):
@@ -30,6 +33,7 @@ def dispatch_plan(member: torch.Tensor, *, n_members: int):
         raise ValueError(f"dispatch_plan: unsupported device {member.device}")
     if not 1 <= n_members <= MAX_MEMBERS:
         raise ValueError(f"n_members must be in [1, {MAX_MEMBERS}], got {n_members}")
+    # (the reference's Pallas kernel refuses n_members = 0 too)
     dev = member.device
     n = member.shape[0]
     _lib.require(member, "member", torch.int32, dev, (n,))
@@ -38,8 +42,9 @@ def dispatch_plan(member: torch.Tensor, *, n_members: int):
     if n == 0:
         return pos, counts.zero_()
     lib = _lib.lib()
-    # the tile counter and the look-back's words (per tile and per group of
-    # tiles, per member), cleared by the kernel's host entry on the stream
+    # per chunk of members, the tile counter and the look-back's words (per
+    # tile and per group of tiles, per member), cleared by the kernel's host
+    # entry on the stream
     scratch = torch.empty(lib.ejfat_dispatch_scratch_words(n, n_members),
                           dtype=torch.int64, device=dev)
     err = lib.ejfat_dispatch_plan(member.data_ptr(), n, n_members, scratch.data_ptr(),

@@ -1,7 +1,11 @@
 """The EJ-FAT data plane (parse -> validate -> epoch -> calendar -> member
-rewrite) for a batch of packets: wrapper of the CUDA kernel
-``csrc/ejfat_kernels.cu::lb_route_kernel`` (a persistent grid whose blocks
-stage the tables in shared memory, 4 packets per thread).
+rewrite) for a batch of packets: wrapper of the CUDA kernels of
+``csrc/ejfat_kernels.cu`` (a persistent grid, 4 packets per thread), in two
+designs picked by the tables' size (``_design``): ``lb_route_kernel``
+("shared": every block stages all the tables in shared memory) while they
+fit a block's shared memory, ``lb_route_global_kernel`` ("global": blocks
+stage only the epoch segments and read calendars and member fields from
+device memory) above that, e.g. ``farm_1k``'s 4 x 4096 member slots.
 
 Port of the Pallas kernel ``repro/kernels/lb_route.py::lb_route``. Headers
 are ``int32[N, 4]`` (the u32 wire words' bits, row-major); tables are one
@@ -18,9 +22,35 @@ from repro_torch.core.tables import MAX_EPOCH_SEGMENTS, DeviceTables
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import lb_route_ref
 
-#: shared memory a block of an H100 can opt in to (227 KB); every block of
-#: the kernel holds all instances' tables
+#: shared memory a block of an H100 can opt in to (227 KB): the "shared"
+#: design holds all instances' tables in it, the "global" design the segments
 MAX_SHARED_BYTES = 232_448
+
+#: the two designs, in the C entry's numbering
+DESIGNS = ("shared", "global")
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def smem_bytes(design: str, n_inst: int, n_rows: int, n_members: int) -> int:
+    """Shared memory per block of ``design`` (``ejfat_kernels.cu``'s
+    ``lb_smem_bytes`` / ``lb_segment_bytes``): member fields as one int4 per
+    slot, int32 calendars, u64 starts in rows of 17, int32 segment rows."""
+    segments = _align16(8 * n_inst * (MAX_EPOCH_SEGMENTS + 1)) + 4 * n_inst * MAX_EPOCH_SEGMENTS
+    if design == "global":
+        return segments
+    return (_align16(16 * n_inst * n_members)
+            + _align16(4 * n_inst * n_rows * CALENDAR_SLOTS) + segments)
+
+
+def _design(n_inst: int, n_rows: int, n_members: int) -> str:
+    """The design for these tables: "shared" while they fit a block's
+    shared memory, else "global"."""
+    if smem_bytes("shared", n_inst, n_rows, n_members) <= MAX_SHARED_BYTES:
+        return "shared"
+    return "global"
 
 
 def lb_route(headers: torch.Tensor, tables: DeviceTables, instance_id=None):
@@ -66,13 +96,16 @@ def _launch(headers, tables: DeviceTables, instance_id):
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
     if n == 0:
         return tuple(outs)
-    lib = _lib.lib()
-    smem = lib.ejfat_lb_route_smem_bytes(n_inst, n_rows, CALENDAR_SLOTS, n_members)
+    design = _design(n_inst, n_rows, n_members)
+    smem = smem_bytes(design, n_inst, n_rows, n_members)
     if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"{n_inst} x {n_members}-member tables need {smem} B of shared "
-                         f"memory per block, above the {MAX_SHARED_BYTES} B a block can hold")
+        raise ValueError(f"{n_inst} stacked instances need {smem} B of shared memory "
+                         f"for their epoch segments, above the {MAX_SHARED_BYTES} B a "
+                         "block can hold")
+    lib = _lib.lib()
     err = lib.ejfat_lb_route(
-        headers.data_ptr(), None if instance_id is None else instance_id.data_ptr(), n,
+        DESIGNS.index(design), headers.data_ptr(),
+        None if instance_id is None else instance_id.data_ptr(), n,
         tables.seg_start_hi.data_ptr(), tables.seg_start_lo.data_ptr(),
         tables.seg_row.data_ptr(), tables.calendars.data_ptr(),
         tables.member_node.data_ptr(), tables.member_base_lane.data_ptr(),
@@ -81,4 +114,6 @@ def _launch(headers, tables: DeviceTables, instance_id):
         *(o.data_ptr() for o in outs), _lib.stream_ptr(dev))
     _lib.check(err, "lb_route")
     _lib.LAUNCHES["lb_route"] += 1
+    if design == "global":
+        _lib.LAUNCHES["lb_route_global"] += 1
     return tuple(outs)

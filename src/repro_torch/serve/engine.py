@@ -59,6 +59,7 @@ class ServeConfig:
     n_replicas: int = 2
     lane_bits: int = 1           # 2**lane_bits decode slots per replica
     max_len: int = 256
+    greedy: bool = True          # unused: decoding always takes the argmax, as the reference
     device: str = "cuda"         # where the model, caches and data plane live
     rebalance_every: int = 0     # ticks between control-plane reweights (0=off)
 

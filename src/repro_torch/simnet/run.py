@@ -12,9 +12,12 @@ accounted, and non-degenerate latency percentiles (p99 > p50 > 0). Exits 1
 on a violation.
 
 The port of the JAX package's ``scripts/run_simnet.py``: the same flags
-except the controld, HA, tracing and metrics ones (not ported yet), plus
-``--device``; from the same flags its summary equals the reference's with
-``--engine host``, ``wall_s`` and ``packets_per_sec`` aside.
+but ``--compare-policy``, ``--tournament`` and the ``--trace-*`` ones (not
+ported yet), plus ``--device``; from the same flags its summary equals the
+reference's with ``--engine host``, ``wall_s`` and ``packets_per_sec``
+aside. ``--controld``/``--ha``/``--kill-leader-every``/``--policy`` run the
+control plane as a session daemon (host engine); ``--metrics-interval``
+runs the live registry (host engine only).
 
 ``--compare-frozen`` reruns the scenario with feedback disabled and reports
 the p99 delta; for scenarios that promise a control-plane gain
@@ -22,6 +25,7 @@ the p99 delta; for scenarios that promise a control-plane gain
 
     PYTHONPATH=src python -m repro_torch.simnet.run --scenario straggler \
         --engine host --device cpu
+    PYTHONPATH=src python -m repro_torch.simnet.run --scenario farm_1k --steps 10
 """
 from __future__ import annotations
 
@@ -53,13 +57,32 @@ def parse_args(argv=None):
                     help="disable control-plane feedback (control run)")
     ap.add_argument("--compare-frozen", action="store_true",
                     help="also run the frozen-weights control and compare p99")
+    ap.add_argument("--controld", action="store_true",
+                    help="run the control plane as a session daemon "
+                         "(controld): CNs register/heartbeat/lease")
+    ap.add_argument("--ha", action="store_true",
+                    help="controld HA mode: an HACluster of warm standbys "
+                         "behind a failover transport (implies --controld)")
+    ap.add_argument("--kill-leader-every", type=int, default=0, metavar="N",
+                    help="kill the controld leader every N windows (implies "
+                         "--ha); each takeover is digest-audited and "
+                         "duration-gated at 1.25x the lease term")
+    ap.add_argument("--policy", choices=["proportional", "pid"], default=None,
+                    help="controld reweighting policy (implies --controld)")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    help="emit a metrics time-series row every N windows "
+                         "(enables the live registry; host engine only). "
+                         "0 = off")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="JSONL path for --metrics-interval rows "
+                         "(default: no file, registry only)")
     ap.add_argument("--traces", action="store_true",
                     help="include full queue/weight traces in the JSON")
     ap.add_argument("--json", default=None, help="write the summary here")
     return ap.parse_args(argv)
 
 
-def build_and_run(args, frozen: bool) -> SimReport:
+def build_and_run(args, frozen: bool, with_metrics: bool = True) -> SimReport:
     scenario = get_scenario(args.scenario)
     extra = dict(steps=args.steps, seed=args.seed, device=args.device,
                  queue_engine=args.queue_engine, frozen_weights=frozen,
@@ -68,6 +91,19 @@ def build_and_run(args, frozen: bool) -> SimReport:
         extra["n_members"] = args.n_members
     if args.triggers_per_step is not None:
         extra["triggers_per_step"] = args.triggers_per_step
+    if args.controld or args.policy is not None:
+        extra["controld"] = True
+    if args.ha or args.kill_leader_every:
+        extra["controld"] = True
+        extra["ha"] = True
+        if args.kill_leader_every:
+            extra["ha_kill_every"] = args.kill_leader_every
+    if args.policy is not None:
+        extra["controld_policy"] = args.policy
+    if with_metrics and (args.metrics_interval or args.metrics_jsonl):
+        # only the primary leg emits: the frozen comparison leg does not
+        extra["metrics_every"] = max(args.metrics_interval, 1)
+        extra["metrics_path"] = args.metrics_jsonl
     cfg = scenario.build_config(**extra)
     return Simulator(cfg, dataclasses.replace(scenario)).run()
 
@@ -88,7 +124,7 @@ def main(argv=None) -> int:
         violations.append("no bundles completed")
 
     if args.compare_frozen and not args.frozen_weights:
-        control = build_and_run(args, frozen=True)
+        control = build_and_run(args, frozen=True, with_metrics=False)
         summary["control"] = {
             "latency_p50_s": round(control.latency_p50_s, 9),
             "latency_p99_s": round(control.latency_p99_s, 9),

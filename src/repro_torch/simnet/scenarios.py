@@ -11,10 +11,9 @@ and the paper's own straggler / multi-instance cases (fig. 7c, §I-C).
 beat a frozen-weights control run on p99 latency — ``run.py``'s
 ``--compare-frozen`` turns that into a hard check.
 
-The presets are the JAX package's, hooks and all. The five controld presets
+The presets are the JAX package's, hooks and all, the five controld presets
 (``lease_churn``, ``cp_restart``, ``leader_failover``, ``farm_1k``,
-``multi_tenant``) raise ``NotImplementedError`` when run until controld is
-ported.
+``multi_tenant``) included; they run on the host engine.
 """
 from __future__ import annotations
 

@@ -19,11 +19,20 @@ Multi-instance (paper §I-C): ``n_instances > 1`` stacks per-instance tables
 instances, and runs one control plane per instance — same fused routing
 pass, per-packet ``instance_id``.
 
+Controld mode (``controld=True``): the CNs are clients of a
+``controld.ControlDaemon`` (register / batched heartbeats / leases / ticks on
+the virtual clock), optionally an HA cluster of warm standbys
+(``ha=True``). Tracing (``trace=True``) records per-bundle stage spans into a
+``telemetry.trace.TraceBuffer``; ``metrics_every > 0`` runs a
+``telemetry.registry.MetricsRegistry`` over the run.
+
 The port of the JAX package's ``repro.simnet.sim`` with its host engine and
 its fused engine (``simnet.fused``). The routing tables, the random draws of
 the links and the ``"torch"`` queue engine live on ``SimConfig.device``
-(default ``"cuda"``). The controld, HA, tracing and live-metrics options
-wait for the port of their modules and raise ``NotImplementedError``.
+(default ``"cuda"``); the daemon's state stays on the host. Tracing and
+metrics run on the host engine only: the fused engine's replay of them is
+not ported yet, and a fused-scope config that asks for them raises
+``NotImplementedError`` (``FUSED_UNPORTED``).
 """
 from __future__ import annotations
 
@@ -49,12 +58,12 @@ from repro_torch.telemetry.metrics import TelemetryHub
 
 IP_UDP_BYTES = 28  # IP(20) + UDP(8), matching protocol.MAX_SEGMENT_PAYLOAD
 
-#: options of the reference simulator whose modules are not ported yet
-UNPORTED = {
-    "controld": "the controld session service (ROADMAP queue 1, item 2: controld)",
-    "ha": "controld HA (ROADMAP queue 1, item 2: controld)",
-    "trace": "per-bundle tracing (ROADMAP queue 1, item 1: telemetry)",
-    "metrics_every": "the metrics registry (ROADMAP queue 1, item 1: telemetry)",
+#: options the reference's fused engine replays from its superblock's
+#: arrays and the port's fused engine does not yet; on a fused-scope config
+#: they raise instead of quietly running the host engine
+FUSED_UNPORTED = {
+    "trace": "the fused engine's span replay (ROADMAP queue 1, item 2)",
+    "metrics_every": "the fused engine's metrics replay (ROADMAP queue 1, item 2)",
 }
 
 
@@ -107,14 +116,38 @@ class SimConfig:
     stale_after_s: Optional[float] = None
     queue_capacity_pkts: int = 32            # telemetry backlog granularity
 
-    # not ported yet (see UNPORTED): a run that sets any of them raises; the
-    # controld presets also set controld_policy and lease_s
+    # controld mode: CNs are *clients* of a session-oriented control daemon
+    # (controld) — register / heartbeat / lease lifecycle on the virtual
+    # clock instead of the embedded per-instance feedback call.
     controld: bool = False
-    controld_policy: object = "proportional"
-    lease_s: Optional[float] = None
+    controld_policy: object = "proportional"  # str, or one str per instance
+    controld_policy_params: dict = dataclasses.field(default_factory=dict)
+    lease_s: Optional[float] = None          # default: 10 nominal windows
+
+    # controld HA mode (requires controld=True): the CP is an HACluster of
+    # warm standbys behind a FailoverTransport whose backoff sleeps *advance
+    # the virtual clock* — killing the leader (scenario hook or
+    # ha_kill_every) fast-forwards sim time by ~one lease term while the
+    # retrying client drives a standby's promotion.
     ha: bool = False
+    ha_nodes: int = 2
+    ha_term_s: Optional[float] = None        # default: 6 nominal windows
+    ha_kill_every: int = 0                   # soak leg: kill leader every N windows
+
+    # observability: metrics_every > 0 enables a MetricsRegistry over the
+    # run (E2E latency histogram, queue-fill gauges, window/packet totals)
+    # and — when metrics_path is set — appends one JSONL time-series row
+    # every that-many windows. Host engine only (FUSED_UNPORTED).
     metrics_every: int = 0
+    metrics_path: Optional[str] = None
+
+    # tracing: trace=True attaches a telemetry.trace.TraceBuffer — per-
+    # bundle stage spans (head-sampled at trace_sample via mix64 on the
+    # event number, plus a top-k tail reservoir of the slowest bundles).
+    # Host engine only (FUSED_UNPORTED).
     trace: bool = False
+    trace_sample: float = 1.0
+    trace_tail_k: int = 64
 
     def window_period_s(self, n_triggers: int, period_scale: float = 1.0) -> float:
         return n_triggers * self.trigger_period_s * period_scale
@@ -150,12 +183,12 @@ class SimReport:
     queue_fill_trace: list         # [(t, [fill per member])]
     per_member_segments: dict
     violations: list
-    # controld-mode lifecycle accounting (zero: controld is not ported)
+    # controld-mode lifecycle accounting (zero in embedded-CP mode)
     daemon_restarts: int = 0
     leases_expired: int = 0
     heartbeats_rejected: int = 0
     engine: str = "host"           # which engine produced this report
-    # HA-mode failover accounting (zero: HA is not ported)
+    # HA-mode failover accounting (zero outside cfg.ha)
     ha_failovers: int = 0
     ha_revivals: int = 0
     ha_failover_durations: list = dataclasses.field(default_factory=list)
@@ -197,20 +230,22 @@ class Scenario:
         return cfg
 
 
-def check_ported(cfg: SimConfig) -> None:
-    """Raise ``NotImplementedError`` for an option whose module is not
-    ported yet — never run without it quietly."""
-    for name, what in UNPORTED.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"SimConfig.{name} needs {what}, which is not ported yet")
+def _rss_bytes() -> float:
+    """Current resident set size (Linux /proc; peak-RSS fallback)."""
+    try:
+        with open("/proc/self/statm") as f:
+            import os
+            return float(int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, ValueError, IndexError):
+        import resource
+        return float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                     * 1024)
 
 
 class Simulator:
     """Drives one scenario end to end on virtual time."""
 
     def __init__(self, cfg: SimConfig, scenario: Optional[Scenario] = None):
-        check_ported(cfg)
         if cfg.n_members % cfg.n_instances:
             raise ValueError("n_members must divide evenly across instances")
         if cfg.n_instances > 1 and cfg.n_daqs < cfg.n_instances:
@@ -221,20 +256,50 @@ class Simulator:
         self.clock = VirtualClock()
         self.rng = np.random.default_rng(cfg.seed)
 
+        # -- per-bundle tracing (cfg.trace) — created before the control
+        # plane so the daemon can record per-message spans into it
+        self.trace = None
+        self._trace_pid0 = 0           # delivered-row counter = packet pid
+        self._lat_keys: list[int] = []  # bundle key per self.latencies entry
+        if cfg.trace:
+            from repro_torch.telemetry.trace import TraceBuffer, TraceConfig
+            self.trace = TraceBuffer(TraceConfig(
+                head_rate=cfg.trace_sample, tail_k=cfg.trace_tail_k,
+                seed=cfg.seed))
+
         # -- control planes (one per LB instance, paper §I-C) -----------------
         per_inst = cfg.n_members // cfg.n_instances
         self.instance_members: list[list[int]] = [
             list(range(i * per_inst, (i + 1) * per_inst))
             for i in range(cfg.n_instances)]
-        self.managers: list[EpochManager] = []
-        self.cps: list[LoadBalancerControlPlane] = []
-        for ids in self.instance_members:
-            em = EpochManager(max_members=max(64, 4 * cfg.n_members))
-            cp = LoadBalancerControlPlane(em)
-            cp.policy.epoch_horizon = max(16, 8 * cfg.triggers_per_step)
-            cp.start({m: MemberSpec(node_id=m, lane_bits=1) for m in ids})
-            self.managers.append(em)
-            self.cps.append(cp)
+        self.daemon = None
+        self.client = None
+        self.tokens: list[str] = []
+        self.muted: set[int] = set()          # members whose heartbeats stop
+        self.daemon_restarts = 0
+        self.restart_digest_mismatches = 0
+        self.heartbeats_rejected = 0
+        # HA-mode state (cfg.ha): the cluster, kill/promotion bookkeeping
+        self.cluster = None
+        self.ha_failovers = 0
+        self.ha_revivals = 0
+        self.ha_digest_mismatches = 0
+        self.ha_failover_durations: list[float] = []
+        self._ha_last_failover_s = 0.0
+        self._ha_kill_t: Optional[float] = None
+        self._ha_pre_kill_digest: Optional[str] = None
+        if cfg.controld:
+            self._start_controld()
+        else:
+            self.managers: list[EpochManager] = []
+            self.cps: list[LoadBalancerControlPlane] = []
+            for ids in self.instance_members:
+                em = EpochManager(max_members=max(64, 4 * cfg.n_members))
+                cp = LoadBalancerControlPlane(em)
+                cp.policy.epoch_horizon = max(16, 8 * cfg.triggers_per_step)
+                cp.start({m: MemberSpec(node_id=m, lane_bits=1) for m in ids})
+                self.managers.append(em)
+                self.cps.append(cp)
         self._dp_cache = DataPlaneCache(self.managers, device=self.device)
 
         # -- plant: DAQs, links, farm ----------------------------------------
@@ -283,6 +348,234 @@ class Simulator:
         self.per_member_segments: dict[int, int] = defaultdict(int)
         self._expected: dict[tuple[int, int], np.ndarray] = {}
 
+        # -- live metrics (cfg.metrics_every > 0) -----------------------------
+        self.metrics = None
+        self._ts_writer = None
+        self._lat_emitted = 0
+        if cfg.metrics_every > 0:
+            self._init_metrics()
+
+    def _init_metrics(self) -> None:
+        from repro_torch.telemetry.export import TimeSeriesWriter
+        from repro_torch.telemetry.registry import MetricsRegistry
+        reg = self.metrics = MetricsRegistry()
+        self._lat_hist = reg.histogram(
+            "simnet_e2e_latency_seconds",
+            "Bundle end-to-end latency (emission -> last-segment service).")
+        self._fill_mean = reg.gauge(
+            "simnet_queue_fill_mean", "Mean farm queue fill this window.")
+        self._fill_max = reg.gauge(
+            "simnet_queue_fill_max", "Max farm queue fill this window.")
+        self._windows = reg.counter(
+            "simnet_windows_total", "Simulated windows completed.")
+        # cumulative totals read straight off the simulator at scrape time
+        reg.gauge("simnet_packets_sent",
+                  "Segments emitted by the DAQ fleet."
+                  ).set_function(lambda: self.packets_sent)
+        reg.gauge("simnet_packets_delivered",
+                  "Segments that survived uplink + WAN."
+                  ).set_function(lambda: self.packets_delivered)
+        reg.gauge("simnet_bundles_completed",
+                  "Bundles fully reassembled."
+                  ).set_function(lambda: len(self.latencies))
+        reg.gauge("simnet_epoch_switches",
+                  "Hit-less epoch switches scheduled by the control loop."
+                  ).set_function(lambda: self.epoch_switches)
+        # soak-trend gauges (scripts/analyze_soak.py slope-gates these):
+        # pending state must stay bounded over a long run, RSS must not creep
+        reg.gauge("simnet_bundles_pending",
+                  "Bundles emitted but not yet reassembled or timed out "
+                  "(in flight + awaiting segments)."
+                  ).set_function(
+                      lambda: self.bundles_sent - len(self.latencies)
+                      - sum(ra.stats.n_timed_out_groups
+                            for ra in self.reassemblers.values()))
+        reg.gauge("process_rss_bytes",
+                  "Resident set size at scrape time (soak growth gate; "
+                  "machine state, excluded from engine-parity checks)."
+                  ).set_function(_rss_bytes)
+        if self.cluster is not None:
+            # soak failover leg: analyze_soak gates bounded failover
+            # duration and no post-failover RSS/pending slope change
+            reg.gauge("controld_ha_failovers",
+                      "Leader failovers completed so far."
+                      ).set_function(lambda: float(self.ha_failovers))
+            reg.gauge("controld_ha_last_failover_s",
+                      "Duration of the most recent leader failover in sim "
+                      "seconds (0 before the first)."
+                      ).set_function(lambda: self._ha_last_failover_s)
+        if self.cfg.metrics_path:
+            self._ts_writer = TimeSeriesWriter(self.cfg.metrics_path, reg)
+
+    def _emit_metrics(self, step_idx: int, fill) -> None:
+        if self.metrics is None:
+            return
+        new = self.latencies[self._lat_emitted:]
+        if new:
+            self._lat_hist.observe_many(new)
+            if self.trace is not None and self._lat_keys:
+                from repro_torch.telemetry.trace import trace_id
+                keys = self._lat_keys[self._lat_emitted:]
+                self._lat_hist.put_exemplars(
+                    new, [trace_id(k) for k in keys])
+            self._lat_emitted = len(self.latencies)
+        self._windows.inc()
+        self._fill_mean.set(float(np.mean(fill)))
+        self._fill_max.set(float(np.max(fill)))
+        if (self._ts_writer is not None
+                and (step_idx + 1) % self.cfg.metrics_every == 0):
+            self._ts_writer.write(step=step_idx,
+                                  t_sim=round(self.clock.now(), 9))
+
+    # -- controld mode: the CP is a *service* the CNs talk to ------------------
+    def _lease_s(self) -> float:
+        cfg = self.cfg
+        if cfg.lease_s is not None:
+            return cfg.lease_s
+        base = 10.0 * cfg.window_period_s(cfg.triggers_per_step)
+        if cfg.ha:
+            # a CN lease must comfortably outlive a leader failover
+            # (~1.25x the leadership term): the outage advances virtual
+            # time, and a shorter CN lease would lapse farm-wide on
+            # every takeover
+            base = max(base, 2.5 * self._ha_term_s())
+        return base
+
+    def _ha_term_s(self) -> float:
+        cfg = self.cfg
+        return (cfg.ha_term_s if cfg.ha_term_s is not None
+                else 6.0 * cfg.window_period_s(cfg.triggers_per_step))
+
+    def _start_controld(self) -> None:
+        """Stand up a ControlDaemon on the virtual clock; every CN registers
+        as a client of its instance's reservation (one tenant per virtual LB
+        instance) and will heartbeat at window boundaries. HA mode swaps the
+        single daemon for an HACluster behind a FailoverTransport whose
+        retry sleeps advance the virtual clock — a retrying heartbeat alone
+        drives a standby's lease claim and promotion."""
+        from repro_torch.controld import (ControlDaemon, ControldClient,
+                                    FailoverTransport, HACluster,
+                                    InProcTransport, Journal, RetryPolicy)
+        cfg = self.cfg
+        if cfg.ha:
+            term = self._ha_term_s()
+            self.cluster = HACluster(
+                n_nodes=cfg.ha_nodes, clock=self.clock.now, term_s=term,
+                daemon_kwargs=dict(
+                    n_instances=cfg.n_instances, lease_s=self._lease_s(),
+                    epoch_horizon=max(16, 8 * cfg.triggers_per_step),
+                    max_members=max(64, 4 * cfg.n_members)))
+            # backoff well under the lease term so promotion overshoot is
+            # a fraction of the 1.25x-term failover gate; sleeps advance
+            # virtual time (the outage costs sim seconds, not wall time)
+            retry = RetryPolicy(base_s=term / 16.0, cap_s=term / 8.0,
+                                max_elapsed_s=60.0 * term, seed=cfg.seed)
+            transport = FailoverTransport(
+                self.cluster.client_endpoints(), retry=retry,
+                sleep=self.clock.advance, clock=self.clock.now)
+            client = ControldClient(transport, client_id=f"sim{cfg.seed}")
+            daemon = self.cluster.leader().daemon
+        else:
+            daemon = ControlDaemon(
+                n_instances=cfg.n_instances, clock=self.clock.now,
+                lease_s=self._lease_s(),
+                epoch_horizon=max(16, 8 * cfg.triggers_per_step),
+                max_members=max(64, 4 * cfg.n_members),
+                journal=Journal(), trace=self.trace)
+            client = ControldClient(InProcTransport(daemon))
+        policies = cfg.controld_policy
+        if isinstance(policies, str):
+            policies = [policies] * cfg.n_instances
+        self.tokens = []
+        for inst, ids in enumerate(self.instance_members):
+            r = client.reserve(policy=policies[inst], instance_hint=inst,
+                               policy_params=cfg.controld_policy_params)
+            self.tokens.append(r["token"])
+            # whole instance membership in one frame / one journal entry
+            reg = client.register_batch(r["token"], ids, lane_bits=1)
+            assert not reg["rejected"], reg["rejected"]
+        client.tick(current_event=0)  # starts every session (epoch 0)
+        self._bind_daemon(daemon, client)
+
+    def _bind_daemon(self, daemon, client) -> None:
+        self.daemon = daemon
+        self.client = client
+        sessions = [daemon.sessions[t] for t in self.tokens]
+        self.managers = [s.manager for s in sessions]
+        self.cps = [s.cp for s in sessions]
+
+    def _instance_of(self, member: int) -> int:
+        return member // (self.cfg.n_members // self.cfg.n_instances)
+
+    def reregister(self, member: int) -> None:
+        """A CN whose lease lapsed rejoins its reservation (scenario hook)."""
+        self.client.register(self.tokens[self._instance_of(member)],
+                             member_id=member, node_id=member, lane_bits=1)
+
+    def restart_daemon(self) -> None:
+        """Kill the daemon and recover a fresh one from its journal — the
+        hit-less restart scenario. Reservation tokens survive (they are
+        deterministic journal state); calendars must come back byte-identical
+        (audited via state_digest -> a violation on mismatch)."""
+        from repro_torch.controld import ControlDaemon, ControldClient, InProcTransport
+        assert self.daemon is not None, "restart_daemon needs controld mode"
+        cfg = self.cfg
+        digest = self.daemon.state_digest()
+        recovered = ControlDaemon.recover(
+            self.daemon.journal,
+            n_instances=cfg.n_instances, clock=self.clock.now,
+            lease_s=self._lease_s(),
+            epoch_horizon=max(16, 8 * cfg.triggers_per_step),
+            max_members=max(64, 4 * cfg.n_members), trace=self.trace)
+        self.daemon_restarts += 1
+        if recovered.state_digest() != digest:
+            self.restart_digest_mismatches += 1
+        self._bind_daemon(recovered, ControldClient(InProcTransport(recovered)))
+        # recompile the routing tables from the recovered managers
+        self._dp_cache = DataPlaneCache(self.managers, device=self.device)
+
+    def kill_leader(self) -> None:
+        """SIGKILL the HA leader (scenario hook / soak leg). Promotion is
+        client-driven: this window's heartbeats retry against the standbys
+        until the lease lapses and one claims it — ``_ha_after_window``
+        then audits the takeover and rebinds the sim to the successor."""
+        assert self.cluster is not None, "kill_leader needs controld HA mode"
+        leader = self.cluster.leader()
+        if leader is None:
+            return  # previous kill still failing over
+        self._ha_pre_kill_digest = leader.daemon.state_digest()
+        self._ha_kill_t = self.clock.now()
+        leader.kill()
+
+    def _ha_after_window(self) -> None:
+        """Detect a promotion that this window's client traffic drove:
+        audit the successor's resume digest against the dead leader's last
+        digest (byte-identical or a violation), record the failover
+        duration, rebind managers/CPs/routing to the promoted daemon, and
+        revive the corpse as a fresh standby (full-backlog catch-up)."""
+        lead = self.cluster.leader()
+        if lead is None or lead.daemon is self.daemon:
+            return
+        self.ha_failovers += 1
+        dur = 0.0
+        if self._ha_kill_t is not None and lead.promoted_at is not None:
+            dur = lead.promoted_at - self._ha_kill_t
+        self.ha_failover_durations.append(dur)
+        self._ha_last_failover_s = dur
+        lead.record_failover(dur)
+        if (self._ha_pre_kill_digest is not None
+                and lead.promoted_digest != self._ha_pre_kill_digest):
+            self.ha_digest_mismatches += 1
+        self._ha_kill_t = None
+        self._ha_pre_kill_digest = None
+        self._bind_daemon(lead.daemon, self.client)
+        self._dp_cache = DataPlaneCache(self.managers,
+                                        device=self.device)
+        for node in self.cluster.nodes:
+            if not node.alive:
+                self.cluster.revive(node)
+                self.ha_revivals += 1
+
     # -- data plane cache (rebuild only after an epoch-state change) ----------
     def dataplane(self) -> DataPlane:
         return self._dp_cache.get()
@@ -323,6 +616,12 @@ class Simulator:
             self.emit_time[(b.event_number, b.daq_id)] = float(t)
             self.emit_step[(b.event_number, b.daq_id)] = step_idx
             self._expected[(b.event_number, b.daq_id)] = b.payload
+        tb = self.trace
+        if tb is not None:
+            from repro_torch.telemetry.trace import bundle_key
+            key_b = bundle_key([b.event_number for b in bundles],
+                               [b.daq_id for b in bundles])
+            tb.record_window("emit_wait", key_b, t0, emit_b)
 
         # -- segmentation (timestamps ride as a side column) ------------------
         batch = segment_bundles(bundles, cfg.mtu_payload)
@@ -342,6 +641,16 @@ class Simulator:
         arrived = batch.take(src)
         t_lb = delivery.t_arrive
         self.packets_delivered += len(arrived)
+        key_r = pid_r = None
+        if tb is not None:
+            from repro_torch.telemetry.trace import bundle_key
+            key_r = bundle_key(arrived.event_number, arrived.daq_id)
+            pid_r = (np.uint64(self._trace_pid0)
+                     + np.arange(len(src), dtype=np.uint64))
+            self._trace_pid0 += len(src)
+            tb.record_window("uplink", key_r, t_emit[src], t_up[src],
+                             pid=pid_r)
+            tb.record_window("wan", key_r, t_up[src], t_lb, pid=pid_r)
         if len(arrived) == 0:
             self._post_window(step_idx, window_end, {})
             return
@@ -373,9 +682,23 @@ class Simulator:
                                  arrived_bytes[rows_ok][dl_keep])
         rows_acc = rows_cn[~served.dropped]
         dep_acc = served.depart[~served.dropped]
+        if tb is not None:
+            tb.record_window("lb", key_r, t_lb, t_out, pid=pid_r)
+            tb.record_window("downlink", key_r[rows_cn], t_out[rows_cn],
+                             t_cn[dl_keep], pid=pid_r[rows_cn],
+                             aux=m_ok[dl_keep])
+            m_acc = m_ok[dl_keep][~served.dropped]
+            svc = self.farm.service_time(
+                m_acc, arrived_bytes[rows_ok][dl_keep][~served.dropped])
+            tb.record_window("farm_wait", key_r[rows_acc],
+                             t_cn[dl_keep][~served.dropped], dep_acc - svc,
+                             pid=pid_r[rows_acc], aux=m_acc)
+            tb.record_window("service", key_r[rows_acc], dep_acc - svc,
+                             dep_acc, pid=pid_r[rows_acc], aux=m_acc)
 
         # -- per-member reassembly at service-completion order ----------------
         done_by_member: dict[int, int] = {}
+        traced: list[tuple[int, float, float, float]] = []  # key, t0, t1, emit
         if len(rows_acc):
             mem_acc = member[rows_acc]
             mem_ids, groups = group_rows(mem_acc)
@@ -397,17 +720,25 @@ class Simulator:
                 done_by_member[m] = len(completed)
                 if completed:
                     self._record_completions(arrived, sel[order],
-                                             dep_sel[order], completed)
+                                             dep_sel[order], completed, traced)
+        if tb is not None and traced:
+            rk = np.asarray([k for k, _, _, _ in traced], np.uint64)
+            tr_t1 = np.asarray([t1 for _, _, t1, _ in traced])
+            tb.record_window("reassembly", rk,
+                             np.asarray([t0 for _, t0, _, _ in traced]), tr_t1)
+            tb.complete_window(rk, np.asarray([e for _, _, _, e in traced]), tr_t1)
         self._post_window(step_idx, window_end, done_by_member,
                           busy_s=served.busy_s, accepted=served.accepted)
 
-    def _record_completions(self, arrived, sel_o, dep_o, completed) -> None:
+    def _record_completions(self, arrived, sel_o, dep_o, completed,
+                            traced: list) -> None:
         """Latency of each completed group: max service completion over the
         FIRST-served copy of each of its segments (FIFO => that is the
         closing row; a duplicate copy served later must not inflate the
         measured latency). Dedup by (event, daq, seg) keeping service order,
         then one sort + reduceat over (event, daq) — O(#bundles) python,
-        never O(#packets)."""
+        never O(#packets). With tracing on, each completion's (key, first
+        and last service, emission) goes to ``traced``."""
         seg3 = ((arrived.event_number[sel_o].astype(np.uint64) << np.uint64(32))
                 | (arrived.daq_id[sel_o].astype(np.uint64) << np.uint64(16))
                 | arrived.seg_index[sel_o].astype(np.uint64))
@@ -421,6 +752,7 @@ class Simulator:
         enc_s, dep_s = enc[korder], dep_u[korder]
         starts = np.flatnonzero(np.concatenate([[True], enc_s[1:] != enc_s[:-1]]))
         gmax = np.maximum.reduceat(dep_s, starts)
+        gmin = np.minimum.reduceat(dep_s, starts)
         uk_enc = enc_s[starts]
         for key, payload in completed:
             emit = self.emit_time.pop(key, None)
@@ -432,7 +764,11 @@ class Simulator:
                 self.corrupt += 1
             kenc = (int(key[0]) << 16) | int(key[1])
             pos = np.searchsorted(uk_enc, kenc)
-            self.latencies.append(float(gmax[pos]) - emit)
+            t_done = float(gmax[pos])
+            self.latencies.append(t_done - emit)
+            if self.trace is not None:
+                self._lat_keys.append(kenc)
+                traced.append((kenc, float(gmin[pos]), t_done, emit))
 
     # -- telemetry + control loop at the window boundary -----------------------
     def _post_window(self, step_idx: int, window_end: float,
@@ -444,6 +780,8 @@ class Simulator:
         ingest backlog from the reassemblers — on the virtual clock."""
         cfg = self.cfg
         self.clock.advance_to(window_end)
+        if self.trace is not None:
+            self.trace.end_window()
         fill = self.farm.fill(now=self.clock.now())
         for m in range(cfg.n_members):
             backlog = int(round(fill[m] * cfg.queue_capacity_pkts))
@@ -462,6 +800,20 @@ class Simulator:
                                        completed=done_by_member.get(m, 0),
                                        timed_out=new_t)
 
+        if cfg.controld:
+            if (self.cluster is not None and cfg.ha_kill_every
+                    and (step_idx + 1) % cfg.ha_kill_every == 0
+                    and step_idx + 1 < cfg.steps):
+                self.kill_leader()
+            self._controld_window(step_idx, fill, busy_s, accepted)
+            if self.cluster is not None:
+                self._ha_after_window()
+            self.queue_fill_trace.append(
+                (self.clock.now(), [round(float(f), 4) for f in fill]))
+            self._purge_vanished(step_idx)
+            self._emit_metrics(step_idx, fill)
+            return
+
         self._purge_vanished(step_idx)
 
         if (not cfg.frozen_weights and cfg.reweight_every
@@ -478,6 +830,7 @@ class Simulator:
                             for m, w in cp.weights.items()}))
         self.queue_fill_trace.append(
             (self.clock.now(), [round(float(f), 4) for f in fill]))
+        self._emit_metrics(step_idx, fill)
 
     def _purge_vanished(self, step_idx: int) -> None:
         """Bundles that lost every segment before any reassembler saw them
@@ -494,20 +847,74 @@ class Simulator:
                 self._expected.pop(k, None)
             self.bundles_vanished += len(dead)
 
+    def _controld_window(self, step_idx: int, fill,
+                         busy_s, accepted) -> None:
+        """The controld-mode control loop: every live CN heartbeats its
+        *measured* occupancy (the same number the embedded hub would call
+        fill) — one ``SendStateBatch`` per instance per window, not one
+        message per CN — then the daemon ticks at the reweight cadence:
+        lease expiry, one fused policy feedback over the member lanes, and
+        epoch GC all happen inside the service."""
+        cfg = self.cfg
+        cap = max(cfg.queue_capacity_pkts, 1)
+        if self.trace is not None:
+            from repro_torch.telemetry.trace import trace_id
+            # window-scoped trace context: daemon-side spans of this
+            # window's control messages correlate under one id
+            self.client.trace = trace_id((1 << 62) | step_idx)
+        for inst, ids in enumerate(self.instance_members):
+            live, fills, rates = [], [], []
+            for m in ids:
+                if m in self.muted:
+                    continue  # a silent CN daemon: its lease will lapse
+                ra = self.reassemblers.get(m)
+                backlog = max(int(round(fill[m] * cap)),
+                              ra.n_incomplete if ra is not None else 0)
+                rate = 1.0
+                if (busy_s is not None and accepted is not None
+                        and accepted[m] > 0):
+                    step_time = float(busy_s[m] / accepted[m])
+                    rate = 1.0 / step_time if step_time > 0 else 1.0
+                live.append(m)
+                fills.append(min(1.0, backlog / cap))
+                rates.append(rate)
+            if live:
+                reply = self.client.send_state_batch(
+                    self.tokens[inst], live, fills, rates)
+                # lapsed leases come back as per-member rejections: the
+                # protocol says re-register, not heartbeat
+                self.heartbeats_rejected += len(reply["rejected"])
+        if (not cfg.frozen_weights and cfg.reweight_every
+                and (step_idx + 1) % cfg.reweight_every == 0):
+            res = self.client.tick(current_event=self.fleet.event_number)
+            for r in res["sessions"].values():
+                if r.get("epoch") is not None:
+                    self.epoch_switches += 1
+            self.weight_trajectory.append(
+                (step_idx, {m: round(w, 4) for cp in self.cps
+                            for m, w in cp.weights.items()}))
+
     # -- whole run --------------------------------------------------------------
     def run(self) -> SimReport:
         if self.cfg.engine == "fused":
             from repro_torch.simnet import fused
             if fused.fused_supported(self.cfg, self.scenario):
+                for name, what in FUSED_UNPORTED.items():
+                    if getattr(self.cfg, name):
+                        raise NotImplementedError(
+                            f"SimConfig.{name} on the fused engine needs {what}, "
+                            "which is not ported yet; pass engine='host'")
                 return fused.FusedEngine(self).run()
-            # outside the fused scope (hooks, >16 members, ...): the host
-            # engine, which covers every config
+            # outside the fused scope (hooks, controld, >16 members, ...):
+            # the host engine, which covers every config
         elif self.cfg.engine != "host":
             raise ValueError(f"unknown engine {self.cfg.engine!r}")
         t_wall = time.perf_counter()
         for i in range(self.cfg.steps):
             self.step(i)
         wall = time.perf_counter() - t_wall
+        if self._ts_writer is not None:
+            self._ts_writer.close()
 
         pending = sum(ra.n_incomplete for ra in self.reassemblers.values())
         timed_out = sum(ra.stats.n_timed_out_groups
@@ -527,6 +934,24 @@ class Simulator:
                     and self.farm.n_dropped == 0 and self.discarded == 0)
         if lossless and completed + pending + timed_out < self.bundles_sent:
             violations.append("bundles unaccounted with zero loss")
+        if self.restart_digest_mismatches:
+            violations.append(
+                f"{self.restart_digest_mismatches} daemon restarts did not "
+                "replay to byte-identical state")
+        if self.cluster is not None:
+            if self.ha_digest_mismatches:
+                violations.append(
+                    f"{self.ha_digest_mismatches} failovers resumed from a "
+                    "digest differing from the dead leader's last state")
+            limit = 1.25 * self._ha_term_s()
+            slow = [d for d in self.ha_failover_durations if d > limit]
+            if slow:
+                violations.append(
+                    f"{len(slow)} failovers exceeded 1.25x the lease term "
+                    f"(worst {max(slow):.3f}s vs limit {limit:.3f}s)")
+            if self._ha_kill_t is not None:
+                violations.append(
+                    "leader killed but no standby promoted by run end")
 
         weights = {}
         for cp in self.cps:
@@ -558,4 +983,13 @@ class Simulator:
             queue_fill_trace=self.queue_fill_trace,
             per_member_segments=dict(sorted(self.per_member_segments.items())),
             violations=violations,
+            daemon_restarts=self.daemon_restarts,
+            ha_failovers=self.ha_failovers,
+            ha_revivals=self.ha_revivals,
+            ha_failover_durations=[round(d, 6)
+                                   for d in self.ha_failover_durations],
+            leases_expired=(sum(s.counters["leases_expired"]
+                                for s in self.daemon.sessions.values())
+                            if self.daemon is not None else 0),
+            heartbeats_rejected=self.heartbeats_rejected,
         )

@@ -4,8 +4,7 @@ Mirrors the real EJ-FAT deployment where CN daemons report receive-queue fill
 and processing rate back to the control plane. Here members are DP workers
 (or serving replicas); fill is estimated from queue depth / step-time EWMAs
 plus the reassembly incomplete-buffer backlog reported by the ingest lanes
-(``report_ingest``). Only the per-member hub is ported so far; the
-Prometheus registry of the JAX package comes with the observability slice.
+(``report_ingest``).
 """
 from __future__ import annotations
 
@@ -15,6 +14,19 @@ from collections import defaultdict
 from typing import Callable
 
 from repro_torch.core.control_plane import MemberTelemetry
+
+# The production metrics surface (Prometheus registry) lives next door in
+# telemetry.registry; re-export it here so `telemetry.metrics` is the single
+# import point for both the per-member hub and the service-level registry.
+from repro_torch.telemetry.registry import (  # noqa: F401  (re-exports)
+    LATENCY_BUCKETS_S,
+    SIZE_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    log_buckets,
+)
 
 
 @dataclasses.dataclass

@@ -20,12 +20,16 @@ from repro_torch.data.reassembly import reassembly_plan
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _lib
 from repro_torch.kernels.dispatch import dispatch_plan
-from repro_torch.kernels.flash_attention import _design, flash_attention
-from repro_torch.kernels.lb_route import lb_route
+from repro_torch.kernels.flash_attention import _design as _flash_design
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.lb_route import _design, lb_route, smem_bytes
 from repro_torch.kernels.reassembly import seg_masks
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import model as M
-from torch_helpers import EDGE_BOUNDARIES, edge_headers, program, seg_starts
+from repro_torch.core.protocol import CALENDAR_SLOTS
+from repro_torch.core.tables import MAX_EPOCH_ROWS
+from torch_helpers import (EDGE_BOUNDARIES, LB_TABLE_SHAPES, edge_headers, program,
+                           seg_starts, spread_program)
 
 pytestmark = pytest.mark.cuda
 
@@ -203,6 +207,132 @@ def test_lb_route_unaligned_instance_ids():
         assert torch.equal(g.cpu(), w)
 
 
+def _wide_dataplanes(n_inst, max_members):
+    ems = [spread_program(tcore, max_members, n_live=min(max_members, 256), seed=i,
+                          switches=1 + i % 3) for i in range(n_inst)]
+    if n_inst == 1:
+        return (DataPlane.from_manager(ems[0], device="cuda"),
+                DataPlane.from_manager(ems[0], device="cpu"))
+    return (DataPlane.from_instances(ems, device="cuda"),
+            DataPlane.from_instances(ems, device="cpu"))
+
+
+def _route_equal(gpu, cpu, n, seed):
+    t = cpu.tables
+    stacked = t.seg_row.ndim == 2
+    h = edge_headers(seg_starts(t.seg_start_hi[0] if stacked else t.seg_start_hi,
+                                t.seg_start_lo[0] if stacked else t.seg_start_lo), n, seed=seed)
+    n_inst = t.seg_row.shape[0] if stacked else 1
+    iid = (torch.from_numpy(np.random.default_rng(seed).integers(-1, n_inst + 1, n)
+                            .astype(np.int32)) if stacked else None)
+    got = lb_route(words_to_tensor(h, "cuda"), gpu.tables, None if iid is None else iid.cuda())
+    for g, w in zip(got, lb_route(words_to_tensor(h, "cpu"), t, iid)):
+        assert torch.equal(g.cpu(), w)
+
+
+# the largest tables that fit a block's shared memory and one member slot
+# past them, farm_1k (4 x 4096), the fabric at K = 7 and 8 LBs (2K x 64):
+# the "global" design above the limit, counted under its own name too
+@pytest.mark.parametrize("n_inst,max_members", LB_TABLE_SHAPES)
+def test_lb_route_table_sizes_equal_plain(n_inst, max_members):
+    gpu, cpu = _wide_dataplanes(n_inst, max_members)
+    design = _design(n_inst, MAX_EPOCH_ROWS, max_members)
+    lib = _lib.lib()
+    for d in ("shared", "global"):  # the wrapper's formula is the kernel's
+        assert smem_bytes(d, n_inst, MAX_EPOCH_ROWS, max_members) == lib.ejfat_lb_route_smem_bytes(
+            ("shared", "global").index(d), n_inst, MAX_EPOCH_ROWS, CALENDAR_SLOTS, max_members)
+    for n in (5, 4 * 1025 + 3, (1 << 20) + 5):
+        before = dict(_lib.LAUNCHES)
+        _route_equal(gpu, cpu, n, seed=n + max_members)
+        assert _lib.LAUNCHES["lb_route"] == before["lb_route"] + 1
+        assert (_lib.LAUNCHES["lb_route_global"]
+                == before["lb_route_global"] + int(design == "global"))
+
+
+def test_lb_route_farm_1k_zero_member_fields_equal_plain():
+    """farm_1k's shape with every member field zero (no member valid): every
+    packet is refused, as by the plain version."""
+    t = DataPlane.from_manager(_managers(1)[0], device="cpu").tables
+    fields = dict({k: v.numpy() for k, v in t.fields().items()},
+                  **{k: np.zeros(4096, np.int32) for k in ("member_node", "member_base_lane",
+                                                            "member_lane_mask", "member_valid")})
+    big = lambda dev: stack_tables([device_tables_from_numpy(fields, dev)] * 4)
+    h = words_to_tensor(_headers(70_000), "cuda")
+    iid = torch.from_numpy(np.random.default_rng(3).integers(0, 4, 70_000)
+                           .astype(np.int32)).cuda()
+    got = lb_route(h, big("cuda"), iid)
+    want = lb_route(h.cpu(), big("cpu"), iid.cpu())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[3].sum()) == 0
+
+
+@pytest.mark.parametrize("n_inst,max_members", [(4, 2595), (4, 4096), (16, 64)])
+def test_lb_route_graph_replays_equal_plain(n_inst, max_members):
+    """One call captured in a CUDA graph (first call, the opt-in, on a side
+    stream before capture) and replayed on new headers: both designs."""
+    gpu, cpu = _wide_dataplanes(n_inst, max_members)
+    n = (1 << 18) + 3
+    starts = seg_starts(cpu.tables.seg_start_hi[0], cpu.tables.seg_start_lo[0])
+    rng = np.random.default_rng(max_members)
+    iid = torch.from_numpy(rng.integers(0, n_inst, n).astype(np.int32)).cuda()
+    static = words_to_tensor(edge_headers(starts, n, seed=0), "cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lb_route(static, gpu.tables, iid)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = lb_route(static, gpu.tables, iid)
+    for r in range(3):
+        h = words_to_tensor(edge_headers(starts, n, seed=r + 1), "cpu")
+        static.copy_(h)
+        g.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(out, lb_route(h, cpu.tables, iid.cpu())):
+            assert torch.equal(got.cpu(), want)
+
+
+# past one chunk of 1024 members: the grid's second dimension
+@pytest.mark.parametrize("m", [1025, 2048, 4096, 16_384])
+@pytest.mark.parametrize("n", [4097, (1 << 20) + 3])
+def test_dispatch_plan_member_chunks_equal_plain(n, m):
+    rng = np.random.default_rng(n + m)
+    _plan_equal(torch.from_numpy(rng.integers(-2, m + 3, n).astype(np.int32)), m)
+
+
+@pytest.mark.parametrize("member", [1023, 1024, 16_383])
+def test_dispatch_plan_member_chunks_one_member_skew(member):
+    n = (1 << 20) + 3
+    m = 16_384
+    pos, counts = dispatch_plan(torch.full((n,), member, dtype=torch.int32, device="cuda"),
+                                n_members=m)
+    assert torch.equal(pos.cpu(), torch.arange(n, dtype=torch.int32))
+    assert int(counts[member]) == n and int(counts.sum()) == n
+
+
+@pytest.mark.parametrize("m", [2048, 16_384])
+def test_dispatch_plan_member_chunks_graph_replays_equal_plain(m):
+    n = (1 << 18) + 5
+    rng = np.random.default_rng(m)
+    static = torch.from_numpy(rng.integers(-1, m + 2, n).astype(np.int32)).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dispatch_plan(static, n_members=m)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = dispatch_plan(static, n_members=m)
+    for r in range(4):
+        new = torch.from_numpy(rng.integers(-1, m + 2 - 7 * r, n).astype(np.int32))
+        static.copy_(new)
+        g.replay()
+        torch.cuda.synchronize()
+        _plan_equal(new, m, out)
+
+
 @pytest.mark.parametrize("n", [1, 1000, 1 << 17])
 def test_seg_masks_and_plan_equal_plain(n):
     rng = np.random.default_rng(n)
@@ -227,16 +357,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         lb_route(h.long(), t)
     with pytest.raises(ValueError):
         lb_route(h[:, :3], t)
-    with pytest.raises(ValueError):
-        dispatch_plan(torch.zeros(4, dtype=torch.int32, device="cuda"), n_members=5000)
-    # tables a block cannot hold in shared memory (4 x 4096 members: 328 KB)
-    big = stack_tables([device_tables_from_numpy(dict(
-        {k: v.cpu().numpy() for k, v in t.fields().items()},
-        **{k: np.zeros(4096, np.int32) for k in ("member_node", "member_base_lane",
-                                                  "member_lane_mask", "member_valid")}),
-        "cuda")] * 4)
-    with pytest.raises(ValueError, match="shared"):
-        lb_route(h, big, torch.zeros(8, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError):  # the reference refuses it too
+        dispatch_plan(torch.zeros(4, dtype=torch.int32, device="cuda"), n_members=0)
     with pytest.raises(ValueError, match="epoch segments"):  # the kernel takes 16
         lb_route(h, dataclasses.replace(t, seg_start_hi=t.seg_start_hi[:8],
                                         seg_start_lo=t.seg_start_lo[:8],
@@ -263,7 +385,7 @@ def _check_flash(b, t, hq, hkv, d, causal, dtype, atol, rtol, seed):
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     wgmma = dtype == torch.bfloat16 and d in (64, 128)
-    assert _design(dtype, d) == ("wgmma" if wgmma else "mma")
+    assert _flash_design(dtype, d) == ("wgmma" if wgmma else "mma")
     assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert (_lib.LAUNCHES["flash_attention_wgmma"]
             == before["flash_attention_wgmma"] + int(wgmma))

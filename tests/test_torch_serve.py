@@ -128,3 +128,11 @@ def test_engine_device_defaults_to_cuda():
     params = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(cfg, ServeConfig(), params)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_serve_config_takes_greedy(greedy):
+    """``greedy`` as in the reference's ServeConfig (unused there too:
+    decoding always takes the argmax); its default is the reference's."""
+    assert ServeConfig(greedy=greedy).greedy is greedy
+    assert ServeConfig().greedy == JServeConfig().greedy

@@ -1,7 +1,8 @@
 """repro_torch.simnet against the JAX package's repro.simnet on the CPU: the
-host engine's whole report on every non-controld scenario, the link and
-queue primitives, the Gilbert-Elliott draw, the driver's summary, and the
-options that wait for unported modules."""
+host engine's whole report on every scenario (the controld presets
+included), the daemon's digest, tracing and live metrics on the host engine,
+the link and queue primitives, the Gilbert-Elliott draw, run.py's
+summary, and the fused engine's refusal of what it does not replay yet."""
 import dataclasses
 import importlib.util
 import json
@@ -164,20 +165,161 @@ def test_driver_summary_equals_reference(argv, tmp_path, capsys):
     assert got == want
 
 
-@pytest.mark.parametrize("option", [dict(controld=True), dict(ha=True), dict(trace=True),
-                                    dict(metrics_every=5)])
-def test_unported_options_raise(option):
-    name = next(iter(option))
-    with pytest.raises(NotImplementedError, match=f"SimConfig.{name} needs .*ROADMAP"):
-        Simulator(SimConfig(steps=2, device="cpu", **option))
+# windows per controld preset: past the hooks (a third, a half, two thirds
+# of the run) at the small presets; farm_1k (1024 members) at 4
+CONTROLD_STEPS = {"lease_churn": 30, "cp_restart": 30, "leader_failover": 30,
+                  "multi_tenant": 30, "farm_1k": 4}
+
+
+def _sims(name, steps, **extra):
+    rs, ps = ref_simnet.get_scenario(name), port_simnet.get_scenario(name)
+    want = ref_simnet.Simulator(rs.build_config(steps=steps, engine="host", **extra),
+                                dataclasses.replace(rs))
+    got = port_simnet.Simulator(ps.build_config(steps=steps, engine="host", device="cpu",
+                                                **extra), dataclasses.replace(ps))
+    return got, want, got.run(), want.run()
 
 
 @pytest.mark.parametrize("name", CONTROLD)
-def test_controld_scenarios_raise(name):
-    scn = port_simnet.get_scenario(name)
+def test_controld_preset_report_equals_reference(name):
     assert sorted(port_simnet.SCENARIOS) == sorted(ref_simnet.SCENARIOS)
-    with pytest.raises(NotImplementedError, match="controld"):
-        Simulator(scn.build_config(steps=2, device="cpu"), dataclasses.replace(scn)).run()
+    got_sim, want_sim, got, want = _sims(name, CONTROLD_STEPS[name])
+    assert got.engine == want.engine == "host"
+    assert _comparable(got) == _comparable(want)
+    assert not got.violations and got.bundles_completed > 0
+    # every tenant's daemon state, byte for byte
+    assert got_sim.daemon.state_digest() == want_sim.daemon.state_digest()
+    expect = {"lease_churn": dict(leases_expired=1), "cp_restart": dict(daemon_restarts=1),
+              "leader_failover": dict(ha_failovers=1, ha_revivals=1)}.get(name, {})
+    for k, v in expect.items():
+        assert getattr(got, k) == v, k
+
+
+def test_leader_failover_chaos_gates():
+    """The reference's HA chaos gates (``tests/test_ha.py``, whose run there
+    stops at the reference's fused-engine import) on the port: a failover
+    within 1.25 lease terms, no lost bundle, replication current after the
+    revive, and the same schedule and digest from a second run."""
+    runs = []
+    for _ in range(2):
+        scn = port_simnet.get_scenario("leader_failover")
+        sim = Simulator(scn.build_config(steps=30, engine="host", device="cpu"),
+                        dataclasses.replace(scn))
+        r = sim.run()
+        assert r.violations == [] and r.ha_failovers >= 1 and sim.ha_revivals >= 1
+        assert r.bundles_completed == r.bundles_sent and r.bundles_timed_out == 0
+        assert all(d <= 1.25 * sim._ha_term_s() for d in r.ha_failover_durations)
+        assert sim.cluster.leader().replicator.lag() == 0
+        runs.append((r.ha_failover_durations, sim.daemon.state_digest()))
+    assert runs[1] == runs[0]
+
+
+def test_farm_1k_tables_take_the_global_route_design():
+    """farm_1k's stacked tables (4 x 4096 member slots) are above a block's
+    shared memory: the card routes them with lb_route's "global" design."""
+    from repro_torch.kernels.lb_route import _design, smem_bytes
+    scn = port_simnet.get_scenario("farm_1k")
+    sim = Simulator(scn.build_config(steps=1, engine="host", device="cpu"),
+                    dataclasses.replace(scn))
+    t = sim.dataplane().tables
+    n_inst, n_members = t.member_node.shape
+    n_rows = t.calendars.shape[1]
+    assert (n_inst, n_members) == (4, 4096)
+    assert smem_bytes("shared", n_inst, n_rows, n_members) == 328_480
+    assert _design(n_inst, n_rows, n_members) == "global"
+
+
+@pytest.mark.parametrize("name,extra", [("straggler", {}),
+                                        ("lease_churn", {}),
+                                        ("multi_instance", dict(trace_sample=0.25,
+                                                                trace_tail_k=8))])
+def test_trace_on_the_host_engine_equals_reference(name, extra):
+    """Per-bundle spans byte-equal as Perfetto JSON; in controld mode also
+    the daemon's per-message spans under each window's trace id, all but
+    their durations (the daemon's wall-clock handling time, in both
+    packages)."""
+    got_sim, want_sim, got, want = _sims(name, 12, trace=True, **extra)
+    assert _comparable(got) == _comparable(want)
+    gt, wt = got_sim.trace, want_sim.trace
+    assert gt.stage_names == wt.stage_names
+    gs, ws = gt.spans(), wt.spans()
+    wall = np.isin(ws["stage"], [i for i, n in enumerate(wt.stage_names)
+                                 if n.startswith("controld.")])
+    assert wall.any() == got_sim.cfg.controld
+    for k in ws:
+        if k == "t1":
+            assert np.array_equal(gs[k][~wall], ws[k][~wall])
+        else:
+            assert np.array_equal(gs[k], ws[k]), k
+    if not wall.any():
+        assert gt.to_perfetto_json() == wt.to_perfetto_json()
+        assert json.dumps(gt.to_summary(), sort_keys=True) == json.dumps(
+            wt.to_summary(), sort_keys=True)
+    assert got_sim._lat_keys == want_sim._lat_keys
+
+
+@pytest.mark.parametrize("name", ["straggler", "leader_failover"])
+def test_metrics_on_the_host_engine_equal_reference(name, tmp_path):
+    """The live registry's JSONL rows and its Prometheus page (the process's
+    resident memory aside: machine state)."""
+    rows = {}
+    sims = _sims(name, 30, metrics_every=5, metrics_path=None)
+    for pkg, sim in (("port", sims[0]), ("ref", sims[1])):
+        page = [ln for ln in sim.metrics.render().splitlines()
+                if not ln.startswith("process_rss_bytes")]
+        rows[pkg] = page
+    assert rows["port"] == rows["ref"]
+    paths = {}
+    for pkg, mod, extra in (("port", port_simnet, dict(device="cpu")), ("ref", ref_simnet, {})):
+        path = tmp_path / f"{pkg}.jsonl"
+        scn = mod.get_scenario(name)
+        mod.Simulator(scn.build_config(steps=30, engine="host", metrics_every=5,
+                                       metrics_path=str(path), **extra),
+                      dataclasses.replace(scn)).run()
+        paths[pkg] = [json.loads(line) for line in path.read_text().splitlines()]
+        for r in paths[pkg]:
+            r["metrics"].pop("process_rss_bytes")
+    assert len(paths["port"]) == 6 and paths["port"] == paths["ref"]
+
+
+@pytest.mark.parametrize("option", [dict(trace=True), dict(metrics_every=5)])
+def test_fused_engine_refuses_trace_and_metrics(option):
+    """On a config inside the fused engine's scope, tracing and metrics (the
+    reference's fused replay, not ported yet) raise; they do not quietly run
+    the host engine."""
+    scn = port_simnet.get_scenario("straggler")
+    sim = Simulator(scn.build_config(steps=2, device="cpu", **option),
+                    dataclasses.replace(scn))
+    with pytest.raises(NotImplementedError, match="fused engine.*ROADMAP"):
+        sim.run()
+
+
+def test_controld_config_on_the_fused_engine_runs_the_host_engine():
+    from repro_torch.simnet import fused
+    scn = port_simnet.get_scenario("multi_tenant")
+    cfg = scn.build_config(steps=6, device="cpu")
+    assert cfg.engine == "fused"
+    assert fused.unsupported_reason(cfg, scn) == "controld sessions are host-side daemons"
+    report = Simulator(cfg, dataclasses.replace(scn)).run()
+    assert report.engine == "host" and not report.violations
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scenario", "multi_instance", "--steps", "20", "--controld", "--policy", "pid"],
+    ["--scenario", "baseline", "--steps", "24", "--kill-leader-every", "10"],
+    ["--scenario", "lease_churn", "--steps", "18", "--metrics-interval", "6"],
+])
+def test_driver_controld_flags_equal_reference(argv, tmp_path, capsys):
+    want_p, got_p = tmp_path / "ref.json", tmp_path / "port.json"
+    rc_ref = _reference_driver().main(argv + ["--engine", "host", "--json", str(want_p)])
+    rc = port_run.main(argv + ["--engine", "host", "--device", "cpu", "--json", str(got_p)])
+    capsys.readouterr()
+    assert rc == rc_ref == 0
+    want, got = json.loads(want_p.read_text()), json.loads(got_p.read_text())
+    for d in (want, got):
+        d.pop("wall_s")
+        d.pop("packets_per_sec")
+    assert got == want
 
 
 class TestDeviceDefault:

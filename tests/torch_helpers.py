@@ -91,3 +91,29 @@ def edge_headers(starts, n, seed=0) -> np.ndarray:
     h = encode_headers(events, rng.integers(0, 1 << 16, n).astype(np.uint32))
     h[::7, 0] ^= np.uint32(0x1_0000)
     return h
+
+
+def spread_program(pkg, max_members, n_live=200, seed=0, switches=2, boundaries=EDGE_BOUNDARIES):
+    """Program one LB instance of ``max_members`` slots whose ``n_live``
+    members sit on slots spread over the whole table (the last slot among
+    them), with mixed lane widths and ``switches`` epoch switches: tables
+    whose member reads reach every part of the member arrays."""
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.choice(max_members - 1, n_live - 1, replace=False)).tolist()
+    ids.append(max_members - 1)
+    em = pkg.EpochManager(max_members=max_members)
+    em.initialize({i: pkg.MemberSpec(node_id=i + 3, base_lane=(8 * i) % 4096, lane_bits=i % 4)
+                   for i in ids}, {i: float(rng.uniform(0.5, 2.0)) for i in ids})
+    for k in range(switches):
+        live = ids[k + 1:]
+        em.reconfigure({i: pkg.MemberSpec(node_id=i + 100, lane_bits=1) for i in live},
+                       {i: float(rng.uniform(0.5, 2.0)) for i in live},
+                       boundary_event=boundaries[k])
+    return em
+
+
+#: (instances, member slots) of the LB table shapes at the edges of the
+#: ``lb_route`` kernel's two designs: the largest stacked and single tables
+#: that fit a block's shared memory, one member slot past each, farm_1k
+#: (4 x 4096), the fabric at K = 7 and K = 8 LBs (2K x 64)
+LB_TABLE_SHAPES = ((4, 2595), (4, 2596), (1, 13491), (1, 13492), (4, 4096), (14, 64), (16, 64))
