@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for the H100).
 
-Drives the port's two main paths — the load balancer's closed loop, and
+Drives the port's main paths — the load balancer's closed loop, the
+simulator, the control plane as a service, the two-tier fabric, and
 LB-front-door serving of Yi-6B — through the entry points a user calls,
 builds every CUDA kernel of those paths from the sources in this checkout,
 and holds each kernel against its plain PyTorch version at full width.
@@ -53,7 +54,12 @@ result:
                 layer, every one of those launches through the wgmma
                 design, every routing tick launches lb_route; then the
                 kernel's share of the longest prefill (CUDA events) and the
-                device's busy share of decode steps (torch.profiler)
+                device's busy share of decode steps (torch.profiler); then
+                the controld mode at Yi-6B's width (2 layers): the engine a
+                traced, metered tenant of a ControlDaemon, two waves of 4
+                requests, card == CPU on routes, stats, the daemon's spans,
+                the registry's rows and the daemon's state digest (the
+                daemon's clock and the reported decode times pinned)
   6. simnet     the virtual-time simulator (repro_torch.simnet): the
                 hook-free, non-controld scenarios at their small presets,
                 host engine on the card == on the CPU (whole report);
@@ -63,9 +69,12 @@ result:
                 ~16k jumbo frames, 1.024 GB/s offered, the farm at ~0.7 of
                 capacity): the fused engine at 16 members, 96 windows, K=8
                 (one capture, 12 replays, lb_route / farm_serve /
-                seq_cumsum / build_calendar in every window) against the
-                host engine on
-                the card (counters exact, latencies rel 1e-9), the same
+                seq_cumsum / build_calendar in every window), then again
+                traced with live metrics (no capture, the same 12 replays,
+                the per-row outputs copied back once per replay and timed),
+                against the host engine, traced and metered, on
+                the card (counters exact, latencies rel 1e-9; spans ids
+                exact, times and registry rows rel 1e-9), the same
                 config fused on the CPU at 8 windows against the host
                 engine, and the host engine at 64 members for 12 windows
   7. controld   the control plane as a service (repro_torch.controld) on
@@ -80,7 +89,16 @@ result:
                 that recovers the same digest, a failover that loses no
                 bundle); the card run's journal replayed into a fresh
                 daemon to the same digest
-  8. result     the `kernels` JSON line, the card line, and the last line
+  8. fabric     the two-tier LB fabric (repro_torch.fabric) through its
+                driver: vlb_spray, elephant_mice and lb_node_failure with
+                every leg of their gates, card == CPU (the whole summary),
+                the gates passing, one lb_route launch per window;
+                elephant_mice as a ReserveFabric tenant, card == CPU with
+                the daemon's digest; the tier sweep K = 2, 4, 8 on
+                vlb_spray (20 windows; K = 8 stacks 16 x 64 member slots
+                through lb_route's "global" design), card == CPU, its
+                windows/s, packets/s and the card's busy share
+  9. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -789,18 +807,21 @@ def small_serve(torch, np):
 def _observed_engine(torch):
     """ServingEngine that records, around the engine's own calls, each
     prefill's flash_attention launches and time, each routing tick's
-    lb_route launches, and each replica's decode step times."""
+    lb_route launches, and each replica's decode step times (with
+    ``pin_step_s``, the hub is told a fixed time per replica instead)."""
     from repro_torch.kernels import _lib
     from repro_torch.serve.engine import ServingEngine
 
     class ObservedEngine(ServingEngine):
-        def __init__(self, *a, **kw):
+        def __init__(self, *a, pin_step_s=None, **kw):
             super().__init__(*a, **kw)
             self.prefills, self.routes, self.decode_s = [], [], {}
             report = self.hub.report_step
 
             def observed(m, step_time, **kw):
                 self.decode_s.setdefault(m, []).append(step_time)
+                if pin_step_s is not None:  # a fixed time per replica
+                    step_time = pin_step_s * (m + 1)
                 return report(m, step_time=step_time, **kw)
             self.hub.report_step = observed
 
@@ -985,6 +1006,89 @@ def full_serve(torch, np):
     return launches
 
 
+CONTROLD_SERVE = dict(n_replicas=2, lane_bits=1, max_len=256, rebalance_every=2,
+                      use_controld=True, trace=True)
+CONTROLD_SERVE_LAYERS, CONTROLD_SERVE_REQUESTS, CONTROLD_SERVE_NEW = 2, 8, 4
+PINNED_NOW = 1_000.0
+
+
+def controld_serve(torch, np):
+    """Serving's controld mode at Yi-6B's width (depth cut to 2 layers, the
+    rest as published): the engine as a tenant of a ControlDaemon, traced,
+    with a metrics registry, on the card and on the CPU from one set of
+    weights. The daemon's clock and the replicas' reported decode step times
+    are pinned (both are wall time), so the routes, the rebalances and the
+    daemon's state digest must be equal; tokens are not compared (bf16
+    arithmetic differs between the two devices). Returns the card run's
+    launches."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.telemetry.registry import MetricsRegistry
+
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=CONTROLD_SERVE_LAYERS)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    daemon_cls = serve_engine.ControlDaemon
+    serve_engine.ControlDaemon = functools.partial(daemon_cls, clock=lambda: PINNED_NOW)
+    seen, launches = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            reg = MetricsRegistry()
+            eng = _observed_engine(torch)(
+                cfg, serve_engine.ServeConfig(device=dev, **CONTROLD_SERVE),
+                M.to_device(params, dev), metrics=reg, pin_step_s=0.01)
+            rng = np.random.default_rng(0)
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            reqs = []
+            for _wave in range(2):  # the second wave routes after a rebalance
+                reqs += [eng.submit(rng.integers(0, cfg.vocab, int(rng.integers(16, 64))),
+                                    max_new_tokens=CONTROLD_SERVE_NEW)
+                         for _ in range(CONTROLD_SERVE_REQUESTS // 2)]
+                eng.run_until_done(300)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(_lib.LAUNCHES)
+            wall = time.perf_counter() - t0
+            spans = eng.trace.spans()
+            rows = {k: v for k, v in reg.sample().items()
+                    if not k.startswith("serve_decode_step_seconds_sum")}
+            seen[dev] = dict(
+                routes=[(r.event_number, r.entropy, r.member, r.node, r.lane, r.done,
+                         len(r.output)) for r in reqs],
+                stats=eng.stats, digest=eng.daemon.state_digest(),
+                spans={k: spans[k].tolist() for k in ("stage", "key", "pid", "aux", "t0")},
+                rows=rows, wall_s=wall, prefills=list(eng.prefills))
+    finally:
+        serve_engine.ControlDaemon = daemon_cls
+    card, cpu = seen["cuda"], seen["cpu"]
+    for k in ("routes", "stats", "digest", "spans", "rows"):
+        check(card[k] == cpu[k], f"controld serve: {k} differs card vs CPU:\n{card[k]}\n"
+                                 f"{cpu[k]}")
+    check(all(r[5] and r[6] == CONTROLD_SERVE_NEW for r in card["routes"]),
+          "controld serve: a request did not finish")
+    check(card["stats"]["rebalances"] >= 1 and card["stats"]["route_calls"] == 2,
+          f"controld serve: stats {card['stats']}")
+    check(len(card["spans"]["key"]) > 0, "controld serve recorded no daemon span")
+    for n, fl, _ in card["prefills"]:
+        check(fl == cfg.n_layers, f"controld serve: a prefill of {n} tokens launched "
+                                  f"flash_attention {fl} times")
+    check(launches["lb_route"] >= 1 and launches["flash_attention"] == cfg.n_layers * len(
+        card["prefills"]), f"controld serve launches {launches}")
+    say("[serve] " + json.dumps(dict(
+        run=f"controld mode, yi-6b width, {cfg.n_layers} layers", **CONTROLD_SERVE,
+        requests=CONTROLD_SERVE_REQUESTS, card_equals_cpu=["routes", "stats", "digest",
+                                                           "spans", "rows"],
+        digest=card["digest"][:16], stats=card["stats"], daemon_spans=len(card["spans"]["key"]),
+        rows=card["rows"], wall_s_card=card["wall_s"], wall_s_cpu=cpu["wall_s"],
+        launches={k: v for k, v in launches.items() if v}), sort_keys=True))
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the virtual-time simulator
 # ---------------------------------------------------------------------------
@@ -1053,11 +1157,18 @@ def time_eager(torch, fn, reps=3):
     return a.elapsed_time(b) / reps
 
 
-def _comparable(report) -> dict:
-    d = report.to_dict(with_traces=True)
-    d.pop("wall_s")
-    d.pop("packets_per_sec")
+def _strip_wall(d):
+    """``d`` without its wall-clock keys, at every depth."""
+    if isinstance(d, dict):
+        return {k: _strip_wall(v) for k, v in d.items()
+                if k not in ("wall_s", "packets_per_sec")}
+    if isinstance(d, list):
+        return [_strip_wall(x) for x in d]
     return d
+
+
+def _comparable(report) -> dict:
+    return _strip_wall(report.to_dict(with_traces=True))
 
 
 def simnet_small(torch):
@@ -1228,6 +1339,29 @@ def _hold_fused_to_host(what, rf, rh):
     return worst
 
 
+def _hold_fused_observation_to_host(sim_f, sim_h):
+    """The fused engine's replayed spans and registry rows against the host
+    engine's: ids exact, times and rows within rel 1e-9 (abs 1e-12), the
+    process's resident memory aside. Returns (spans, rows) compared."""
+    import numpy as np
+
+    a, b = sim_h.trace.spans(), sim_f.trace.spans()
+    check(len(a["key"]) == len(b["key"]) > 0,
+          f"spans: host {len(a['key'])}, fused {len(b['key'])}")
+    for f in ("stage", "key", "pid", "aux"):
+        check(bool(np.array_equal(a[f], b[f])), f"spans: {f} differs fused vs host")
+    for f in ("t0", "t1"):
+        check(bool(np.allclose(b[f], a[f], rtol=1e-9, atol=1e-12)),
+              f"spans: {f} beyond rel 1e-9 fused vs host")
+    check(sim_f._lat_keys == sim_h._lat_keys, "latency keys differ fused vs host")
+    want, got = sim_h.metrics.sample(), sim_f.metrics.sample()
+    check(set(got) == set(want), f"registry rows: {sorted(set(got) ^ set(want))}")
+    for k in sorted(set(want) - {"process_rss_bytes"}):
+        check(abs(got[k] - want[k]) <= max(1e-9 * abs(want[k]), 1e-12),
+              f"registry row {k}: fused {got[k]} host {want[k]}")
+    return len(a["key"]), len(want) - 1
+
+
 def simnet_phase(torch, np):
     """The simulator's main path on the card; returns (kernel results,
     launches of each simnet kernel on the path)."""
@@ -1242,41 +1376,78 @@ def simnet_phase(torch, np):
         f"utilisation {farm_utilisation(cfg):.3f} at {SIMNET_FUSED_MEMBERS} members and "
         f"{farm_utilisation(simnet_config(SIMNET_HOST_MEMBERS, 1, 'host', 'cuda')[0]):.3f} "
         f"at {SIMNET_HOST_MEMBERS} (the straggler's member 0 at 4x)")
-    traces0, calls0 = fused.FUSED_TRACES, fused.FUSED_STEP_CALLS
-    _lib.reset_launches()
-    sim = Simulator(cfg, scn)
-    eng = fused.FusedEngine(sim, superblock=SIMNET_K)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rf = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    captured = dict(_lib.LAUNCHES)
-    check(rf.engine == "fused", f"the fused config ran the {rf.engine} engine")
-    n_cap, n_rep = fused.FUSED_TRACES - traces0, fused.FUSED_STEP_CALLS - calls0
-    check((n_cap, n_rep) == (1, SIMNET_FUSED_WINDOWS // SIMNET_K),
-          f"fused engine: {n_cap} captures and {n_rep} replays")
-    per_run = eng.program.launches_per_run
-    for name in SIMNET_KERNELS:
-        check(per_run.get(name, 0) == SIMNET_K,
-              f"{name} launched {per_run.get(name, 0)} times per {SIMNET_K}-window replay")
-    fused_launches = {k: v * n_rep for k, v in per_run.items()}
-    _simnet_line(
-        f"fused, {SIMNET_FUSED_MEMBERS} members", rf, wall, sum(eng.replay_ms) / 1e3,
-        fused_launches, "CUDA events around each graph replay", captures=n_cap,
-        replays=n_rep, launches_per_replay=per_run, launches_at_capture=captured,
-        replay_ms_median=statistics.median(eng.replay_ms))
+    # the fused engine three times at one shape: untraced, capturing the
+    # program; untraced again, timed with no capture in its wall; then
+    # traced with live metrics, which must reuse the program (the same
+    # replays, no capture; its per-row outputs come back once per replay and
+    # are timed). The two uncaptured runs give the cost of tracing.
+    fused_runs, fused_launches = {}, {}
+    for run, traced in (("capturing", False), ("untraced", False), ("traced", True)):
+        obs = dict(trace=True, metrics_every=1) if traced else {}
+        cfg, scn = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, "fused",
+                                 "cuda", **obs)
+        traces0, calls0 = fused.FUSED_TRACES, fused.FUSED_STEP_CALLS
+        _lib.reset_launches()
+        sim = Simulator(cfg, scn)
+        eng = fused.FusedEngine(sim, superblock=SIMNET_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rf = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        captured = dict(_lib.LAUNCHES)
+        check(rf.engine == "fused", f"the fused config ran the {rf.engine} engine")
+        n_cap, n_rep = fused.FUSED_TRACES - traces0, fused.FUSED_STEP_CALLS - calls0
+        want = (int(run == "capturing"), SIMNET_FUSED_WINDOWS // SIMNET_K)
+        check((n_cap, n_rep) == want, f"fused engine ({run}): {n_cap} captures "
+                                      f"and {n_rep} replays, want {want}")
+        per_run = eng.program.launches_per_run
+        for name in SIMNET_KERNELS:
+            check(per_run.get(name, 0) == SIMNET_K,
+                  f"{name} launched {per_run.get(name, 0)} times per {SIMNET_K}-window replay")
+        check(len(eng.row_copy_s) == (n_rep if traced else 0),
+              f"per-row copies {len(eng.row_copy_s)} in {n_rep} replays (traced {traced})")
+        for k, v in per_run.items():
+            fused_launches[k] = fused_launches.get(k, 0) + v * n_rep
+        extra = {}
+        if traced:
+            extra = dict(row_copies=len(eng.row_copy_s),
+                         row_copy_ms_median=statistics.median(eng.row_copy_s) * 1e3,
+                         row_copy_bytes=eng.row_copy_bytes,
+                         row_copy_how="host clock around the per-row outputs' copy, "
+                                      "after the replay's other outputs came back",
+                         spans=len(sim.trace.spans()["key"]))
+        _simnet_line(
+            f"fused, {SIMNET_FUSED_MEMBERS} members, {run}", rf, wall,
+            sum(eng.replay_ms) / 1e3, {k: v * n_rep for k, v in per_run.items()},
+            "CUDA events around each graph replay", captures=n_cap, replays=n_rep,
+            launches_per_replay=per_run, launches_at_capture=captured,
+            replay_ms_median=statistics.median(eng.replay_ms), **extra)
+        fused_runs[run] = (rf, sim, n_rep, wall)
+    check(fused_runs["untraced"][2] == fused_runs["traced"][2],
+          "tracing changed the replay count")
+    check(_comparable(fused_runs["untraced"][0]) == _comparable(fused_runs["traced"][0])
+          == _comparable(fused_runs["capturing"][0]),
+          "tracing or capturing changed the fused engine's report")
+    say(f"[simnet] cost of tracing, both runs without capture: traced "
+        f"{fused_runs['traced'][3]:.6f} s / untraced {fused_runs['untraced'][3]:.6f} s = "
+        f"{fused_runs['traced'][3] / fused_runs['untraced'][3]:.6f}")
+    rf, sim_f, _, _ = fused_runs["traced"]
 
-    cfg_h, _ = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, "host", "cuda")
+    cfg_h, _ = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, "host", "cuda",
+                             trace=True, metrics_every=1)
     _lib.reset_launches()
-    rh, wall_h, busy_h = _profiled(torch, lambda: Simulator(cfg_h, scn).run())
+    sim_h = Simulator(cfg_h, scn)
+    rh, wall_h, busy_h = _profiled(torch, sim_h.run)
     host_launches = dict(_lib.LAUNCHES)
     check(host_launches["lb_route"] == SIMNET_FUSED_WINDOWS,
           f"the host engine launched lb_route {host_launches['lb_route']} times")
     worst = _hold_fused_to_host("fused vs host on the card", rf, rh)
-    _simnet_line(f"host, {SIMNET_FUSED_MEMBERS} members", rh, wall_h, busy_h, host_launches,
-                 "torch.profiler (its own cost in the wall)",
-                 fused_vs_host_worst_latency_rel=worst)
+    n_spans, n_rows = _hold_fused_observation_to_host(sim_f, sim_h)
+    _simnet_line(f"host, {SIMNET_FUSED_MEMBERS} members, traced", rh, wall_h, busy_h,
+                 host_launches, "torch.profiler (its own cost in the wall)",
+                 fused_vs_host_worst_latency_rel=worst, spans_equal=n_spans,
+                 metrics_rows_equal=n_rows)
 
     cfg_c, _ = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_CPU_WINDOWS, "fused", "cpu")
     rc = Simulator(cfg_c, scn).run()
@@ -1425,6 +1596,138 @@ def controld_phase(torch, np):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the two-tier LB fabric
+# ---------------------------------------------------------------------------
+
+FABRIC_PRESETS = ("vlb_spray", "elephant_mice", "lb_node_failure")
+FABRIC_TIERS, FABRIC_SWEEP_STEPS = (2, 4, 8), 20
+
+
+def _fabric_args(device):
+    from repro_torch.fabric import run as fabric_run
+    return fabric_run.parse_args(["--device", device])
+
+
+def _timed(torch, fn):
+    """``fn()`` on the host clock, the card synchronised before and after:
+    (its result, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fabric_phase(torch, np):
+    """The fabric (repro_torch.fabric) through its driver: each preset with
+    every leg of its gate on the card == on the CPU (the driver's whole
+    summary), every gate passing, one lb_route launch per window of every
+    leg, each on the card twice (under the profiler for the busy share, then
+    without it for the rates); elephant_mice as a ReserveFabric tenant of the daemon, card == CPU
+    (report and state digest); then bench_fabric's tier sweep (vlb_spray,
+    20 windows, K = 2, 4, 8: 4 to 16 stacked calendars of 64 member slots,
+    K = 8 through lb_route's "global" design), card == CPU, its windows/s,
+    packets/s and the card's busy share. Returns the launches of the card
+    runs."""
+    from repro_torch.fabric import FabricSim, get_fabric_scenario
+    from repro_torch.fabric import run as fabric_run
+    from repro_torch.kernels import _lib
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    legs = {"vlb_spray": 2, "elephant_mice": 2, "lb_node_failure": 1}
+    for name in FABRIC_PRESETS:
+        # under the profiler for the card's busy share only, then timed
+        # without it for the rates
+        _lib.reset_launches()
+        card_p, wall_p, busy = _profiled(torch, lambda: fabric_run.run_scenario(
+            name, _fabric_args("cuda")))
+        card, wall = _timed(torch, lambda: fabric_run.run_scenario(name, _fabric_args("cuda")))
+        launches = dict(_lib.LAUNCHES)
+        cpu, wall_cpu = _timed(torch, lambda: fabric_run.run_scenario(
+            name, _fabric_args("cpu")))
+        check(_strip_wall(card) == _strip_wall(cpu) == _strip_wall(card_p),
+              f"fabric {name}: the card's summary differs from the CPU's:\n{card}\n{cpu}")
+        check(not card["violations"] and card["gates"] and all(card["gates"].values()),
+              f"fabric {name}: gates {card['gates']} violations {card['violations']}")
+        steps = get_fabric_scenario(name).build_config().steps
+        check(launches["lb_route"] == 2 * legs[name] * steps
+              and launches["lb_route_global"] == 0,
+              f"fabric {name}: lb_route launches {launches} in two runs of "
+              f"{legs[name]} x {steps} windows")
+        add(launches)
+        primary = card.get("vlb") or card.get("isolated") or card["report"]
+        say("[fabric] " + json.dumps(dict(
+            scenario=name, gates=card["gates"], legs=legs[name], windows=legs[name] * steps,
+            wall_s=wall, windows_per_s=legs[name] * steps / wall, wall_s_cpu=wall_cpu,
+            primary_wall_s=primary["wall_s"],
+            primary_packets_per_s=primary["segments_sent"] / primary["wall_s"],
+            rates_measured_by="host clock without the profiler (whole driver run; the "
+                              "primary leg by its own FabricReport.wall_s)",
+            wall_s_profiled=wall_p, device_busy_s=busy, device_busy_share=busy / wall_p,
+            busy_measured_by="torch.profiler, the card run before the timed one",
+            segments_sent_primary=primary["segments_sent"],
+            max_lb_load_frac=primary["max_lb_load_frac"],
+            mice_p99_s=primary["mice_p99_s"], elephant_p99_s=primary["elephant_p99_s"],
+            bundles_lost=primary["bundles_lost"], lbs_killed=primary["lbs_killed"],
+            card_equals_cpu="the driver's whole summary", launches=launches), sort_keys=True))
+
+    sc = get_fabric_scenario("elephant_mice")
+    seen = {}
+    for dev in ("cuda", "cpu"):
+        _lib.reset_launches()
+        sim = FabricSim(sc.build_config(controld=True, device=dev), scenario=sc)
+        r = sim.run()
+        if dev == "cuda":
+            add(dict(_lib.LAUNCHES))
+        seen[dev] = (_strip_wall(r.to_dict()), sim.daemon.state_digest())
+    report, digest = seen["cuda"]
+    check(seen["cuda"] == seen["cpu"], f"controld fabric: card != CPU\n{seen}")
+    check(not report["violations"], f"controld fabric: {report}")
+    say(f"[fabric] elephant_mice as a ReserveFabric tenant ({2 * sc.overrides['k_lbs']} "
+        f"sessions): card == CPU, report and digest {digest[:16]}")
+
+    sweep = {}
+    sc = get_fabric_scenario("vlb_spray")
+    for k in FABRIC_TIERS:
+        def sim(dev):
+            return FabricSim(sc.build_config(steps=FABRIC_SWEEP_STEPS, k_lbs=k, device=dev),
+                             scenario=sc).run()
+
+        _lib.reset_launches()
+        card_p, wall_p, busy = _profiled(torch, lambda: sim("cuda"))
+        card, wall = _timed(torch, lambda: sim("cuda"))
+        launches = dict(_lib.LAUNCHES)
+        check(launches["lb_route"] == 2 * FABRIC_SWEEP_STEPS
+              and launches["lb_route_global"] == 2 * FABRIC_SWEEP_STEPS * (k >= 7),
+              f"fabric K = {k}: launches {launches} in two runs")
+        add(launches)
+        cpu, wall_cpu = _timed(torch, lambda: sim("cpu"))
+        check(_strip_wall(card.to_dict()) == _strip_wall(cpu.to_dict())
+              == _strip_wall(card_p.to_dict()), f"fabric K = {k}: card != CPU")
+        check(not card.violations, f"fabric K = {k}: {card.violations}")
+        sweep[k] = dict(
+            stacked_calendars=2 * k, design="global" if k >= 7 else "shared",
+            wall_s=wall, windows_per_s=FABRIC_SWEEP_STEPS / wall,
+            packets_per_s=card.segments_sent / wall, segments_sent=card.segments_sent,
+            wall_s_cpu=wall_cpu, windows_per_s_cpu=FABRIC_SWEEP_STEPS / wall_cpu,
+            wall_s_profiled=wall_p, device_busy_s=busy, device_busy_share=busy / wall_p,
+            max_lb_load_frac=card.max_lb_load_frac, latency_p99_s=card.latency_p99_s)
+    per_window = {k: 1 / v["windows_per_s"] for k, v in sweep.items()}
+    say("[fabric] tier sweep, vlb_spray, " + str(FABRIC_SWEEP_STEPS) + " windows, card == "
+        "CPU (whole report); the card's rates on the host clock without the profiler, "
+        "busy share under torch.profiler (the card run before), the CPU's wall beside: "
+        + json.dumps(sweep, sort_keys=True))
+    say(f"[fabric] card's time per window, K = 8 (global) / K = 2 (shared): "
+        f"{per_window[8] / per_window[2]:.6f}")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1465,9 +1768,12 @@ def main() -> int:
             results[name]["main_path"] = sizes
         small_serve(torch, np)
         serve_launches = full_serve(torch, np)
+        for k, v in controld_serve(torch, np).items():
+            serve_launches[k] += v
         simnet_results, simnet_launches = simnet_phase(torch, np)
         results.update(simnet_results)
         controld_launches = controld_phase(torch, np)
+        fabric_launches = fabric_phase(torch, np)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -1475,10 +1781,13 @@ def main() -> int:
     # launches: the sum over the main-path runs (each checked on its own)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=(loop_launches[name] + serve_launches[name]
-                              + simnet_launches.get(name, 0) + controld_launches[name]),
+                              + simnet_launches.get(name, 0) + controld_launches[name]
+                              + fabric_launches.get(name, 0)),
                     **results[name])
                for name in REPLACES]
     for row in kernels:
+        if fabric_launches.get(row["name"]):  # of which in the fabric phase
+            row["launches_fabric"] = fabric_launches[row["name"]]
         if row["name"] == "flash_attention":  # of which through the wgmma design
             row["launches_wgmma"] = (loop_launches["flash_attention_wgmma"]
                                      + serve_launches["flash_attention_wgmma"])

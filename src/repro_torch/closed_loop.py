@@ -28,7 +28,7 @@ sizes, the same values (``wall_s`` aside; with ``--engine fused|host``
 also ``packets_per_sec``). Exits non-zero if an invariant breaks: an event
 split across members, a corrupt bundle, unaccounted segments, a pack that
 dropped or lost a packet; 2 for ``--engine fused|host`` with the elastic
-scenario, or for the fused engine with metrics (not ported yet).
+scenario.
 
     PYTHONPATH=src python -m repro_torch.closed_loop --steps 50 [--device cpu]
     PYTHONPATH=src python -m repro_torch.closed_loop --steps 50 --engine host
@@ -151,12 +151,7 @@ def run_simulator(args) -> int:
         metrics_every=(max(args.metrics_interval, 1)
                        if args.metrics_interval or args.metrics_jsonl else 0),
         metrics_path=args.metrics_jsonl)
-    sim = Simulator(cfg)
-    try:
-        report = sim.run()
-    except NotImplementedError as e:  # the fused engine's metrics replay
-        print(f"--engine {args.engine}: {e}", file=sys.stderr)
-        return 2
+    report = Simulator(cfg).run()
     summary = report.to_dict()
     print(json.dumps(summary, indent=2))
     if args.json:

@@ -16,9 +16,13 @@ The decode engine is slot-based continuous batching: each replica owns
 request. Every prefill runs the ``flash_attention`` kernel once per layer on
 the card. Sampling is greedy.
 
-Not ported yet: the controld session mode (``use_controld``,
-``controld_policy``, ``lease_s``, ``trace``) and the ``metrics=`` registry;
-they come with the controld and telemetry slices.
+With ``use_controld`` the engine is one tenant of a ``controld``
+``ControlDaemon``: it reserves an LB instance, registers each replica as a
+leased member, and ``rebalance`` becomes one batch of heartbeats plus a
+daemon tick (``trace`` records the daemon's spans, one trace id per
+rebalance window). ``metrics=`` takes a ``telemetry.registry.MetricsRegistry``
+for the decode-step histogram, the request/completion counters and the
+queue gauges.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.controld import (ControlDaemon, ControldClient, FailoverTransport,
+                                  InProcTransport, RetryPolicy)
 from repro_torch.core.control_plane import LoadBalancerControlPlane
 from repro_torch.core.dataplane import DataPlane, DataPlaneCache
 from repro_torch.core.epoch import EpochManager
@@ -38,6 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.telemetry.metrics import TelemetryHub
+from repro_torch.telemetry.trace import TraceBuffer, trace_id
 
 
 @dataclasses.dataclass
@@ -62,21 +69,83 @@ class ServeConfig:
     greedy: bool = True          # unused: decoding always takes the argmax, as the reference
     device: str = "cuda"         # where the model, caches and data plane live
     rebalance_every: int = 0     # ticks between control-plane reweights (0=off)
+    # Delegate the rebalance loop to a controld session (repro_torch.controld):
+    # the engine reserves an LB instance, registers each replica as a
+    # leased member, and rebalance() becomes heartbeats + a daemon tick.
+    use_controld: bool = False
+    controld_policy: str = "proportional"
+    lease_s: float = 30.0        # replica lease (wall clock)
+    # record controld.<kind> spans for the rebalance loop (requires
+    # use_controld): each rebalance window is stamped with a
+    # (1 << 62) | count trace id and the daemon records one span per
+    # message, exposed on ``engine.trace`` (a telemetry.trace.TraceBuffer)
+    trace: bool = False
 
 
 class ServingEngine:
-    def __init__(self, model_cfg: ModelConfig, serve_cfg: ServeConfig, params):
+    def __init__(self, model_cfg: ModelConfig, serve_cfg: ServeConfig, params,
+                 metrics=None):
         self.mcfg = model_cfg
         self.scfg = serve_cfg
         self.device = resolve_device(serve_cfg.device)
         self.params = params
-        self.manager = EpochManager(max_members=max(64, serve_cfg.n_replicas))
-        self.cp = LoadBalancerControlPlane(self.manager)
-        members = {
-            i: MemberSpec(node_id=i, base_lane=0, lane_bits=serve_cfg.lane_bits)
-            for i in range(serve_cfg.n_replicas)
-        }
-        self.cp.start(members)
+        # optional MetricsRegistry (repro_torch.telemetry): metrics=None keeps
+        # the engine identical to the uninstrumented path
+        self._mx_decode = self._mx_requests = self._mx_completed = None
+        if metrics is not None:
+            self._mx_decode = metrics.histogram(
+                "serve_decode_step_seconds",
+                "Per-replica decode step latency.")
+            self._mx_requests = metrics.counter(
+                "serve_requests_total", "Requests submitted.")
+            self._mx_completed = metrics.counter(
+                "serve_completed_total", "Requests finished.")
+            metrics.gauge(
+                "serve_queue_depth",
+                "Requests routed-or-submitted but not yet in a decode slot."
+            ).set_function(lambda: len(self.queue) + len(self.unrouted))
+            metrics.gauge(
+                "serve_active_slots", "Occupied decode slots across replicas."
+            ).set_function(lambda: sum(
+                r is not None for slots in self.slots for r in slots))
+        self.trace = None
+        self._trace_windows = 0
+        if serve_cfg.use_controld:
+            # the control plane as a service: the engine is one tenant of a
+            # ControlDaemon; replicas are leased members of its reservation
+            if serve_cfg.trace:
+                self.trace = TraceBuffer()
+            # journal=None: the engine never recovers this daemon (it lives
+            # and dies with the process), and an unread in-memory journal
+            # would grow by one entry per heartbeat forever
+            self.daemon = ControlDaemon(
+                n_instances=1, lease_s=serve_cfg.lease_s,
+                max_members=max(64, serve_cfg.n_replicas), journal=None,
+                trace=self.trace)
+            # the client failover path: mutating calls are request-id
+            # stamped (idempotent resend) and retried with capped backoff
+            # through FailoverTransport — the machinery an HA deployment
+            # uses, here over the single in-process endpoint
+            self.client = ControldClient(FailoverTransport(
+                [InProcTransport(self.daemon)],
+                retry=RetryPolicy(max_elapsed_s=5.0, seed=0)))
+            self.token = self.client.reserve(
+                policy=serve_cfg.controld_policy)["token"]
+            self.client.register_batch(self.token, range(serve_cfg.n_replicas),
+                                       lane_bits=serve_cfg.lane_bits)
+            self.client.tick(current_event=0)  # starts the session (epoch 0)
+            session = self.daemon.sessions[self.token]
+            self.manager = session.manager
+            self.cp = session.cp
+        else:
+            self.daemon = None
+            self.manager = EpochManager(max_members=max(64, serve_cfg.n_replicas))
+            self.cp = LoadBalancerControlPlane(self.manager)
+            members = {
+                i: MemberSpec(node_id=i, base_lane=0, lane_bits=serve_cfg.lane_bits)
+                for i in range(serve_cfg.n_replicas)
+            }
+            self.cp.start(members)
         self.n_lanes = 1 << serve_cfg.lane_bits
         # per replica: decode state over n_lanes slots + slot occupancy
         self.states = [
@@ -110,6 +179,8 @@ class ServingEngine:
         self.next_event += int(np.random.default_rng(req.rid).integers(1, 5))
         req.entropy = int(np.random.default_rng(req.rid + 7).integers(0, 1 << 16))
         self.unrouted.append(req)
+        if self._mx_requests is not None:
+            self._mx_requests.inc()
         return req
 
     def _dataplane(self) -> DataPlane:
@@ -196,6 +267,8 @@ class ServingEngine:
             # the argmax comes back to the host, so dt ends when the step has
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             dt = time.perf_counter() - t0
+            if self._mx_decode is not None:
+                self._mx_decode.observe(dt)
             self.hub.report_step(
                 m, step_time=dt,
                 backlog=int(queued[m]) + len(active), processed=len(active))
@@ -205,6 +278,8 @@ class ServingEngine:
                     r.done = True
                     self.slots[m][l] = None
                     self.stats["completed"] += 1
+                    if self._mx_completed is not None:
+                        self._mx_completed.inc()
         self._tick += 1
         if (self.scfg.rebalance_every
                 and self._tick % self.scfg.rebalance_every == 0):
@@ -217,13 +292,31 @@ class ServingEngine:
         next ``_route_pending`` picks up the new tables via the audit-log
         watermark in ``_dataplane``. Drained epochs are quiesced right away
         (every event below the routed watermark has already been routed), so
-        repeated reweights never exhaust the calendar rows."""
+        repeated reweights never exhaust the calendar rows.
+
+        With ``use_controld`` the same loop runs through the daemon session:
+        each replica's snapshot becomes a heartbeat (renewing its lease) and
+        the feedback/GC happen inside the daemon's Tick."""
         # Watermark: everything below the smallest still-unrouted event
         # number has been through the data plane already.
         unrouted = [q.event_number for q in self.unrouted]
         watermark = min(unrouted) if unrouted else self.next_event
-        eid = self.cp.feedback(self.hub.snapshot(), current_event=self.next_event)
-        self.cp.garbage_collect(watermark)
+        if self.daemon is not None:
+            if self.trace is not None:
+                # one trace id per rebalance window, the namespace the
+                # simulator's controld loop uses for its window spans
+                self._trace_windows += 1
+                self.client.trace = trace_id((1 << 62) | self._trace_windows)
+            # one SendStateBatch per rebalance: every replica's sample in a
+            # single frame; replicas whose lease lapsed (a long gap between
+            # rebalances) are re-registered and their samples resent
+            self.client.heartbeat_window(self.token, self.hub.snapshot(),
+                                         lane_bits=self.scfg.lane_bits)
+            res = self.client.tick(current_event=self.next_event, gc_event=watermark)
+            eid = res["sessions"][self.token]["epoch"]
+        else:
+            eid = self.cp.feedback(self.hub.snapshot(), current_event=self.next_event)
+            self.cp.garbage_collect(watermark)
         if eid is not None:
             self.stats["rebalances"] += 1
         return eid

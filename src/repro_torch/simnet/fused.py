@@ -43,6 +43,11 @@ FIFO's running sum adds in numpy's row order (the ``seq_cumsum`` kernel:
 can flip a drop-tail decision of a queue at its bound), so counters are exact
 and latencies equal (tests allow rel 1e-9, as the JAX package's tests do).
 
+Tracing and live metrics are replayed on the host after the run
+(``_observe``) from the step's per-window and per-row outputs, which the
+step returns whether or not the run is traced: enabling either captures no
+new graph. A traced run copies the per-row outputs back once per replay.
+
 ``FUSED_STEP_CALLS`` counts superblock runs (graph replays on the card) and
 ``FUSED_TRACES`` counts captures (one per shape).
 """
@@ -66,6 +71,7 @@ from repro_torch.kernels.lb_route import lb_route
 from repro_torch.kernels.ref import np_sum
 from repro_torch.kernels.seq_cumsum import seq_cumsum
 from repro_torch.simnet.sim import IP_UDP_BYTES, SimReport
+from repro_torch.telemetry.trace import bundle_key
 
 #: superblock runs since import (one graph replay per K-window superblock)
 FUSED_STEP_CALLS = 0
@@ -82,6 +88,9 @@ _PAD = MAX_EPOCH_SEGMENTS - _RING  # leading (start 0, row 0) segments
 _STABLE_ARGSORT_MAX = 16
 
 _PROGRAMS: dict = {}
+
+#: the step's per-row outputs: read back only when a run is traced
+ROW_OUTPUTS = ("t_cn", "farm_dep", "memb", "acc")
 
 
 def unsupported_reason(cfg, scenario=None) -> Optional[str]:
@@ -306,7 +315,12 @@ def _window_step(c, x, p):
                      sched_w=sched_w, buckets=buckets)
     ys = dict(done_b=done_b, t_done_b=t_done_b, any_b=any_b, mem_b=mem_b,
               acc_m=acc_m, fill=fill_farm, weights=weights, dups=dups,
-              timed=timed, qdrop=qdrop, invalid=invalid, switched=do_sw)
+              timed=timed, qdrop=qdrop, invalid=invalid, switched=do_sw,
+              # per-row stage times, returned unconditionally so tracing
+              # never changes the program (one capture either way): spans
+              # are materialized on the host from these masked arrays
+              t_cn=t_cn, farm_dep=torch.where(acc, farm_dep, 0.0),
+              memb=mc.to(torch.int32), acc=acc)
     return new_carry, ys
 
 
@@ -363,10 +377,12 @@ class _Program:
         for n, v in params.items():
             self.params[n].copy_(torch.as_tensor(v))
 
-    def run(self, blk) -> tuple[dict, float]:
+    def run(self, blk, rows: bool = False) -> tuple[dict, float, float]:
         """One superblock: ``blk``'s windows into the input buffers, one run;
-        returns the outputs on the host and the device milliseconds of the
-        replay (0.0 on the CPU)."""
+        returns the outputs on the host, the device milliseconds of the
+        replay (0.0 on the CPU) and the host seconds of the per-row outputs'
+        copy. The per-row outputs (``ROW_OUTPUTS``) come back only when
+        ``rows`` is set (a traced run); the others always."""
         global FUSED_STEP_CALLS
         for n, v in blk.items():
             self.xs[n].copy_(torch.from_numpy(v))
@@ -379,11 +395,16 @@ class _Program:
             self.graph.replay()
             end.record()
             ys = self.ys
-        out = {n: v.cpu().numpy() for n, v in ys.items()}
+        out = {n: v.cpu().numpy() for n, v in ys.items() if n not in ROW_OUTPUTS}
+        copy_s = 0.0
+        if rows:  # the step has finished: the copies above waited for it
+            t0 = time.perf_counter()
+            out.update({n: ys[n].cpu().numpy() for n in ROW_OUTPUTS})
+            copy_s = time.perf_counter() - t0
         if self.graph is not None:
             ms = start.elapsed_time(end)
         FUSED_STEP_CALLS += 1
-        return out, ms
+        return out, ms, copy_s
 
     def final_carry(self) -> dict:
         return {n: v.cpu().numpy() for n, v in self.carry.items()}
@@ -413,6 +434,10 @@ class FusedEngine:
         self.n_superblocks = 0
         #: device ms of each superblock's replay (empty on the CPU)
         self.replay_ms: list[float] = []
+        #: host seconds of each traced superblock's per-row output copy, and
+        #: the bytes those copies brought back
+        self.row_copy_s: list[float] = []
+        self.row_copy_bytes = 0
         self.program: Optional[_Program] = None
 
     # -- host plant precompute (control-independent randomness) ------------
@@ -464,13 +489,18 @@ class FusedEngine:
                 jadd = np.zeros((0,))
             rows.append(dict(
                 hdr=batch.headers[src].view(np.int32),
+                ev=batch.event_number[src],
                 ev_lo=(batch.event_number[src] & np.uint64(0xFFFFFFFF)).astype(np.int64),
                 daq=batch.daq_id[src].astype(np.int64),
                 seg=batch.seg_index[src].astype(np.int64),
                 lidx=bundle_of_row[src].astype(np.int64),
                 bytes=wire[src],
                 t_out=dlv.t_arrive + cfg.lb_latency_s,
-                keep=keep, jadd=jadd))
+                keep=keep, jadd=jadd,
+                # host-side stage boundaries for the trace replay (never
+                # shipped to the device)
+                t_emit=emit_b[bundle_of_row][src], t_up=t_up[src],
+                t_lb=dlv.t_arrive, sent=len(batch)))
             nseg_b = np.zeros((G,), np.int64)
             nseg_b[bundle_of_row] = batch.n_segs
             ev_all[i][bundle_of_row] = batch.event_number
@@ -479,7 +509,7 @@ class FusedEngine:
             reweight = (not cfg.frozen_weights and cfg.reweight_every
                         and (i + 1) % cfg.reweight_every == 0)
             meta.append(dict(nseg_b=nseg_b, reweight=bool(reweight),
-                             win_valid=True, wend=window_end,
+                             win_valid=True, t0=t0, wend=window_end,
                              cur_event=sim.fleet.event_number))
         npad = next_pow2(max((len(r["ev_lo"]) for r in rows), default=1))
         return dict(rows=rows, meta=meta, npad=npad, G=G, W=W,
@@ -565,10 +595,14 @@ class FusedEngine:
             prog.load(carry, params)
         self.program = prog
         chunks = []
+        traced = self.sim.trace is not None
         for s in range(0, Wp, K):
-            ys, ms = prog.run({n: v[s:s + K] for n, v in xs.items()})
+            ys, ms, copy_s = prog.run({n: v[s:s + K] for n, v in xs.items()}, rows=traced)
             self.n_superblocks += 1
             self.replay_ms.append(ms)
+            if traced:
+                self.row_copy_s.append(copy_s)
+                self.row_copy_bytes += sum(ys[n].nbytes for n in ROW_OUTPUTS)
             chunks.append(ys)
         self.final_carry = prog.final_carry()
         return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
@@ -619,6 +653,84 @@ class FusedEngine:
             alive &= ~q
         return vanished
 
+    # -- host-side observation replay (tracing + live metrics) --------------
+    def _trace_window(self, tb, w, plant, ys, sel, pid0: int) -> int:
+        """Materialize one window's spans from the plant's host-side stage
+        boundaries plus the step's returned per-row arrays — the span set
+        the host engine records inline."""
+        r, mt = plant["rows"][w], plant["meta"][w]
+        key_b = bundle_key(plant["ev"][w], plant["daq"][w])
+        tb.record_window("emit_wait", key_b, mt["t0"], plant["emit"][w])
+        n3 = len(r["ev_lo"])
+        if n3:
+            key_r = bundle_key(r["ev"], r["daq"])
+            pid_r = np.uint64(pid0) + np.arange(n3, dtype=np.uint64)
+            tb.record_window("uplink", key_r, r["t_emit"], r["t_up"], pid=pid_r)
+            tb.record_window("wan", key_r, r["t_up"], r["t_lb"], pid=pid_r)
+            tb.record_window("lb", key_r, r["t_lb"], r["t_out"], pid=pid_r)
+            memb = ys["memb"][w, :n3].astype(np.int64)
+            keep = r["keep"]
+            t_cn = ys["t_cn"][w, :n3]
+            tb.record_window("downlink", key_r[keep], r["t_out"][keep],
+                             t_cn[keep], pid=pid_r[keep], aux=memb[keep])
+            acc = ys["acc"][w, :n3]
+            dep = ys["farm_dep"][w, :n3]
+            m_acc = memb[acc]
+            fc = self.sim.farm.cfg
+            svc = fc.per_packet_s[m_acc] + r["bytes"][acc] * fc.per_byte_s[m_acc]
+            tb.record_window("farm_wait", key_r[acc], t_cn[acc],
+                             dep[acc] - svc, pid=pid_r[acc], aux=m_acc)
+            tb.record_window("service", key_r[acc], dep[acc] - svc, dep[acc],
+                             pid=pid_r[acc], aux=m_acc)
+            if len(sel):
+                keys_done = bundle_key(plant["ev"][w, sel], plant["daq"][w, sel])
+                rmin = np.full((plant["G"],), np.inf)
+                np.minimum.at(rmin, r["lidx"][acc], dep[acc])
+                t_done = ys["t_done_b"][w, sel]
+                tb.record_window("reassembly", keys_done, rmin[sel], t_done)
+                tb.complete_window(keys_done, plant["emit"][w, sel], t_done)
+        return pid0 + n3
+
+    def _observe(self, plant, ys, sels) -> None:
+        """Replay the host engine's per-window observation — trace spans
+        and ``_emit_metrics`` (same registry updates, same JSONL rows, same
+        virtual timestamps) — from the superblocks' returned arrays."""
+        sim = self.sim
+        tb = sim.trace
+        pid0 = 0
+        cum_sent = cum_dlv = cum_sw = cum_timed = 0
+        if sim.metrics is not None:
+            # the host engine's pending gauge leaves out its reassemblers'
+            # timed-out groups; the fused engine has no reassemblers and
+            # counts those groups in its step instead
+            sim.metrics.gauge("simnet_bundles_pending").set_function(
+                lambda: sim.bundles_sent - len(sim.latencies) - cum_timed)
+        for w in range(plant["W"]):
+            sel = sels[w]
+            if tb is not None:
+                pid0 = self._trace_window(tb, w, plant, ys, sel, pid0)
+                tb.end_window()
+            r = plant["rows"][w]
+            cum_sent += r["sent"]
+            cum_dlv += len(r["ev_lo"])
+            cum_sw += int(ys["switched"][w])
+            cum_timed += int(ys["timed"][w])
+            if len(sel):
+                sim.latencies.extend(
+                    (ys["t_done_b"][w, sel] - plant["emit"][w, sel]).tolist())
+                if tb is not None:
+                    keys = bundle_key(plant["ev"][w, sel], plant["daq"][w, sel])
+                    sim._lat_keys.extend(int(k) for k in keys)
+            if sim.metrics is not None:
+                sim.packets_sent = cum_sent
+                sim.packets_delivered = cum_dlv
+                sim.epoch_switches = cum_sw
+                sim.bundles_sent = plant["G"] * (w + 1)
+                sim.clock.advance_to(float(plant["meta"][w]["wend"]))
+                sim._emit_metrics(w, ys["fill"][w])
+        if sim._ts_writer is not None:
+            sim._ts_writer.close()
+
     def run(self) -> SimReport:
         t_wall = time.perf_counter()
         cfg, sim = self.cfg, self.sim
@@ -630,16 +742,21 @@ class FusedEngine:
         # latencies in the host's append order: window, then member
         # ascending, then (event, daq) ascending within the member
         lats = []
+        sels = []
         done = ys["done_b"][:W]
         for w in range(W):
             d = np.flatnonzero(done[w])
             if len(d) == 0:
+                sels.append(d)
                 continue
             order = np.lexsort((plant["daq"][w, d], plant["ev"][w, d],
                                 ys["mem_b"][w, d]))
             sel = d[order]
+            sels.append(sel)
             lats.extend((ys["t_done_b"][w, sel] - plant["emit"][w, sel]).tolist())
         lat = np.asarray(lats)
+        if sim.trace is not None or sim.metrics is not None:
+            self._observe(plant, ys, sels)
         completed = len(lats)
         pending = int(self.final_carry["buckets"].sum())
         timed_out = int(ys["timed"][:W].sum())

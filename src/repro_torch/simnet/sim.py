@@ -30,9 +30,8 @@ The port of the JAX package's ``repro.simnet.sim`` with its host engine and
 its fused engine (``simnet.fused``). The routing tables, the random draws of
 the links and the ``"torch"`` queue engine live on ``SimConfig.device``
 (default ``"cuda"``); the daemon's state stays on the host. Tracing and
-metrics run on the host engine only: the fused engine's replay of them is
-not ported yet, and a fused-scope config that asks for them raises
-``NotImplementedError`` (``FUSED_UNPORTED``).
+metrics run on both engines: the fused engine replays them on the host from
+its step's returned arrays.
 """
 from __future__ import annotations
 
@@ -57,14 +56,6 @@ from repro_torch.simnet.queues import FarmConfig, FarmQueues
 from repro_torch.telemetry.metrics import TelemetryHub
 
 IP_UDP_BYTES = 28  # IP(20) + UDP(8), matching protocol.MAX_SEGMENT_PAYLOAD
-
-#: options the reference's fused engine replays from its superblock's
-#: arrays and the port's fused engine does not yet; on a fused-scope config
-#: they raise instead of quietly running the host engine
-FUSED_UNPORTED = {
-    "trace": "the fused engine's span replay (ROADMAP queue 1, item 2)",
-    "metrics_every": "the fused engine's metrics replay (ROADMAP queue 1, item 2)",
-}
 
 
 @dataclasses.dataclass
@@ -137,14 +128,13 @@ class SimConfig:
     # observability: metrics_every > 0 enables a MetricsRegistry over the
     # run (E2E latency histogram, queue-fill gauges, window/packet totals)
     # and — when metrics_path is set — appends one JSONL time-series row
-    # every that-many windows. Host engine only (FUSED_UNPORTED).
+    # every that-many windows.
     metrics_every: int = 0
     metrics_path: Optional[str] = None
 
     # tracing: trace=True attaches a telemetry.trace.TraceBuffer — per-
     # bundle stage spans (head-sampled at trace_sample via mix64 on the
     # event number, plus a top-k tail reservoir of the slowest bundles).
-    # Host engine only (FUSED_UNPORTED).
     trace: bool = False
     trace_sample: float = 1.0
     trace_tail_k: int = 64
@@ -899,11 +889,6 @@ class Simulator:
         if self.cfg.engine == "fused":
             from repro_torch.simnet import fused
             if fused.fused_supported(self.cfg, self.scenario):
-                for name, what in FUSED_UNPORTED.items():
-                    if getattr(self.cfg, name):
-                        raise NotImplementedError(
-                            f"SimConfig.{name} on the fused engine needs {what}, "
-                            "which is not ported yet; pass engine='host'")
                 return fused.FusedEngine(self).run()
             # outside the fused scope (hooks, controld, >16 members, ...):
             # the host engine, which covers every config

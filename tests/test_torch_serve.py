@@ -136,3 +136,135 @@ def test_serve_config_takes_greedy(greedy):
     decoding always takes the argmax); its default is the reference's."""
     assert ServeConfig(greedy=greedy).greedy is greedy
     assert ServeConfig().greedy == JServeConfig().greedy
+
+
+# -- controld mode ------------------------------------------------------------
+
+PINNED_NOW = 1_000.0  # the daemons' clock in the controld tests (leases, spans)
+
+
+@pytest.fixture
+def pinned_controld(monkeypatch):
+    """Both daemons on one fixed clock, and every decode step reported as
+    the same time in both engines.
+
+    The daemon's default clock is wall time (``time.time``, bound as the
+    default of ``ControlDaemon(clock=...)``), and a lease deadline is part of
+    ``state_digest``; the engines look ``ControlDaemon`` up by name, so each
+    name is patched to a daemon on the pinned clock. A decode step's time is
+    wall time in both packages too, and it reaches the policy (the replica's
+    rate and fill) and the daemon's state, so it is pinned at the hub."""
+    import functools
+
+    import repro.controld as ref_controld
+    from repro_torch.serve import engine as port_engine
+
+    monkeypatch.setattr(ref_controld, "ControlDaemon", functools.partial(
+        ref_controld.ControlDaemon, clock=lambda: PINNED_NOW))
+    monkeypatch.setattr(port_engine, "ControlDaemon", functools.partial(
+        port_engine.ControlDaemon, clock=lambda: PINNED_NOW))
+
+    def pin_step_times(eng):
+        report = eng.hub.report_step
+
+        def pinned(m, step_time, **kw):
+            return report(m, step_time=0.01 * (m + 1), **kw)
+
+        eng.hub.report_step = pinned
+        return eng
+
+    return pin_step_times
+
+
+def _controld_engines(pin, metrics=None, **serve):
+    cfg = j_smoke("yi_6b")
+    tree = JM.init_params(jax.random.PRNGKey(0), cfg)
+    params = TM.params_from_numpy(jax.tree.map(np.asarray, tree),
+                                  get_smoke_config("yi_6b"), "cpu")
+    kw = dict(n_replicas=3, lane_bits=1, max_len=64, rebalance_every=2,
+              use_controld=True, **serve)
+    regs = metrics or (None, None)
+    j = pin(JEngine(cfg, JServeConfig(**kw), tree, metrics=regs[0]))
+    t = pin(ServingEngine(get_smoke_config("yi_6b"), ServeConfig(device="cpu", **kw), params,
+                          metrics=regs[1]))
+    return j, t
+
+
+def _serve_both(j, t, n=10):
+    out = []
+    for eng in (j, t):
+        # one prompt length: the reference compiles one prefill per length
+        reqs = _submit(eng, np.random.default_rng(3), n, 6, 7, 4)
+        eng.run_until_done(400)
+        out.append(_view(reqs))
+    return out
+
+
+@pytest.mark.parametrize("policy", ["proportional", "pid"])
+def test_controld_mode_equals_reference(pinned_controld, policy):
+    """The engine as a tenant of the daemon, traced and with a registry:
+    the same requests get the same routes and tokens, the same rebalances
+    happen, and the daemons end with the same state digest; the daemon's
+    spans (one trace id per rebalance window) equal the reference's but for
+    their durations (wall-clock handling time in both packages); the
+    registry's counters and gauges are equal, and so is the decode
+    histogram's count (its sum and buckets are wall time)."""
+    from repro.telemetry.registry import MetricsRegistry as JRegistry
+    from repro_torch.telemetry.registry import MetricsRegistry
+
+    regs = (JRegistry(), MetricsRegistry())
+    j, t = _controld_engines(pinned_controld, metrics=regs, controld_policy=policy,
+                             trace=True)
+    assert t.daemon is not None and t.token == j.token
+    jr, tr = _serve_both(j, t, n=8)
+    assert tr == jr
+    assert t.stats == j.stats and t.stats["rebalances"] >= 1
+    assert all(r["done"] for r in tr)
+    assert t.daemon.state_digest() == j.daemon.state_digest()
+
+    assert t.trace.stage_names == j.trace.stage_names
+    got, want = t.trace.spans(), j.trace.spans()
+    assert len(want["key"]) > 0
+    for k in want:
+        if k != "t1":
+            assert np.array_equal(got[k], want[k]), k
+    assert all(int(k) >> 62 == 1 for k in got["key"])
+    assert all(t.trace.stage_names[int(i)].startswith("controld.") for i in got["stage"])
+
+    want, got = regs[0].sample(), regs[1].sample()
+    assert sorted(got) == sorted(want)
+    wall = [k for k in want if k.startswith("serve_decode_step_seconds_sum")]
+    assert wall
+    assert {k: v for k, v in got.items() if k not in wall} == \
+        {k: v for k, v in want.items() if k not in wall}
+    assert got["serve_requests_total"] == got["serve_completed_total"] == 8
+    assert got["serve_decode_step_seconds_count"] > 0
+    assert [ln.split(" ")[0] for ln in regs[1].render().splitlines()] == \
+        [ln.split(" ")[0] for ln in regs[0].render().splitlines()]
+
+
+def test_metrics_without_controld_equal_reference():
+    from repro.telemetry.registry import MetricsRegistry as JRegistry
+    from repro_torch.telemetry.registry import MetricsRegistry
+
+    cfg = j_smoke("yi_6b")
+    tree = JM.init_params(jax.random.PRNGKey(0), cfg)
+    params = TM.params_from_numpy(jax.tree.map(np.asarray, tree),
+                                  get_smoke_config("yi_6b"), "cpu")
+    regs = (JRegistry(), MetricsRegistry())
+    j = JEngine(cfg, JServeConfig(n_replicas=2, max_len=64), tree, metrics=regs[0])
+    t = ServingEngine(get_smoke_config("yi_6b"), ServeConfig(n_replicas=2, max_len=64,
+                                                             device="cpu"),
+                      params, metrics=regs[1])
+    jr, tr = _serve_both(j, t, n=5)
+    assert tr == jr and t.daemon is None and t.trace is None
+    want, got = regs[0].sample(), regs[1].sample()
+    for k in ("serve_requests_total", "serve_completed_total", "serve_queue_depth",
+              "serve_active_slots", "serve_decode_step_seconds_count"):
+        assert got[k] == want[k], k
+
+
+def test_serve_config_controld_fields_equal_reference():
+    ref, port = JServeConfig(), ServeConfig()
+    for f in ("use_controld", "controld_policy", "lease_s", "trace", "rebalance_every"):
+        assert getattr(port, f) == getattr(ref, f), f

@@ -2,7 +2,8 @@
 host engine's whole report on every scenario (the controld presets
 included), the daemon's digest, tracing and live metrics on the host engine,
 the link and queue primitives, the Gilbert-Elliott draw, run.py's
-summary, and the fused engine's refusal of what it does not replay yet."""
+summary, and the fused engine's trace and metrics replay against the
+reference's host engine."""
 import dataclasses
 import importlib.util
 import json
@@ -282,16 +283,129 @@ def test_metrics_on_the_host_engine_equal_reference(name, tmp_path):
     assert len(paths["port"]) == 6 and paths["port"] == paths["ref"]
 
 
-@pytest.mark.parametrize("option", [dict(trace=True), dict(metrics_every=5)])
-def test_fused_engine_refuses_trace_and_metrics(option):
-    """On a config inside the fused engine's scope, tracing and metrics (the
-    reference's fused replay, not ported yet) raise; they do not quietly run
-    the host engine."""
-    scn = port_simnet.get_scenario("straggler")
-    sim = Simulator(scn.build_config(steps=2, device="cpu", **option),
-                    dataclasses.replace(scn))
-    with pytest.raises(NotImplementedError, match="fused engine.*ROADMAP"):
-        sim.run()
+# -- the fused engine's trace and metrics replay, against the reference's
+# host engine (the reference's fused engine does not import under jax 0.9)
+
+FUSED_LOOP_KW = dict(triggers_per_step=16, n_daqs=2, n_members=4, mean_bundle_bytes=6_000)
+
+
+def _traced_fused_and_reference_host(name, steps=24, **extra):
+    rs, ps = ref_simnet.get_scenario(name), port_simnet.get_scenario(name)
+    want = ref_simnet.Simulator(rs.build_config(steps=steps, seed=0, engine="host",
+                                                trace=True, **extra),
+                                dataclasses.replace(rs))
+    got = Simulator(ps.build_config(steps=steps, seed=0, engine="fused", device="cpu",
+                                    trace=True, **extra), dataclasses.replace(ps))
+    rg, rw = got.run(), want.run()
+    assert (rg.engine, rw.engine) == ("fused", "host")
+    assert not rg.violations and not rw.violations
+    return got, want
+
+
+@pytest.mark.parametrize("name", ["baseline", "straggler"])
+def test_fused_engine_spans_equal_reference_host_engine(name):
+    """The fused engine materializes its spans after the run from the step's
+    returned per-row arrays: the reference host engine's span set, ids
+    exact, times within rel 1e-9 (the reference's host-vs-fused tolerance)."""
+    got, want = _traced_fused_and_reference_host(name)
+    gt, wt = got.trace, want.trace
+    assert gt.stage_names == wt.stage_names
+    a, b = wt.spans(), gt.spans()
+    assert len(a["key"]) == len(b["key"]) > 0
+    for f in ("stage", "key", "pid", "aux"):
+        assert np.array_equal(a[f], b[f]), f
+    for f in ("t0", "t1"):
+        np.testing.assert_allclose(b[f], a[f], rtol=1e-9, atol=1e-12, err_msg=f)
+    ka, ta, da = wt.completions()
+    kb, tb_, db = gt.completions()
+    assert np.array_equal(ka, kb)
+    np.testing.assert_allclose(tb_, ta, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(db, da, rtol=1e-9, atol=1e-12)
+    assert got._lat_keys == want._lat_keys
+    np.testing.assert_allclose(got.latencies, want.latencies, rtol=1e-9, atol=1e-12)
+
+
+def test_fused_engine_sampled_spans_equal_reference_host_engine():
+    """Head sampling and the tail reservoir select the same bundles."""
+    got, want = _traced_fused_and_reference_host("baseline", trace_sample=0.25,
+                                                 trace_tail_k=8)
+    assert np.array_equal(got.trace.spans()["key"], want.trace.spans()["key"])
+    assert np.array_equal(got.trace.tail_keys(), want.trace.tail_keys())
+    assert len(got.trace.tail_keys()) == 8
+
+
+def _metrics_sims(tmp_path, loss=0.0, **extra):
+    """Both packages at one config; ``loss`` on the member links makes
+    bundles time out in reassembly."""
+    sims = {}
+    for pkg, mod, kw in (("ref", ref_simnet, dict(engine="host")),
+                         ("port", port_simnet, dict(engine="fused", device="cpu"))):
+        path = tmp_path / f"{pkg}.jsonl"
+        link = dataclasses.replace(mod.SimConfig().member_link, loss_prob=loss)
+        sim = mod.Simulator(mod.SimConfig(steps=16, metrics_every=4, metrics_path=str(path),
+                                          member_link=link, **kw, **FUSED_LOOP_KW, **extra))
+        assert sim.run().engine == kw["engine"]
+        rows = [json.loads(line) for line in path.read_text().splitlines()]
+        sims[pkg] = (sim, rows)
+    return sims
+
+
+@pytest.mark.parametrize("loss", [0.0, 0.05])
+def test_fused_engine_metrics_rows_equal_reference_host_engine(tmp_path, loss):
+    """The registry's rows and the JSONL time series at rel 1e-9, abs 1e-12
+    (the process's resident memory aside: machine state). With lossy member
+    links bundles time out in reassembly, and the pending gauge leaves them
+    out on the fused engine as on the host engine."""
+    sims = _metrics_sims(tmp_path, loss=loss)
+    assert (sims["ref"][0].reassemblers and any(
+        ra.stats.n_timed_out_groups for ra in sims["ref"][0].reassemblers.values())) == (loss > 0)
+    want, got = sims["ref"][0].metrics.sample(), sims["port"][0].metrics.sample()
+    assert set(got) == set(want)
+    for k in sorted(set(want) - {"process_rss_bytes"}):
+        assert got[k] == pytest.approx(want[k], rel=1e-9, abs=1e-12), k
+    rw, rg = sims["ref"][1], sims["port"][1]
+    assert [r["step"] for r in rg] == [r["step"] for r in rw] == [3, 7, 11, 15]
+    for a, b in zip(rg, rw):
+        assert a["t_sim"] == pytest.approx(b["t_sim"], rel=1e-9, abs=1e-12)
+        a["metrics"].pop("process_rss_bytes")
+        b["metrics"].pop("process_rss_bytes")
+        assert set(a["metrics"]) == set(b["metrics"])
+        for k, v in b["metrics"].items():
+            assert a["metrics"][k] == pytest.approx(v, rel=1e-9, abs=1e-12), k
+
+
+def test_fused_engine_exemplars_link_buckets_to_trace_ids(tmp_path):
+    from repro_torch.telemetry.registry import LATENCY_BUCKETS_S
+    from repro_torch.telemetry.trace import parse_trace_id
+
+    sims = _metrics_sims(tmp_path, trace=True)
+    sim = sims["port"][0]
+    page = sim.metrics.render()
+    assert 'trace_id="' in page
+    ex = sim.trace.exemplars(LATENCY_BUCKETS_S)
+    assert ex and ex == sims["ref"][0].trace.exemplars(LATENCY_BUCKETS_S)
+    for _bi, (tid, e2e) in ex.items():
+        assert parse_trace_id(tid) >= 0 and e2e > 0
+
+
+def test_fused_tracing_captures_no_new_program():
+    """Tracing and metrics run the program the untraced run built: no new
+    capture, the same number of superblock runs."""
+    from repro_torch.simnet import fused
+
+    # a shape of its own (6 members, 5 triggers) so the first run below is
+    # the one that may build the program
+    cfg = SimConfig(steps=16, n_members=6, triggers_per_step=5, n_daqs=2, device="cpu")
+    Simulator(cfg).run()
+    calls0, traces0 = fused.FUSED_STEP_CALLS, fused.FUSED_TRACES
+    sim = Simulator(dataclasses.replace(cfg, trace=True, metrics_every=1))
+    eng = fused.FusedEngine(sim)
+    assert eng.run().engine == "fused"
+    assert fused.FUSED_TRACES == traces0
+    assert fused.FUSED_STEP_CALLS - calls0 == eng.n_superblocks == 2
+    # the per-row outputs came back once per superblock of the traced run
+    assert len(eng.row_copy_s) == 2
+    assert len(sim.trace.spans()["key"]) > 0 and sim.metrics is not None
 
 
 def test_controld_config_on_the_fused_engine_runs_the_host_engine():

@@ -100,15 +100,37 @@ def test_closed_loop_loop_engine_metrics_rows(tmp_path, capsys):
             [r["metrics"][k] for r in rows["ref"]], k
 
 
-@pytest.mark.parametrize("argv", [["--scenario", "elastic", "--engine", "host"],
-                                  ["--scenario", "straggler", "--engine", "fused",
-                                   "--metrics-interval", "2"]])
+@pytest.mark.parametrize("argv", [["--scenario", "elastic", "--engine", "host"]])
 def test_closed_loop_simulator_engine_refusals(argv, capsys):
     """The elastic scenario on the simulator is refused with rc 2, as by the
-    reference; so is the fused engine's metrics replay (not ported yet)."""
+    reference."""
     assert closed_loop.main(argv + ["--steps", "4", "--n-members", "4", "--n-daqs", "2",
                                     "--device", "cpu"]) == 2
     assert "not" in capsys.readouterr().err
+
+
+def test_closed_loop_fused_engine_metrics_rows_match_reference_host(tmp_path, capsys):
+    """--metrics-interval on the fused engine: its replayed JSONL rows equal
+    the reference host engine's at rel 1e-9 (the reference's fused engine
+    does not import under jax 0.9), resident memory aside."""
+    argv = ["--steps", "12", "--scenario", "straggler", "--n-members", "4", "--n-daqs", "2",
+            "--metrics-interval", "4"]
+    rows = {}
+    for name, main, extra in (("ref", _reference_loop().main, ["--engine", "host"]),
+                              ("port", closed_loop.main, ["--engine", "fused",
+                                                          "--device", "cpu"])):
+        path = tmp_path / f"{name}.jsonl"
+        assert main(argv + extra + ["--metrics-jsonl", str(path)]) == 0
+        rows[name] = [json.loads(line) for line in path.read_text().splitlines()]
+    capsys.readouterr()
+    assert [r["step"] for r in rows["port"]] == [r["step"] for r in rows["ref"]] == [3, 7, 11]
+    for got, want in zip(rows["port"], rows["ref"]):
+        got["metrics"].pop("process_rss_bytes")
+        want["metrics"].pop("process_rss_bytes")
+        assert set(got["metrics"]) == set(want["metrics"])
+        assert got["t_sim"] == pytest.approx(want["t_sim"], rel=1e-9, abs=1e-12)
+        for k, v in want["metrics"].items():
+            assert got["metrics"][k] == pytest.approx(v, rel=1e-9, abs=1e-12), k
 
 
 def test_full_width_preset():
@@ -141,12 +163,13 @@ def test_port_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
     assert len(names) >= 40
-    for sub in ("controld", "telemetry", "testing"):
+    for sub in ("controld", "telemetry", "testing", "fabric"):
         assert f"repro_torch.{sub}" in names, sub
     for mod in ("controld.daemon", "controld.ha", "controld.journal", "controld.messages",
                 "controld.replication", "controld.transport", "telemetry.registry",
                 "telemetry.export", "telemetry.trace", "telemetry.traceview",
-                "testing.faults"):
+                "testing.faults", "fabric.spray", "fabric.elephant", "fabric.sim",
+                "fabric.scenarios", "fabric.run", "serve.engine"):
         assert f"repro_torch.{mod}" in names, mod
 
 
