@@ -63,6 +63,8 @@ result:
   6. simnet     the virtual-time simulator (repro_torch.simnet): the
                 hook-free, non-controld scenarios at their small presets,
                 host engine on the card == on the CPU (whole report);
+                the chain probe (ns per dependent float64 add and per farm
+                row, the chain bounds of farm_serve and seq_cumsum);
                 farm_serve, seq_cumsum and build_calendar exactly equal to
                 their plain versions at full width; then the full-width straggler
                 traffic (16 DAQs, 128 triggers of 64 kB bundles per window,
@@ -158,10 +160,16 @@ DESIGNS = {
                      "4096-packet tiles, two-level decoupled look-back across tiles; "
                      "past 1024 members one grid row per chunk of 1024",
     "seg_masks": "one thread per row, row i-1 read directly",
-    "farm_serve": "one thread per member walks its rows in order, the next row's loads "
-                  "issued before the current row's float64 chain",
-    "seq_cumsum": "one block: its threads stage 4096-row tiles in shared memory, thread 0 "
-                  "adds each tile in row order",
+    "farm_serve": "one block per member: a copy warp streams the member's rows through a "
+                  "4-stage ring of 256-row shared-memory tiles (cp.async in, mbarrier "
+                  "hand-over), computes each row's t and dt (a prefix max) before the walk "
+                  "and dep, drop and the peak backlog after it (coalesced stores out); one "
+                  "thread walks the backlog chain alone (sub, integer relu, select, add; "
+                  "both candidate backlogs carried), the next 8 rows' operands in registers",
+    "seq_cumsum": "one block: a copy warp streams 1024-row tiles through a 4-stage ring in "
+                  "shared memory (cp.async in, coalesced stores out, mbarrier hand-over); "
+                  "one thread adds in row order, each 16-value batch loaded into registers "
+                  "before the previous batch's adds",
     "build_calendar": "one warp, lane i owns member i: quotas, 512 SWRR steps and the "
                       "quota walk as shuffle reductions; returns at once when do_sw is false",
 }
@@ -1104,14 +1112,19 @@ SIMNET_OFFERED_BPS = 16 * 128 * 64_000 / 0.128
 SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, SIMNET_K = 16, 96, 8
 SIMNET_CPU_WINDOWS = 8
 SIMNET_HOST_MEMBERS, SIMNET_HOST_WINDOWS = 64, 12
-# chain bounds (reasoned, not measured): a farm row's carried chain is 5
+# chain bounds: farm_serve's and seq_cumsum's come from the chain probe
+# (ejfat_chain_probe: ns per dependent float64 add and per farm row, one
+# thread, operands in registers), median of PROBE_RUNS launches. Printed
+# beside them once, the reasoned values they replace: a farm row 5
 # dependent float64 operations (max, sub, max, add, select) of at least 4
-# cycles each; a running sum one add per row; a calendar is 512 round-robin
-# steps of 5 dependent shuffle rounds and 512 walk steps of 2, each at least
-# ~23 cycles; at the H100 SXM boost clock
-FARM_CHAIN_OPS, CHAIN_CYCLES_PER_OP = 5, 4
+# cycles, an add 4 cycles, at the H100 SXM boost clock. build_calendar's
+# stays reasoned: 512 round-robin steps of 5 dependent shuffle rounds and
+# 512 walk steps of 2, each at least ~23 cycles
+PROBE_RUNS = 5
+REASONED_FARM_CHAIN_OPS, REASONED_CYCLES_PER_OP = 5, 4
 CAL_CHAIN_SHUFFLES, SHUFFLE_CYCLES = 512 * 5 + 512 * 2, 23
 SM_CLOCK_HZ = 1.98e9
+SIMNET_KERNEL_ROWS = 16_384  # a full-width window's rows
 
 
 def simnet_config(n_members, steps, engine, device, **extra):
@@ -1194,28 +1207,62 @@ def simnet_small(torch):
         f"CPU, whole report: bundles completed {done}")
 
 
+def farm_inputs(torch, np, rng, m, n=SIMNET_KERNEL_ROWS):
+    """A full-width window's farm rows on the card: n rows over m members
+    in (member, arrival) order, the straggler's service costs, a carried
+    backlog; (args of farm_serve, rows of each member)."""
+    member = np.sort(rng.integers(0, m, n))
+    counts = np.bincount(member, minlength=m)
+    t = np.concatenate([np.sort(rng.uniform(0.0, 0.128, c)) for c in counts])
+    nbytes = rng.uniform(1_000, 9_000, n)
+    svc = 2e-5 + nbytes * (0.55 * m / 1.024e9)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        t, svc, np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        rng.uniform(0, 0.01, m), np.zeros(m), np.full(m, 0.05))]
+    return args, counts
+
+
+def scan_input(torch, np, rng, n=SIMNET_KERNEL_ROWS):
+    """A window's downlink transmit times on the card (float64, spread over
+    six decades, as the FIFO's running sum gets them)."""
+    return torch.from_numpy(rng.uniform(0.0, 7e-6, n) * rng.choice([1.0, 1e-3, 1e3], n)).cuda()
+
+
+def measured_chains() -> dict:
+    """The chain probe's median ns (and cycles) per dependent float64 add
+    and per farm row over PROBE_RUNS launches of 2^16 each."""
+    from repro_torch.kernels.chain_probe import chain_probe
+
+    runs = [chain_probe() for _ in range(PROBE_RUNS)]
+    return {k: statistics.median(r[k] for r in runs)
+            for k in ("add_ns", "add_cycles", "row_ns", "row_cycles", "straight_row_ns",
+                      "straight_row_cycles")}
+
+
 def simnet_kernels(torch, np):
     """farm_serve, seq_cumsum and build_calendar against their plain
     versions at the full-width window's size, exact; kernel times in graphs
     of 200 calls (inputs in L2, as the fused step leaves them), plain times
-    eager."""
+    eager; farm_serve's and seq_cumsum's chain bounds from the chain probe."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.calendar import build_calendar
     from repro_torch.kernels.farm_serve import farm_serve
     from repro_torch.kernels.seq_cumsum import seq_cumsum
 
+    chains = measured_chains()
+    reasoned_add_ns = REASONED_CYCLES_PER_OP / SM_CLOCK_HZ * 1e9
+    say(f"[simnet] chain probe (one thread, 2^16 links, median of {PROBE_RUNS}): dependent "
+        f"float64 add {chains['add_ns']:.4f} ns ({chains['add_cycles']:.3f} cycles), farm row "
+        f"{chains['row_ns']:.4f} ns ({chains['row_cycles']:.3f} cycles; in the reference's "
+        f"order {chains['straight_row_ns']:.4f} ns, {chains['straight_row_cycles']:.3f} "
+        f"cycles); reasoned before: add "
+        f"{reasoned_add_ns:.4f} ns, row {reasoned_add_ns * REASONED_FARM_CHAIN_OPS:.4f} ns "
+        f"({REASONED_CYCLES_PER_OP} cycles per op at {SM_CLOCK_HZ / 1e9:.2f} GHz)")
     rng = np.random.default_rng(15)
-    n = 16_384
+    n = SIMNET_KERNEL_ROWS
     results, lines = {}, []
     for m in (SIMNET_FUSED_MEMBERS, SIMNET_HOST_MEMBERS):
-        member = np.sort(rng.integers(0, m, n))
-        counts = np.bincount(member, minlength=m)
-        t = np.concatenate([np.sort(rng.uniform(0.0, 0.128, c)) for c in counts])
-        nbytes = rng.uniform(1_000, 9_000, n)
-        svc = 2e-5 + nbytes * (0.55 * m / 1.024e9)
-        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
-            t, svc, np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
-            rng.uniform(0, 0.01, m), np.zeros(m), np.full(m, 0.05))]
+        args, counts = farm_inputs(torch, np, rng, m)
         got = farm_serve(*args)
         want = ref.farm_serve_ref(*args)
         check_equal(torch, f"farm_serve {n} rows over {m} members", got, want)
@@ -1224,20 +1271,23 @@ def simnet_kernels(torch, np):
         t_p = time_eager(torch, lambda: ref.farm_serve_ref(*args), reps=2)
         b_ms, b_by = bound(n * (8 + 8 + 8 + 1) + (m + 1) * 4 + 6 * m * 8, n * 10,
                            FP64_OPS_PER_S)
-        chain_ms = int(counts.max()) * FARM_CHAIN_OPS * CHAIN_CYCLES_PER_OP / SM_CLOCK_HZ * 1e3
+        longest = int(counts.max())
+        chain_ms = longest * chains["row_ns"] * 1e-6
         results[m] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                          chain_bound_ms=chain_ms, rows_longest_member=int(counts.max()),
-                          dropped=int(got[1].sum()))
-        lines.append(f"{m} members (longest {int(counts.max())} rows, {int(got[1].sum())} "
-                     f"dropped): kernel {t_k * 1e3:.2f} us, plain {t_p:.2f} ms, bound "
-                     f"{b_ms * 1e3:.3f} us ({b_by}), chain bound {chain_ms * 1e3:.2f} us")
+                          chain_bound_ms=chain_ms, chain_bound_how="longest member's rows x "
+                          "the probe's ns per farm row", rows_longest_member=longest,
+                          over_chain_bound=t_k / chain_ms, dropped=int(got[1].sum()))
+        lines.append(f"{m} members (longest {longest} rows, {int(got[1].sum())} dropped): "
+                     f"kernel {t_k * 1e3:.3f} us, plain {t_p:.2f} ms, bound {b_ms * 1e3:.3f} "
+                     f"us ({b_by}), chain bound {chain_ms * 1e3:.3f} us (measured; kernel at "
+                     f"{t_k / chain_ms:.3f}x)")
     say(f"[simnet] farm_serve N={n}, exactly equal to plain, also after graph replays: "
         + "; ".join(lines))
     farm = dict(results[SIMNET_FUSED_MEMBERS], max_abs_err=0, library_ms=None,
                 design=DESIGNS["farm_serve"], shape=f"N={n} sorted rows, 16 members",
-                members_64=results[SIMNET_HOST_MEMBERS])
+                members_64=results[SIMNET_HOST_MEMBERS], chain_probe=chains)
 
-    x = torch.from_numpy(rng.uniform(0.0, 7e-6, n) * rng.choice([1.0, 1e-3, 1e3], n)).cuda()
+    x = scan_input(torch, np, rng)
     got = seq_cumsum(x)
     want = ref.seq_cumsum_ref(x)
     check_equal(torch, f"seq_cumsum N={n}", (got,), (want,))
@@ -1247,15 +1297,18 @@ def simnet_kernels(torch, np):
     t_p = time_eager(torch, lambda: ref.seq_cumsum_ref(x))
     t_l, _ = time_warm(torch, lambda: torch.cumsum(x, 0))
     b_ms, b_by = bound(n * 16, n, FP64_OPS_PER_S)
-    chain_ms = n * CHAIN_CYCLES_PER_OP / SM_CLOCK_HZ * 1e3
+    chain_ms = n * chains["add_ns"] * 1e-6
     say(f"[simnet] seq_cumsum N={n}: exactly equal to plain (numpy's order), also after "
         f"graph replays; torch.cumsum on the card differs from it in {tree_ulps} of {n} "
-        f"sums; kernel {t_k * 1e3:.2f} us, plain {t_p:.3f} ms, torch.cumsum {t_l * 1e3:.2f} "
-        f"us, bound {b_ms * 1e3:.4f} us ({b_by}), chain bound {chain_ms * 1e3:.2f} us")
+        f"sums; kernel {t_k * 1e3:.3f} us, plain {t_p:.3f} ms, torch.cumsum {t_l * 1e3:.3f} "
+        f"us, bound {b_ms * 1e3:.4f} us ({b_by}), chain bound {chain_ms * 1e3:.3f} us "
+        f"(measured; kernel at {t_k / chain_ms:.3f}x, the chain floor "
+        f"{chain_ms / t_l:.2f}x torch.cumsum's time)")
     scan = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, chain_bound_ms=chain_ms,
-                max_abs_err=0, library_ms=t_l, library_call="torch.cumsum (tree order)",
-                library_sums_differing=tree_ulps, design=DESIGNS["seq_cumsum"],
-                shape=f"N={n} float64")
+                chain_bound_how="n x the probe's ns per dependent add",
+                over_chain_bound=t_k / chain_ms, max_abs_err=0, library_ms=t_l,
+                library_call="torch.cumsum (tree order)", library_sums_differing=tree_ulps,
+                design=DESIGNS["seq_cumsum"], shape=f"N={n} float64", chain_probe=chains)
 
     w = torch.from_numpy(np.repeat(rng.uniform(0.3, 2.0, 6), 3)[:SIMNET_FUSED_MEMBERS]).cuda()
     flag = torch.tensor([True], device="cuda")

@@ -124,11 +124,13 @@ def _declare(lib) -> None:
     lib.ejfat_farm_serve.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p]
     lib.ejfat_seq_cumsum.argtypes = [p, i, p, p]
     lib.ejfat_build_calendar.argtypes = [p, i, p, i, p, p]
+    lib.ejfat_chain_probe.argtypes = [ctypes.c_double, ctypes.c_double, i, p, p, p]
     for fn in (lib.ejfat_lb_route_smem_bytes, lib.ejfat_dispatch_scratch_words):
         fn.restype = ctypes.c_longlong
     for fn in (lib.ejfat_lb_route, lib.ejfat_dispatch_plan, lib.ejfat_seg_masks,
                lib.ejfat_flash_attention, lib.ejfat_flash_attention_wgmma,
-               lib.ejfat_farm_serve, lib.ejfat_seq_cumsum, lib.ejfat_build_calendar):
+               lib.ejfat_farm_serve, lib.ejfat_seq_cumsum, lib.ejfat_build_calendar,
+               lib.ejfat_chain_probe):
         fn.restype = ctypes.c_int
 
 

@@ -1,6 +1,9 @@
 """The farm queues' bounded Lindley recursion: wrapper of the CUDA kernel
-``csrc/simnet_kernels.cu::farm_serve_kernel`` (one thread per member walks
-that member's rows in order).
+``csrc/simnet_kernels.cu::farm_serve_kernel``. One block per member: a copy
+warp streams the member's rows through a ring of shared-memory tiles
+(``cp.async`` in, coalesced stores out) while one thread walks them in
+order with the next rows' operands already in registers, so only the
+float64 chain of each row is serial.
 
 A device helper of the simulator, not the port of a Pallas kernel: it takes
 the place of the JAX package's ``lax.scan`` over the farm's time axis

@@ -130,8 +130,15 @@ def seq_cumsum_ref(x):
     """Plain version of kernels/seq_cumsum.seq_cumsum: the float64 inclusive
     running sum added in row order, as ``np.cumsum`` adds. PyTorch's CPU
     cumsum adds in that order; its CUDA cumsum adds in a tree, so a card
-    tensor's sum is taken on the CPU."""
-    return torch.cumsum(x.cpu(), 0).to(x.device)
+    tensor's sum is taken on the CPU. PyTorch's sum starts from +0.0 and
+    numpy's from ``x[0]``; the two differ only while every value so far is
+    -0.0 (numpy keeps -0.0, ``+0.0 + -0.0`` is +0.0), so that run is set
+    back to -0.0."""
+    xc = x.cpu()
+    out = torch.cumsum(xc, 0)
+    lead = torch.cummin(((xc == 0) & torch.signbit(xc)).to(torch.int8), 0).values.bool()
+    out[lead] = -0.0
+    return out.to(x.device)
 
 
 def np_sum(x, m: int):

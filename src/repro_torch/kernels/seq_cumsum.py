@@ -1,6 +1,9 @@
 """The downlink FIFO's running sum, added in row order: wrapper of the CUDA
-kernel ``csrc/simnet_kernels.cu::seq_cumsum_kernel`` (one block; thread 0
-adds each shared-memory tile in order).
+kernel ``csrc/simnet_kernels.cu::seq_cumsum_kernel``. One block: a copy warp
+streams tiles through a ring in shared memory (``cp.async`` in, coalesced
+stores out) while one thread adds them in row order, each batch's values
+loaded into registers before the previous batch's adds, so the adds run back
+to back at the card's float64 add latency.
 
 A device helper of the simulator, not the port of a Pallas kernel: the host
 engine's FIFO takes ``np.cumsum`` (sequential), and a drop-tail decision

@@ -28,8 +28,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import model as M
 from repro_torch.core.protocol import CALENDAR_SLOTS
 from repro_torch.core.tables import MAX_EPOCH_ROWS
-from torch_helpers import (EDGE_BOUNDARIES, LB_TABLE_SHAPES, edge_headers, program,
-                           seg_starts, spread_program)
+from torch_helpers import (EDGE_BOUNDARIES, FARM_RING_EDGES, LB_TABLE_SHAPES,
+                           SCAN_RING_SIZES, edge_headers, program, seg_starts, serve_case,
+                           signed_sum_input, spread_program)
 
 pytestmark = pytest.mark.cuda
 
@@ -445,23 +446,8 @@ def test_smoke_prefill_on_the_card_equals_the_cpu(arch, _full_f32):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
-# -- the simulator's device helpers (farm_serve, build_calendar) and its fused
-# -- engine on the card ------------------------------------------------------
-
-def _serve_case(counts, seed, cap=0.05, before_t_last=False, s_scale=1.0):
-    """Rows sorted by (member, arrival) with ``counts[m]`` rows of member m,
-    float64 on the CPU; ``before_t_last`` puts arrivals before the carried
-    clock, as jittered next-window packets do."""
-    rng = np.random.default_rng(seed)
-    m = len(counts)
-    t = np.concatenate([np.sort(rng.uniform(0.0, 0.01, c)) for c in counts])
-    s = rng.uniform(1e-5, 2e-3, len(t)) * s_scale
-    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    t0 = np.full(m, 0.02 if before_t_last else 0.0)
-    w0 = rng.uniform(0.0, 0.01, m)
-    f = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    return (f(t), f(s), f(offsets), f(w0), f(t0), f(np.full(m, cap)))
-
+# -- the simulator's device helpers (farm_serve, seq_cumsum, build_calendar),
+# -- the chain probe and the fused engine on the card ------------------------
 
 def _serve_equal(args):
     from repro_torch.kernels.farm_serve import farm_serve
@@ -478,11 +464,11 @@ def _serve_equal(args):
 @pytest.mark.parametrize("counts", [[1], [0, 5, 0, 3], [7, 0], [400] * 16,
                                     np.random.default_rng(0).integers(0, 300, 64).tolist()])
 def test_farm_serve_equals_plain(counts):
-    _serve_equal(_serve_case(counts, sum(counts)))
+    _serve_equal(serve_case(counts, sum(counts)))
 
 
 def test_farm_serve_every_row_dropped():
-    args = _serve_case([50, 20], 3, cap=1e-6)
+    args = serve_case([50, 20], 3, cap=1e-6)
     dep, drop, _, _, w_max = _serve_equal(args)
     # nothing accepted: no completion, and the peak backlog is the carried one
     assert bool(drop.all()) and bool(torch.isinf(dep).all()) and torch.equal(w_max, args[3])
@@ -498,7 +484,7 @@ def test_farm_serve_cap_hit_exactly():
 
 
 def test_farm_serve_rows_before_t_last():
-    _serve_equal(_serve_case([30, 12, 0, 9], 5, before_t_last=True))
+    _serve_equal(serve_case([30, 12, 0, 9], 5, before_t_last=True))
 
 
 @pytest.mark.parametrize("n", [1, 2, 4095, 4096, 4097, 16_384, 100_003])
@@ -511,6 +497,66 @@ def test_seq_cumsum_equals_numpy_order(n):
     got = seq_cumsum(torch.from_numpy(x).cuda())
     assert _lib.LAUNCHES["seq_cumsum"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), np.cumsum(x))
+
+
+@pytest.mark.parametrize("case", sorted(FARM_RING_EDGES))
+def test_farm_serve_ring_edges_equal_plain(case):
+    """Members across several ring tiles, at odd row offsets, all rows in
+    one member, 300 members, empty members between full ones; 5 rows past
+    the last member stay untouched (inf, not dropped)."""
+    dep, drop, *_ = _serve_equal(serve_case(FARM_RING_EDGES[case], len(case), extra_rows=5))
+    assert bool(torch.isinf(dep[-5:]).all()) and not bool(drop[-5:].any())
+
+
+@pytest.mark.parametrize("n", SCAN_RING_SIZES)
+def test_seq_cumsum_ring_edges_equal_numpy_bits(n):
+    """Zeros, negatives and -0.0 first, bit for bit (np.cumsum's out[0] =
+    x[0]: -0.0 stays -0.0)."""
+    from repro_torch.kernels.seq_cumsum import seq_cumsum
+
+    x = signed_sum_input(n, n)
+    before = _lib.LAUNCHES["seq_cumsum"]
+    got = seq_cumsum(torch.from_numpy(x).cuda())
+    assert _lib.LAUNCHES["seq_cumsum"] == before + 1
+    want = np.cumsum(x)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int64), want.view(np.int64))
+    assert torch.equal(seq_cumsum(torch.from_numpy(x)), got.cpu())
+
+
+def test_farm_serve_and_seq_cumsum_in_a_graph_replay():
+    """Both kernels captured in one CUDA graph (one launch each counted at
+    capture), the outputs spoiled, then two replays: exactly the plain
+    versions' outputs."""
+    from repro_torch.kernels.farm_serve import farm_serve
+    from repro_torch.kernels.seq_cumsum import seq_cumsum
+
+    args = serve_case([1100, 0, 257, 3, 0, 600], 7, extra_rows=3)
+    x = signed_sum_input(5000, 3)
+    on_card = [a.cuda() for a in args]
+    x_card = torch.from_numpy(x).cuda()
+    torch.cuda.synchronize()
+    before = dict(_lib.LAUNCHES)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = (*farm_serve(*on_card), seq_cumsum(x_card))
+    for name in ("farm_serve", "seq_cumsum"):
+        assert _lib.LAUNCHES[name] == before[name] + 1, name
+    want = (*farm_serve(*args), seq_cumsum(torch.from_numpy(x)))
+    for _ in range(2):
+        for out in got:
+            out.fill_(False if out.dtype == torch.bool else float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        for gt, w in zip(got, want):
+            assert torch.equal(gt.cpu(), w)
+
+
+def test_chain_probe_times_both_chains():
+    from repro_torch.kernels.chain_probe import chain_probe
+
+    r = chain_probe(1 << 12)
+    assert r["n"] == 1 << 12
+    assert 1 <= r["add_cycles"] < r["row_cycles"] and 0 < r["add_ns"] < r["row_ns"]
 
 
 def _calendar_equal(w, do_sw=True):

@@ -117,3 +117,47 @@ def spread_program(pkg, max_members, n_live=200, seed=0, switches=2, boundaries=
 #: that fit a block's shared memory, one member slot past each, farm_1k
 #: (4 x 4096), the fabric at K = 7 and K = 8 LBs (2K x 64)
 LB_TABLE_SHAPES = ((4, 2595), (4, 2596), (1, 13491), (1, 13492), (4, 4096), (14, 64), (16, 64))
+
+
+# member row counts on the edges of farm_serve's ring (256-row tiles, 4
+# stages, 8-row batches): a member across several tiles with a ragged tail,
+# members starting at odd rows, every row in one member, more members than
+# the old 128-thread grid, empty members between full ones
+FARM_RING_EDGES = {
+    "spans_ring_tiles": [1100, 3, 700],
+    "odd_row_offsets": [1, 3, 5, 257, 7, 511, 9],
+    "all_rows_one_member": [16_384],
+    "300_members": np.random.default_rng(300).integers(0, 60, 300).tolist(),
+    "empty_between_full": [0, 600, 0, 0, 300, 0],
+}
+# running-sum lengths on the edges of seq_cumsum's ring (1024-row tiles,
+# 16-value batches) and the full size
+SCAN_RING_SIZES = (15, 16, 17, 1023, 1024, 1025, 1 << 20)
+
+
+def serve_case(counts, seed, cap=0.05, before_t_last=False, s_scale=1.0, extra_rows=0):
+    """Rows sorted by (member, arrival) with ``counts[m]`` rows of member m,
+    float64 on the CPU, as ``farm_serve`` takes them; ``before_t_last`` puts
+    arrivals before the carried clock, as jittered next-window packets do;
+    ``extra_rows`` rows past ``offsets[-1]`` belong to no member."""
+    rng = np.random.default_rng(seed)
+    m = len(counts)
+    t = np.concatenate([np.sort(rng.uniform(0.0, 0.01, c)) for c in counts]
+                       + [rng.uniform(0.0, 0.01, extra_rows)])
+    s = rng.uniform(1e-5, 2e-3, len(t)) * s_scale
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    t0 = np.full(m, 0.02 if before_t_last else 0.0)
+    w0 = rng.uniform(0.0, 0.01, m)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (f(t), f(s), f(offsets), f(w0), f(t0), f(np.full(m, cap)))
+
+
+def signed_sum_input(n, seed) -> np.ndarray:
+    """float64[n] with zeros, negatives and -0.0 first (np.cumsum keeps
+    out[0] = -0.0, where 0 + x[0] would give +0.0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-7e-6, 7e-6, n) * rng.choice([1.0, 1e-3, 1e3], n)
+    x[rng.random(n) < 0.2] = 0.0
+    x[rng.random(n) < 0.05] = -0.0
+    x[0] = -0.0
+    return x
