@@ -64,9 +64,13 @@ result:
                 hook-free, non-controld scenarios at their small presets,
                 host engine on the card == on the CPU (whole report);
                 the chain probe (ns per dependent float64 add and per farm
-                row, the chain bounds of farm_serve and seq_cumsum);
-                farm_serve, seq_cumsum and build_calendar exactly equal to
-                their plain versions at full width; then the full-width straggler
+                row and per round-robin step, the chain bounds of
+                farm_serve, seq_cumsum and build_calendar);
+                farm_serve, seq_cumsum exactly equal to their plain
+                versions at full width; build_calendar exactly equal to
+                plain at 1-512 members and 1-512 slots, its time at 16 and
+                512 members over its chain bound (the probe's round-robin
+                step); then the full-width straggler
                 traffic (16 DAQs, 128 triggers of 64 kB bundles per window,
                 ~16k jumbo frames, 1.024 GB/s offered, the farm at ~0.7 of
                 capacity): the fused engine at 16 members, 96 windows, K=8
@@ -170,8 +174,13 @@ DESIGNS = {
                   "shared memory (cp.async in, coalesced stores out, mbarrier hand-over); "
                   "one thread adds in row order, each 16-value batch loaded into registers "
                   "before the previous batch's adds",
-    "build_calendar": "one warp, lane i owns member i: quotas, 512 SWRR steps and the "
-                      "quota walk as shuffle reductions; returns at once when do_sw is false",
+    "build_calendar": "one block, one thread per slot (up to 512 members): quotas in "
+                      "parallel (deficit in closed form, the surplus loop one redux.sync a "
+                      "step over integer keys, ending at n_slots); the round-robin in one "
+                      "warp, one redux.sync max of integer keys a slot; a parallel quota "
+                      "check in place of the walk (the round-robin meets every quota, so the "
+                      "walk moves no slot: a histogram of the winners, a member above its "
+                      "quota traps); returns at once when do_sw is false",
 }
 # flash_attention has two designs, chosen by (dtype, head dim): the main path
 # (bf16, d=128) runs the wgmma one
@@ -1118,11 +1127,20 @@ SIMNET_HOST_MEMBERS, SIMNET_HOST_WINDOWS = 64, 12
 # beside them once, the reasoned values they replace: a farm row 5
 # dependent float64 operations (max, sub, max, add, select) of at least 4
 # cycles, an add 4 cycles, at the H100 SXM boost clock. build_calendar's
-# stays reasoned: 512 round-robin steps of 5 dependent shuffle rounds and
-# 512 walk steps of 2, each at least ~23 cycles
+# comes from the probe's round-robin step at 1 key a lane (one warp: a
+# redux.sync, an add-min, a multiply-add; the least a step takes at any M),
+# times the slots plus the surplus loop's steps, and the pairwise sum's
+# dependent adds; printed beside it once, the reasoned chain it replaces
+# (512 round-robin steps of 5 shuffle rounds and 512 walk steps of 2, each
+# at least ~23 cycles), and the design's own loop at 16 keys a lane (its
+# step above 32 members, which the lane-local max of 16 keys lengthens)
 PROBE_RUNS = 5
 REASONED_FARM_CHAIN_OPS, REASONED_CYCLES_PER_OP = 5, 4
-CAL_CHAIN_SHUFFLES, SHUFFLE_CYCLES = 512 * 5 + 512 * 2, 23
+REASONED_CAL_SHUFFLES, SHUFFLE_CYCLES = 512 * 5 + 512 * 2, 23
+# build_calendar against plain: one warp's edges, numpy's 128-lane block, 512
+CAL_MEMBERS = (1, 5, 16, 31, 32, 33, 64, 128, 129, 256, 511, 512)
+CAL_SLOTS = (1, 100, 511, 512)
+CAL_KINDS = ("equal", "dominant", "random", "ties")
 SM_CLOCK_HZ = 1.98e9
 SIMNET_KERNEL_ROWS = 16_384  # a full-width window's rows
 
@@ -1229,14 +1247,69 @@ def scan_input(torch, np, rng, n=SIMNET_KERNEL_ROWS):
 
 
 def measured_chains() -> dict:
-    """The chain probe's median ns (and cycles) per dependent float64 add
-    and per farm row over PROBE_RUNS launches of 2^16 each."""
+    """The chain probe's median ns (and cycles) per dependent float64 add,
+    per farm row and per round-robin step (where the tree's probe has it)
+    over PROBE_RUNS launches of 2^16 each."""
     from repro_torch.kernels.chain_probe import chain_probe
 
     runs = [chain_probe() for _ in range(PROBE_RUNS)]
-    return {k: statistics.median(r[k] for r in runs)
-            for k in ("add_ns", "add_cycles", "row_ns", "row_cycles", "straight_row_ns",
-                      "straight_row_cycles")}
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0] if k != "n"}
+
+
+def calendar_weights(np, m, kind, seed):
+    """The card tests' weight kinds (tests/torch_helpers.calendar_weights)."""
+    rng = np.random.default_rng(seed)
+    return {"equal": np.ones(m), "dominant": np.r_[40.0, np.full(m - 1, 0.05)][:m],
+            "random": rng.uniform(0.05, 8.0, m),
+            "ties": np.repeat(rng.uniform(0.3, 2.0, (m + 2) // 3), 3)[:m]}[kind]
+
+
+def _np_sum_chain(m: int) -> int:
+    """Dependent adds of numpy's pairwise sum of m lanes (kernels/ref.np_sum)."""
+    if m <= 128:
+        return m - 1 if m < 8 else (m // 8 - 1) + 3 + m % 8
+    h = m // 2 - (m // 2) % 8
+    return max(_np_sum_chain(h), _np_sum_chain(m - h)) + 1
+
+
+def calendar_chain_bound(np, w, n_slots, chains) -> tuple:
+    """build_calendar's measured chain bound on these weights, in ms: the
+    slots' round-robin steps and the surplus loop's steps, each at the
+    probe's 1-key step (a dependent redux.sync and its integer operations,
+    the least a step takes at any M), and the pairwise sum's adds. Returns
+    (ms, surplus steps)."""
+    m = len(w)
+    ideal = w / w.sum() * n_slots
+    surplus = max(int(np.maximum(np.floor(ideal), 1).sum()) - n_slots, 0)
+    ns = (n_slots + surplus) * chains["rr_step_ns"] + _np_sum_chain(m) * chains["add_ns"]
+    return ns * 1e-6, surplus
+
+
+def time_calendar(torch, np, build_calendar, ref, w_np, chains):
+    """build_calendar on the card at one weight vector: its time on a switch
+    and without one (graphs of 200 calls), the plain version's time, the
+    bounds; the output after the replays equal to plain."""
+    w = torch.from_numpy(w_np).cuda()
+    flag = torch.tensor([True], device="cuda")
+    off = torch.tensor([False], device="cuda")
+    out = torch.full((512,), -1, dtype=torch.int32, device="cuda")
+    kept = torch.full_like(out, -7)
+    want = ref.build_calendar_ref(w, flag, torch.full_like(out, -1)).clone()
+    t_k, last = time_warm(torch, lambda: build_calendar(w, flag, out))
+    check_equal(torch, f"build_calendar {len(w_np)} members after graph replays", (last,),
+                (want,))
+    t_off, _ = time_warm(torch, lambda: build_calendar(w, off, kept))
+    check(bool((kept == -7).all()), "build_calendar wrote its output with do_sw false")
+    t_p = time_eager(torch, lambda: ref.build_calendar_ref(w, flag, out), reps=2)
+    m = len(w_np)  # the round-robin's 3 integer operations per member and slot
+    b_ms, b_by = bound(m * 8 + 1 + 512 * 4, 3 * 512 * m)
+    got = dict(ms=t_k, ms_without_switch=t_off, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+               members=m)
+    if "rr_step_ns" in chains:  # a tree whose probe has the round-robin step
+        chain_ms, surplus = calendar_chain_bound(np, w_np, 512, chains)
+        got.update(chain_bound_ms=chain_ms, over_chain_bound=t_k / chain_ms,
+                   surplus_steps=surplus)
+    return got
 
 
 def simnet_kernels(torch, np):
@@ -1310,33 +1383,48 @@ def simnet_kernels(torch, np):
                 library_call="torch.cumsum (tree order)", library_sums_differing=tree_ulps,
                 design=DESIGNS["seq_cumsum"], shape=f"N={n} float64", chain_probe=chains)
 
-    w = torch.from_numpy(np.repeat(rng.uniform(0.3, 2.0, 6), 3)[:SIMNET_FUSED_MEMBERS]).cuda()
+    say(f"[simnet] chain probe, round-robin step (one warp, 2^16 steps, median of "
+        f"{PROBE_RUNS}): {chains['rr_step_ns']:.4f} ns ({chains['rr_step_cycles']:.3f} cycles) "
+        f"at 1 key a lane, {chains['rr16_step_ns']:.4f} ns ({chains['rr16_step_cycles']:.3f} "
+        f"cycles) at 16; build_calendar's chain bound takes the 1-key step at every M; this "
+        f"design's own loop at 16 keys a lane (M > 32) over 512 slots: "
+        f"{512 * chains['rr16_step_ns'] * 1e-3:.5f} us; the reasoned build_calendar chain "
+        f"this replaces: {REASONED_CAL_SHUFFLES * SHUFFLE_CYCLES / SM_CLOCK_HZ * 1e3:.5f} ms "
+        f"({REASONED_CAL_SHUFFLES} shuffle rounds of {SHUFFLE_CYCLES} cycles)")
     flag = torch.tensor([True], device="cuda")
-    out = torch.full((512,), -1, dtype=torch.int32, device="cuda")
-    want = ref.build_calendar_ref(w, flag, torch.full_like(out, -1)).clone()
-    check_equal(torch, "build_calendar (16 members, weights in tied triples)",
-                (build_calendar(w, flag, out),), (want,))
-    for m in (1, 5, 16, 32):
-        wm = torch.from_numpy(rng.uniform(0.05, 8.0, m)).cuda()
-        check_equal(torch, f"build_calendar M={m}", (build_calendar(wm, flag, out.clone()),),
-                    (ref.build_calendar_ref(wm, flag, out.clone()),))
-    off = torch.tensor([False], device="cuda")
-    kept = torch.full_like(out, -7)
-    build_calendar(w, off, kept)
-    check(bool((kept == -7).all()), "build_calendar wrote its output with do_sw false")
-    t_k, last = time_warm(torch, lambda: build_calendar(w, flag, out))
-    check_equal(torch, "build_calendar after graph replays", (last,), (want,))
-    t_off, _ = time_warm(torch, lambda: build_calendar(w, off, kept))
-    t_p = time_eager(torch, lambda: ref.build_calendar_ref(w, flag, out), reps=2)
-    b_ms, b_by = bound(16 * 8 + 1 + 512 * 4, 2 * 512 * 16, FP64_OPS_PER_S)
-    chain_ms = CAL_CHAIN_SHUFFLES * SHUFFLE_CYCLES / SM_CLOCK_HZ * 1e3
-    say(f"[simnet] build_calendar 16 members (tied triples), M=1/5/16/32, do_sw false "
-        f"untouched: exactly equal to plain, also after graph replays; kernel "
-        f"{t_k * 1e3:.2f} us ({t_off * 1e3:.2f} us with do_sw false), plain {t_p:.2f} ms, "
-        f"bound {b_ms * 1e3:.4f} us ({b_by}), chain bound {chain_ms * 1e3:.1f} us")
-    cal = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, chain_bound_ms=chain_ms,
-               ms_without_switch=t_off, max_abs_err=0, library_ms=None,
-               design=DESIGNS["build_calendar"], shape="16 members, 512 slots")
+    held = 0
+    for m in CAL_MEMBERS:
+        cases = [(kind, calendar_weights(np, m, kind, m)) for kind in CAL_KINDS]
+        if m == 512:  # one member above 511 raised to one slot: the long surplus loop
+            cases.append(("dominant x512", np.r_[40.0 * m, np.full(m - 1, 0.05)]))
+        for n_slots in CAL_SLOTS:
+            if m > n_slots:
+                continue
+            for kind, wm in (cases if n_slots == 512 else cases[2:4]):
+                wt = torch.from_numpy(wm).cuda()
+                out = torch.full((n_slots,), -1, dtype=torch.int32, device="cuda")
+                check_equal(torch, f"build_calendar M={m} n_slots={n_slots} {kind}",
+                            (build_calendar(wt, flag, out),),
+                            (ref.build_calendar_ref(wt, flag, out.clone()),))
+                held += 1
+    w16 = np.repeat(rng.uniform(0.3, 2.0, 6), 3)[:SIMNET_FUSED_MEMBERS]
+    cal = time_calendar(torch, np, build_calendar, ref, w16, chains)
+    cal512 = time_calendar(torch, np, build_calendar, ref, rng.uniform(0.05, 8.0, 512),
+                           chains)
+    say(f"[simnet] build_calendar exactly equal to plain in {held} cases (M in "
+        f"{list(CAL_MEMBERS)} x {list(CAL_KINDS)} at 512 slots, 512 dominant; random and "
+        f"ties at n_slots {list(CAL_SLOTS[:3])} where M <= n_slots), after graph replays, "
+        f"do_sw false untouched; " + "; ".join(
+            f"{c['members']} members: kernel {c['ms'] * 1e3:.3f} us "
+            f"({c['ms_without_switch'] * 1e3:.3f} us with do_sw false), plain "
+            f"{c['plain_ms']:.2f} ms, bound {c['bound_ms'] * 1e3:.4f} us ({c['bound_by']}), "
+            f"chain bound {c['chain_bound_ms'] * 1e3:.3f} us (measured; {c['surplus_steps']} "
+            f"surplus steps; kernel at {c['over_chain_bound']:.3f}x)" for c in (cal, cal512)))
+    cal = dict(cal, max_abs_err=0, library_ms=None, design=DESIGNS["build_calendar"],
+               shape="16 members (tied triples), 512 slots", members_512=cal512,
+               chain_bound_how="(slots + surplus steps) x the probe's 1-key round-robin "
+                               "step + the pairwise sum's adds x its add",
+               cases_equal=held)
     return {"farm_serve": farm, "seq_cumsum": scan, "build_calendar": cal}
 
 
@@ -1485,6 +1573,12 @@ def simnet_phase(torch, np):
     say(f"[simnet] cost of tracing, both runs without capture: traced "
         f"{fused_runs['traced'][3]:.6f} s / untraced {fused_runs['untraced'][3]:.6f} s = "
         f"{fused_runs['traced'][3] / fused_runs['untraced'][3]:.6f}")
+    switched = sum(r[0].epoch_switches for r in fused_runs.values())
+    results["build_calendar"].update(switch_launches=switched,
+                                     fused_launches=fused_launches["build_calendar"])
+    say(f"[simnet] build_calendar did a switch in {switched} of its "
+        f"{fused_launches['build_calendar']} launches in the three fused runs (their "
+        f"epoch_switches); the rest returned at do_sw false")
     rf, sim_f, _, _ = fused_runs["traced"]
 
     cfg_h, _ = simnet_config(SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, "host", "cuda",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the simulator's two ring kernels, ``farm_serve`` and ``seq_cumsum``,
-of one source tree on one CUDA card, each held exactly equal to its plain
-version.
+"""Time the simulator's kernels, ``farm_serve``, ``seq_cumsum`` and
+``build_calendar``, of one source tree on one CUDA card, each held exactly
+equal to its plain version.
 
     python scripts/time_simnet_kernels_torch.py [--src SRC] [--reps N]
         [--fused-windows W]
@@ -10,9 +10,13 @@ Times, in ms, with ``chip_smoke.py``'s timing code and inputs (a full-width
 window of 16,384 rows; graphs of 200 calls, inputs in L2, as the fused step
 leaves them; ``--reps`` timings each, all printed): ``farm_serve`` over 16
 and 64 members, ``seq_cumsum``, and ``torch.cumsum`` on the same values as
-the library yardstick. Where the tree has the chain probe
-(``repro_torch.kernels.chain_probe``), also its ns per dependent float64 add
-and per farm row, and each kernel's time over its chain bound. Then, unless
+the library yardstick; ``build_calendar`` at ``chip_smoke.py``'s 16 members
+(tied triples) on a switch and without one (do_sw false), and at 512
+members (random weights) where the tree takes them (``null`` where its
+wrapper's ``MAX_MEMBERS`` is below 512). Where the tree has the chain probe
+(``repro_torch.kernels.chain_probe``), also its ns per dependent float64
+add, per farm row and (where it has one) per round-robin step, and each
+kernel's time over its chain bound. Then, unless
 ``--fused-windows 0``, the fused engine at ``chip_smoke.py``'s full-width
 straggler traffic (16 members, K = 8) for W windows, twice (the first run
 captures the program, the second reuses it): the second run's replay
@@ -53,7 +57,8 @@ def main() -> int:
     sys.path.insert(0, str(src))
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import calendar, ref
+    from repro_torch.kernels.calendar import build_calendar
     from repro_torch.kernels.farm_serve import farm_serve
     from repro_torch.kernels.seq_cumsum import seq_cumsum
 
@@ -81,10 +86,26 @@ def main() -> int:
         cs.check_equal(torch, "seq_cumsum", (last,), (want,))
         times["seq_cumsum"].append(ms)
         times["torch.cumsum"].append(cs.time_warm(torch, lambda: torch.cumsum(x, 0))[0])
+    w16 = np.repeat(rng.uniform(0.3, 2.0, 6), 3)[:cs.SIMNET_FUSED_MEMBERS]
+    w512 = rng.uniform(0.05, 8.0, 512)
+    has_probe = importlib.util.find_spec("repro_torch.kernels.chain_probe") is not None
+    chains = cs.measured_chains() if has_probe else {}
+    cals = {"16_members": [], "512_members": []}
+    for _ in range(args.reps):
+        cals["16_members"].append(cs.time_calendar(torch, np, build_calendar, ref, w16, chains))
+        if calendar.MAX_MEMBERS >= 512:
+            cals["512_members"].append(cs.time_calendar(torch, np, build_calendar, ref, w512,
+                                                        chains))
+    for name, runs in cals.items():
+        key = f"build_calendar_{name}"
+        times[key] = [r["ms"] for r in runs] or None
+        times[key + "_without_switch"] = [r["ms_without_switch"] for r in runs] or None
+        if runs and "chain_bound_ms" in runs[0]:
+            out[key + "_chain_bound_ms"] = runs[0]["chain_bound_ms"]
+            out[key + "_surplus_steps"] = runs[0]["surplus_steps"]
     out["ms"] = times
-    out["ms_median"] = {k: statistics.median(v) for k, v in times.items()}
-    if importlib.util.find_spec("repro_torch.kernels.chain_probe") is not None:
-        chains = cs.measured_chains()
+    out["ms_median"] = {k: statistics.median(v) if v else None for k, v in times.items()}
+    if has_probe:
         med = out["ms_median"]
         out["chain_probe"] = chains
         out["over_chain_bound"] = {
@@ -93,6 +114,10 @@ def main() -> int:
             for m in (cs.SIMNET_FUSED_MEMBERS, cs.SIMNET_HOST_MEMBERS)}
         out["over_chain_bound"]["seq_cumsum"] = med["seq_cumsum"] / (
             cs.SIMNET_KERNEL_ROWS * chains["add_ns"] * 1e-6)
+        for name in cals:
+            key = f"build_calendar_{name}"
+            if key + "_chain_bound_ms" in out:
+                out["over_chain_bound"][key] = med[key] / out[key + "_chain_bound_ms"]
     if args.fused_windows:
         out["fused"] = fused_replays(torch, cs, args.fused_windows)
     print(cs.card_line())

@@ -1,16 +1,19 @@
 """The fused simulator's calendar rebuild: wrapper of the CUDA kernel
-``csrc/simnet_kernels.cu::build_calendar_kernel`` (one warp; lane i owns
-member i).
+``csrc/simnet_kernels.cu::build_calendar_kernel`` (one block, one thread per
+slot; the round-robin in one warp, one ``redux.sync`` per slot over integer
+keys; in place of the quota walk, which the round-robin's output never needs,
+a parallel check that traps if a member got more slots than its quota).
 
 A device helper of the simulator, not the port of a Pallas kernel: it takes
 the place of the JAX package's ``simnet/fused.py::_device_calendar`` under
 ``lax.cond``. ``build_calendar(w, do_sw, out)`` writes the calendar of the
-float64 weights ``w`` (1 to 32 members, all positive) into the int32
-``out`` (``out.shape[0]`` slots, at most 512) when the device bool
-``do_sw`` holds, and leaves ``out`` untouched otherwise: the switch
-decision is read on the device, so a captured window step has no host read.
-A CUDA input launches the kernel; a CPU input takes
-``ref.build_calendar_ref``.
+float64 weights ``w`` (M members, all positive, 1 <= M <= n_slots) into the
+int32 ``out`` (``n_slots = out.shape[0]`` slots, at most 512) when the
+device bool ``do_sw`` holds, and leaves ``out`` untouched otherwise: the
+switch decision is read on the device, so a captured window step has no host
+read. The port's host calendar (``core.calendar.build_calendar``) refuses
+more members than slots too. A CUDA input launches the kernel; a CPU input
+takes ``ref.build_calendar_ref``.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import build_calendar_ref
 
-#: members one warp holds (``kMaxCalMembers`` in the source)
-MAX_MEMBERS = 32
+#: members and slots the kernel takes (``kMaxCalMembers``, ``kMaxSlots``)
+MAX_MEMBERS = 512
 MAX_SLOTS = 512
 
 
@@ -28,7 +31,10 @@ def build_calendar(w, do_sw, out):
     if w.ndim != 1 or not 1 <= w.shape[0] <= MAX_MEMBERS:
         raise ValueError(f"w must be [M] with 1 <= M <= {MAX_MEMBERS}, got {tuple(w.shape)}")
     if out.ndim != 1 or not 1 <= out.shape[0] <= MAX_SLOTS:
-        raise ValueError(f"out must be [n_slots] with n_slots <= {MAX_SLOTS}")
+        raise ValueError(f"out must be [n_slots] with 1 <= n_slots <= {MAX_SLOTS}, "
+                         f"got {tuple(out.shape)}")
+    if w.shape[0] > out.shape[0]:
+        raise ValueError(f"more members ({w.shape[0]}) than slots ({out.shape[0]})")
     if w.device.type == "cpu":
         return build_calendar_ref(w, do_sw, out)
     if w.device.type != "cuda":

@@ -19,11 +19,14 @@
 // while a copy warp streams tiles through a ring in shared memory with
 // cp.async (in) and coalesced stores (out), handing each tile over with
 // mbarriers per stage; in farm_serve that warp also does every part of a
-// row that is not on the chain. ejfat_chain_probe times the chains alone, in
-// one thread with every operand in a register, so that the chain bounds are
-// measured on the card and not assumed.
+// row that is not on the chain. build_calendar is bound by its chain of
+// round-robin steps, one redux.sync each. ejfat_chain_probe times the chains
+// alone (the float64 ones in one thread with every operand in a register,
+// the round-robin in one warp), so that the chain bounds are measured on the
+// card and not assumed.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -459,7 +462,8 @@ __global__ void __launch_bounds__(kRingThreads)
 // rows' dt). Completions, backlogs and drop bits are stored to shared memory
 // as the kernel stores them. clock64 and %globaltimer around each give
 // cycles and ns, so the chain bounds of farm_serve and seq_cumsum are
-// measured, not assumed.
+// measured, not assumed (build_calendar's round-robin chain: swrr_probe_kernel
+// below).
 // out: {cycles, ns} of the adds, the straight rows, the walk; sink keeps the
 // chains' results live (NaN in sink[0] when the straight rows and the walk
 // end on different backlogs).
@@ -516,30 +520,65 @@ __global__ void chain_probe_kernel(double a, double b, int n, double* __restrict
 // ---------------------------------------------------------------------------
 // build_calendar — the fused engine's calendar rebuild
 // (repro/simnet/fused.py::_device_calendar, itself op for op with
-// repro/core/calendar.py::build_calendar), in one warp: lane i owns member i.
+// repro/core/calendar.py::build_calendar), in one block of one thread per
+// slot (up to 512), members in shared memory:
 //
-//   total = numpy's pairwise sum of w (fused.py::_np_sum)
-//   ideal = w / total * 512; counts = max(floor(ideal), 1)
-//   m surplus steps: the first member with the largest count - ideal (of
-//     those above 1) gives a slot back while the counts exceed 512
-//   m deficit steps: members in stable order of decreasing remainder take a
-//     slot while the counts fall short of 512
-//   512 smooth weighted round-robin steps (first maximum of the credits)
-//   512 steps of the quota-enforcing walk: a slot of a member above its
-//     quota goes to the next member below its quota, ascending
+//   total = numpy's pairwise sum of w (np_sum below)
+//   ideal = w / total * n_slots; counts = max(floor(ideal), 1)
+//   surplus: while the counts exceed n_slots, the first member with the
+//     largest count - ideal (of those above 1) gives a slot back
+//   deficit: members in stable order of decreasing remainder take a slot
+//     while the counts fall short of n_slots
+//   n_slots smooth weighted round-robin steps (first maximum of the credits)
+//   the quota-enforcing walk: a slot of a member above its quota goes to the
+//     next member below its quota, ascending (the plain version's; here a
+//     check, see below)
+//
+// What the design rests on (each identity is checked against the plain
+// version by tests/test_torch_calendar_edges.py):
+//   - The credits are integers: each step adds a member's count and the
+//     winner gives back n_slots. Their sum is 0 before a step's adds and
+//     n_slots after, and a winner holds the largest credit (> 0), so every
+//     credit stays in (-n_slots, M * n_slots] <= 2^18. A key
+//     credit << 10 | (1023 - member) then fits an int32, and the first
+//     maximum credit is the largest key: one __reduce_max_sync (redux.sync)
+//     a step, over ceil(M / 32) keys a lane. A winning credit outside
+//     [1, M * n_slots] traps.
+//   - Surplus: count - ideal is exact (Sterbenz), -(r + rem) for a member
+//     that gave back r slots, so the picks go by (r, rem, member): an
+//     integer key -(r << 10 | rank), rank the member's stable rank by
+//     increasing remainder among those above 1. The loop ends once the
+//     counts reach n_slots (the plain version's later steps do nothing).
+//   - Deficit in closed form: a member takes a slot iff its stable rank by
+//     decreasing remainder is below min(M, n_slots - sum(counts)).
+//   - The walk moves no slot: by the credit bound, after n_slots steps
+//     n_slots * (count - picks) > -n_slots, so no member is picked more
+//     than its count and, the counts summing to n_slots, each exactly its
+//     count. That is the kernel's contract in place of the walk: one thread
+//     per slot decodes its winner, a histogram (shared atomics) counts each
+//     member's slots, and a member above its quota traps, as does a winning
+//     key outside its bound.
 //
 // It reads the switch decision (do_sw) from device memory and returns at
 // once when it is false, leaving out untouched: the fused window step stays
 // one captured graph with no host read.
 //
-// Bound: the chain of 2 x 512 dependent warp steps (each a 5-step shuffle
-// reduction); bytes (w in, 2 KB out) do not matter.
+// Bound: the chain of n_slots dependent round-robin steps, each at least
+// one redux.sync, an add-min and a multiply-add (the 1-key step measured by
+// ejfat_chain_probe, swrr_probe_kernel<1>), plus the surplus loop's steps;
+// bytes (w in, 2 KB out) do not matter.
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxCalMembers = 32;
+constexpr int kMaxCalMembers = 512;
 constexpr int kMaxSlots = 512;
+constexpr int kKeyShift = 10;  // a key's low bits: 1023 - member (or the rank)
+constexpr int kKeyLow = (1 << kKeyShift) - 1;
+constexpr int kNpBlock = 128;  // numpy's PW_BLOCKSIZE
 
-__device__ double np_sum(const double* x, int m) {
+// numpy's pairwise add.reduce over m <= 128 lanes, association for
+// association: in order below 8 lanes; else eight running sums, numpy's
+// fixed combine tree, then the tail.
+__device__ double np_sum_block(const double* x, int m) {
   if (m < 8) {
     double acc = x[0];
     for (int i = 1; i < m; ++i) acc = __dadd_rn(acc, x[i]);
@@ -556,99 +595,289 @@ __device__ double np_sum(const double* x, int m) {
   return acc;
 }
 
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+// numpy's pairwise sum at any length: above 128 lanes, the sums of the two
+// halves (the first cut down to a multiple of 8) added. Depth 3 covers
+// m <= 512.
+template <int Depth>
+__device__ double np_sum(const double* x, int m) {
+  if constexpr (Depth == 0) {
+    if (m > kNpBlock) __trap();
+    return np_sum_block(x, m);
+  } else {
+    if (m <= kNpBlock) return np_sum_block(x, m);
+    const int h = m / 2 - (m / 2) % 8;
+    return __dadd_rn(np_sum<Depth - 1>(x, h), np_sum<Depth - 1>(x + h, m - h));
+  }
 }
 
-// index of the first maximum over the lanes (jnp.argmax / np.argmax)
-__device__ __forceinline__ int warp_argmax(double v, int idx) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const double ov = __shfl_xor_sync(kFull, v, o);
-    const int oi = __shfl_xor_sync(kFull, idx, o);
-    if (ov > v || (ov == v && oi < idx)) {
-      v = ov;
-      idx = oi;
+// the largest of a lane's K keys, a tree of K - 1 maxes
+template <int K>
+__device__ __forceinline__ int lane_max(const int (&key)[K]) {
+  if constexpr (K == 1) {
+    return key[0];
+  } else {
+    int half[K / 2];
+#pragma unroll
+    for (int k = 0; k < K / 2; ++k) half[k] = max(key[k], key[k + K / 2]);
+    return lane_max<K / 2>(half);
+  }
+}
+
+// n_steps smooth weighted round-robin steps in one warp, K keys a lane
+// (member lane + 32 k), a[k] the key after this step's add (credit << 10 |
+// 1023 - member; an absent member kAbsentKey with inc 0): the largest key
+// wins and gives back sub (n_slots << 10), every key gains its inc (count
+// << 10) for the next step. The winning keys go to cal[step], 32 steps at a
+// time, lane i holding step i's (their low bits name the winners; the check
+// decodes them and checks their bound, off this chain). The give-back is
+// sub * [a == top] = sub - sub * min(top - a, 1) (top - a is 0 for the
+// winner, >= 1 for the rest), so the chain runs redux, add-min (one DPX
+// instruction), imad, without a predicate.
+constexpr int kAbsentKey = -(1 << 30);
+
+template <int K>
+__device__ __forceinline__ void swrr_walk(int (&a)[K], const int (&inc)[K], int n_steps,
+                                          int sub, int32_t* cal) {
+  const int lane = threadIdx.x & 31;
+  int mine = 0;  // the winning key of step lane (mod 32), stored 32 at a time
+  for (int s = 0; s < n_steps; ++s) {
+    int nxt[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) nxt[k] = a[k] + inc[k] - sub;  // off the chain
+    const int top = __reduce_max_sync(kFull, lane_max(a));
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = nxt[k] + sub * __viaddmin_s32(top, -a[k], 1);
+    mine = (s & 31) == lane ? top : mine;
+    if ((s & 31) == 31) cal[s - 31 + lane] = mine;
+  }
+  if (lane < (n_steps & 31)) cal[(n_steps & ~31) + lane] = mine;
+}
+
+// a winning key's bound: its credit in [1, M * n_slots] (see above)
+__device__ __forceinline__ bool key_in_bound(int top, int m, int n_slots) {
+  return top >= (1 << kKeyShift) && top < ((m * n_slots + 1) << kKeyShift);
+}
+
+template <int K>
+__device__ void swrr_members(int m, int n_slots, const int* cnt_s, int32_t* cal_s) {
+  const int lane = threadIdx.x & 31;
+  int a[K], inc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // credit 0 plus the first step's add
+    const int i = lane + 32 * k;
+    inc[k] = i < m ? cnt_s[i] << kKeyShift : 0;
+    a[k] = i < m ? (kKeyLow - i) + inc[k] : kAbsentKey;
+  }
+  swrr_walk<K>(a, inc, n_slots, n_slots << kKeyShift, cal_s);
+}
+
+// the surplus loop in one warp over the E members above one count (list_s,
+// ascending; rank_s their stable ranks by increasing remainder): `steps`
+// picks of the largest key -(r << 10 | rank); the counts go back to cnt_s
+template <int K>
+__device__ bool surplus_members(int steps, int e_n, const int* list_s, const int* rank_s,
+                                int* cnt_s) {
+  const int lane = threadIdx.x & 31;
+  int key[K], c[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = lane + 32 * k;
+    c[k] = e < e_n ? cnt_s[list_s[e]] : 0;
+    key[k] = e < e_n ? -rank_s[e] : INT_MIN;
+  }
+  bool ok = true;
+  for (int s = 0; s < steps; ++s) {
+    const int top = __reduce_max_sync(kFull, lane_max(key));
+    ok &= top != INT_MIN;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool win = key[k] == top;
+      c[k] -= win ? 1 : 0;
+      key[k] = !win ? key[k] : c[k] > 1 ? key[k] - (1 << kKeyShift) : INT_MIN;
     }
   }
-  return idx;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = lane + 32 * k;
+    if (e < e_n) cnt_s[list_s[e]] = c[k];
+  }
+  return ok;
 }
 
-__global__ void build_calendar_kernel(const double* __restrict__ w, int m,
-                                      const bool* __restrict__ do_sw, int n_slots,
-                                      int32_t* __restrict__ out) {
+// f<1> for n <= 32 (the fused engine's members), else f<16>
+#define EJFAT_BY_KEYS(n, f, ...) ((n) <= 32 ? f<1>(__VA_ARGS__) : f<16>(__VA_ARGS__))
+
+// The stable rank of entry i = tid / t of key_s[0, n): the entries ahead of
+// it by decreasing key (Decreasing) or increasing key, ties in index order.
+// Each entry gets t threads (a power of two <= 32, t * n <= blockDim.x),
+// each counting every t-th entry, summed by shuffles; the rank is valid on
+// the entry's first thread (`first`). Every thread of the block calls it.
+template <bool Decreasing>
+__device__ int stable_rank(const double* key_s, int n, int& i, bool& first) {
+  int t = 32;
+  while (t > 1 && t * n > static_cast<int>(blockDim.x)) t >>= 1;
+  i = threadIdx.x / t;
+  const int part = threadIdx.x % t;
+  first = part == 0 && i < n;
+  int r = 0;
+  if (i < n) {
+    const double ki = key_s[i];
+#pragma unroll 4
+    for (int j = part; j < n; j += t) {
+      const double kj = key_s[j];
+      r += ((Decreasing ? kj > ki : kj < ki) || (kj == ki && j < i)) ? 1 : 0;
+    }
+  }
+  for (int o = t >> 1; o > 0; o >>= 1) r += __shfl_xor_sync(kFull, r, o);
+  return r;
+}
+
+// threads before this one with pred, and the block's total; every thread
+// of the block calls it (two barriers; warp_n free again on return)
+__device__ int block_rank(bool pred, int* warp_n, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned b = __ballot_sync(kFull, pred);
+  if (lane == 0) warp_n[warp] = __popc(b);
+  __syncthreads();
+  int before = 0;
+  total = 0;
+  for (int v = 0; v < static_cast<int>(blockDim.x >> 5); ++v) {
+    const int c = warp_n[v];
+    before += v < warp ? c : 0;
+    total += c;
+  }
+  __syncthreads();
+  return before + __popc(b & ((1u << lane) - 1u));
+}
+
+// The quota check, one thread per slot (every thread of the block calls
+// it): cal_s holds the round-robin's winning keys, cnt_s the quotas, have_s
+// (per member) comes in zeroed. Traps on a winning key outside its bound
+// (before its member is used) or a member given more slots than its quota;
+// else writes the winners to out, which is then what the plain version's
+// walk leaves.
+__device__ void quota_check(const int32_t* cal_s, const int* cnt_s, int* have_s, int m,
+                            int n_slots, int32_t* __restrict__ out) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool slot = tid < n_slots;
+  const int top = slot ? cal_s[tid] : 0;
+  const int c = kKeyLow - (top & kKeyLow);
+  if (__syncthreads_or(slot && (!key_in_bound(top, m, n_slots) || c >= m))) __trap();
+  const unsigned peers = __match_any_sync(kFull, slot ? c : -1);
+  if (slot && __popc(peers & ((1u << lane) - 1u)) == 0)  // its member's first slot in the warp
+    atomicAdd(&have_s[c], __popc(peers));
+  if (__syncthreads_or(slot && have_s[c] > cnt_s[c])) __trap();
+  if (slot) out[tid] = c;
+}
+
+__global__ void __launch_bounds__(kMaxSlots)
+    build_calendar_kernel(const double* __restrict__ w, int m, const bool* __restrict__ do_sw,
+                          int n_slots, int32_t* __restrict__ out) {
+  const bool member = threadIdx.x < m;
+  const double w_t = member ? w[threadIdx.x] : 0.0;  // in flight with do_sw's load
   if (!*do_sw) return;
-  __shared__ int32_t cal[kMaxSlots];
-  __shared__ int32_t def_ids[kMaxCalMembers];
-  const int lane = threadIdx.x;
-  const bool live = lane < m;
-  const double slots = static_cast<double>(n_slots);
+  __shared__ double w_s[kMaxCalMembers];
+  __shared__ double rem_s[kMaxCalMembers];  // remainders (compacted for the surplus)
+  __shared__ int cnt_s[kMaxCalMembers];
+  __shared__ int have_s[kMaxCalMembers];
+  __shared__ int list_s[kMaxCalMembers];    // surplus: members above one count
+  __shared__ int rank_s[kMaxCalMembers];    // surplus: their ranks
+  __shared__ int32_t cal_s[kMaxSlots];
+  __shared__ int warp_a[kMaxSlots / 32], warp_b[kMaxSlots / 32];
+  __shared__ double total_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  if (member) {
+    w_s[tid] = w_t;
+    have_s[tid] = 0;
+  }
+  __syncthreads();
+  if (tid == 0) total_s = np_sum<3>(w_s, m);
+  __syncthreads();
 
   // -- largest-remainder quotas --------------------------------------------
-  const double total = np_sum(w, m);
-  const double ideal = live ? __dmul_rn(__ddiv_rn(w[lane], total), slots) : 0.0;
-  const double fl = floor(ideal);
-  long long cnt = live ? static_cast<long long>(fl) : 0;
-  if (live && cnt == 0) cnt = 1;  // every live member reachable
-  const double rem = __dsub_rn(ideal, fl);
-
-  for (int it = 0; it < m; ++it) {  // surplus: give back while above n_slots
-    const long long sum = warp_sum(cnt);
-    const double over =
-        (live && cnt > 1) ? __dsub_rn(static_cast<double>(cnt), ideal) : -INFINITY;
-    const int pick = warp_argmax(over, lane);
-    if (sum > n_slots && lane == pick) cnt -= 1;
+  double rem = 0.0;
+  int cnt = 0;
+  if (member) {
+    const double ideal = __dmul_rn(__ddiv_rn(w_s[tid], total_s), static_cast<double>(n_slots));
+    const double fl = floor(ideal);
+    cnt = max(static_cast<int>(fl), 1);  // every live member reachable
+    rem = __dsub_rn(ideal, fl);
+    cnt_s[tid] = cnt;
   }
-  // stable rank of this member in decreasing remainder (argsort(-rem))
-  int rank = 0;
-  for (int j = 0; j < m; ++j) {
-    const double rj = __shfl_sync(kFull, rem, j);
-    if (live && (rj > rem || (rj == rem && j < lane))) ++rank;
-  }
-  for (int i = 0; i < m; ++i) {  // deficit: take a slot while below n_slots
-    const long long sum = warp_sum(cnt);
-    if (sum < n_slots && live && rank == i) cnt += 1;
-  }
-
-  // -- smooth weighted round-robin ------------------------------------------
-  const double remaining = static_cast<double>(cnt);
-  double credit = live ? 0.0 : -INFINITY;
-  for (int sl = 0; sl < n_slots; ++sl) {
-    if (live) credit = __dadd_rn(credit, remaining);
-    const int pick = warp_argmax(credit, lane);
-    if (lane == pick) credit = __dadd_rn(credit, -slots);
-    if (lane == 0) cal[sl] = pick;
-  }
-  __syncwarp();
-
-  // -- the quota-enforcing walk ---------------------------------------------
-  long long have = 0;
-  for (int sl = 0; sl < n_slots; ++sl) have += (cal[sl] == lane);
-  const bool deficit = live && have < cnt;
-  long long need = deficit ? cnt - have : 0;
-  const unsigned def_mask = __ballot_sync(kFull, deficit);
-  const int len_def = __popc(def_mask);
-  if (live) def_ids[lane] = m;
-  __syncwarp();
-  if (deficit) def_ids[__popc(def_mask & ((1u << lane) - 1u))] = lane;
-  __syncwarp();
-  int di = 0;
-  for (int sl = 0; sl < n_slots; ++sl) {
-    const int cs = cal[sl];
-    const int d = min(max(def_ids[min(max(di, 0), m - 1)], 0), m - 1);
-    const long long have_cs = __shfl_sync(kFull, have, cs);
-    const long long cnt_cs = __shfl_sync(kFull, cnt, cs);
-    const bool cond = have_cs > cnt_cs && di < len_def;
-    if (cond) {
-      if (lane == cs) have -= 1;
-      if (lane == d) {
-        have += 1;
-        need -= 1;
-      }
+  const int warp_sum = __reduce_add_sync(kFull, cnt);
+  if (lane == 0) warp_a[warp] = warp_sum;
+  __syncthreads();
+  int sum = 0;
+  for (int v = 0; v < n_warps; ++v) sum += warp_a[v];
+  if (sum > n_slots) {  // surplus (block-uniform branch)
+    int e_n;
+    const bool above = member && cnt > 1;
+    const int e = block_rank(above, warp_b, e_n);
+    if (above) {
+      list_s[e] = tid;
+      rem_s[e] = rem;
     }
-    const long long need_d = __shfl_sync(kFull, need, d);
-    if (cond && need_d == 0) di += 1;
-    if (lane == 0) out[sl] = cond ? d : cs;
+    __syncthreads();
+    int f;
+    bool first;
+    const int r = stable_rank<false>(rem_s, e_n, f, first);
+    if (first) rank_s[f] = r;
+    __syncthreads();
+    if (warp == 0 && !EJFAT_BY_KEYS(e_n, surplus_members, sum - n_slots, e_n, list_s, rank_s,
+                                    cnt_s))
+      __trap();
+    __syncthreads();
+  } else if (sum < n_slots) {  // deficit, closed form
+    if (member) rem_s[tid] = rem;
+    __syncthreads();
+    int i;
+    bool first;
+    const int r = stable_rank<true>(rem_s, m, i, first);
+    if (first && r < min(m, n_slots - sum)) cnt_s[i] += 1;
+    __syncthreads();
+  }
+
+  // -- smooth weighted round-robin, one warp --------------------------------
+  if (warp == 0) EJFAT_BY_KEYS(m, swrr_members, m, n_slots, cnt_s, cal_s);
+  __syncthreads();
+
+  // -- the quota check, one thread per slot ---------------------------------
+  quota_check(cal_s, cnt_s, have_s, m, n_slots, out);
+}
+
+// ejfat_chain_probe's round-robin chain: one warp, n steps of swrr_walk over
+// 32 K members of equal count (512 / (32 K)) into 512 slots, the kernel's
+// own code; clock64 and %globaltimer around it. out: {cycles, ns}; sink[0]
+// the last slot's member, -1 if a winning key of the last 512 steps left its
+// bound.
+template <int K>
+__global__ void swrr_probe_kernel(int n, int* __restrict__ sink, long long* __restrict__ out) {
+  __shared__ int32_t cal[kMaxSlots];
+  const int lane = threadIdx.x;
+  int a[K], inc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    inc[k] = (kMaxSlots / (32 * K)) << kKeyShift;
+    a[k] = kKeyLow - (lane + 32 * k) + inc[k];
+  }
+  __syncwarp();
+  const long long c0 = clock64();
+  const uint64_t g0 = global_ns();
+  for (int done = 0; done < n; done += kMaxSlots)
+    swrr_walk<K>(a, inc, min(kMaxSlots, n - done), kMaxSlots << kKeyShift, cal);
+  __syncwarp();
+  const long long c1 = clock64();
+  const uint64_t g1 = global_ns();
+  bool ok = true;  // the last block's winning keys
+  for (int s = lane; s < min(n, kMaxSlots); s += 32)
+    ok &= key_in_bound(cal[s], 32 * K, kMaxSlots);
+  ok = __all_sync(kFull, ok);
+  if (lane == 0) {
+    out[0] = c1 - c0;
+    out[1] = static_cast<long long>(g1 - g0);
+    sink[0] = ok ? kKeyLow - (cal[(n - 1) % kMaxSlots] & kKeyLow) : -1;
   }
 }
 
@@ -673,20 +902,25 @@ int ejfat_seq_cumsum(const double* x, int n, double* out, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// one thread; sink float64[3], out int64[6] (see chain_probe_kernel)
-int ejfat_chain_probe(double a, double b, int n, double* sink, long long* out,
+// one thread, then one warp twice; sink float64[3], rr_sink int32[2],
+// out int64[10] (see chain_probe_kernel; out[6..9]: {cycles, ns} of the
+// round-robin chain at 1 and at 16 keys a lane, swrr_probe_kernel)
+int ejfat_chain_probe(double a, double b, int n, double* sink, long long* out, int* rr_sink,
                       cudaStream_t stream) {
   chain_probe_kernel<<<1, 1, 0, stream>>>(a, b, n, sink, out);
+  swrr_probe_kernel<1><<<1, 32, 0, stream>>>(n, rr_sink, out + 6);
+  swrr_probe_kernel<16><<<1, 32, 0, stream>>>(n, rr_sink + 1, out + 8);
   return static_cast<int>(cudaGetLastError());
 }
 
-// w float64[m], 1 <= m <= 32, all positive; n_slots <= 512; out int32[n_slots]
-// is written only when *do_sw is true.
+// w float64[m], all positive; 1 <= m <= n_slots <= 512; out int32[n_slots]
+// is written only when *do_sw is true. One block of n_slots threads (rounded
+// up to a warp).
 int ejfat_build_calendar(const double* w, int m, const bool* do_sw, int n_slots,
                          int32_t* out, cudaStream_t stream) {
-  if (m < 1 || m > kMaxCalMembers || n_slots < 1 || n_slots > kMaxSlots)
+  if (m < 1 || m > kMaxCalMembers || n_slots < 1 || n_slots > kMaxSlots || m > n_slots)
     return static_cast<int>(cudaErrorInvalidValue);
-  build_calendar_kernel<<<1, 32, 0, stream>>>(w, m, do_sw, n_slots, out);
+  build_calendar_kernel<<<1, (n_slots + 31) / 32 * 32, 0, stream>>>(w, m, do_sw, n_slots, out);
   return static_cast<int>(cudaGetLastError());
 }
 

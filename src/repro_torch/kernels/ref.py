@@ -141,10 +141,10 @@ def seq_cumsum_ref(x):
     return out.to(x.device)
 
 
-def np_sum(x, m: int):
-    """numpy's pairwise ``add.reduce`` over the first ``m`` lanes of ``x``,
-    association for association (sequential below 8 lanes; above, eight
-    running sums with numpy's fixed combine tree, then the tail)."""
+def _np_sum_block(x, m: int):
+    """numpy's pairwise sum of ``m <= 128`` lanes: in order below 8 lanes;
+    above, eight running sums with numpy's fixed combine tree, then the
+    tail."""
     if m < 8:
         acc = x[0]
         for i in range(1, m):
@@ -160,6 +160,18 @@ def np_sum(x, m: int):
     for k in range(i, m):
         acc = acc + x[k]
     return acc
+
+
+def np_sum(x, m: int):
+    """numpy's pairwise ``add.reduce`` over the first ``m`` lanes of ``x``,
+    association for association, at any length: blocks of up to 128 lanes
+    (numpy's ``PW_BLOCKSIZE``) as ``_np_sum_block``; above 128 the sums of
+    the two halves, the first cut down to a multiple of 8, added. (The JAX
+    package's ``simnet/fused.py::_np_sum`` stops at 128 lanes.)"""
+    if m <= 128:
+        return _np_sum_block(x, m)
+    h = m // 2 - (m // 2) % 8
+    return np_sum(x[:h], h) + np_sum(x[h:], m - h)
 
 
 def build_calendar_ref(w, do_sw, out):

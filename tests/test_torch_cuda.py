@@ -28,9 +28,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import model as M
 from repro_torch.core.protocol import CALENDAR_SLOTS
 from repro_torch.core.tables import MAX_EPOCH_ROWS
-from torch_helpers import (EDGE_BOUNDARIES, FARM_RING_EDGES, LB_TABLE_SHAPES,
-                           SCAN_RING_SIZES, edge_headers, program, seg_starts, serve_case,
-                           signed_sum_input, spread_program)
+from torch_helpers import (CALENDAR_KINDS, EDGE_BOUNDARIES, FARM_RING_EDGES,
+                           LB_TABLE_SHAPES, SCAN_RING_SIZES, calendar_weights, edge_headers,
+                           program, seg_starts, serve_case, signed_sum_input, spread_program)
 
 pytestmark = pytest.mark.cuda
 
@@ -364,6 +364,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         lb_route(h, dataclasses.replace(t, seg_start_hi=t.seg_start_hi[:8],
                                         seg_start_lo=t.seg_start_lo[:8],
                                         seg_row=t.seg_row[:8]))
+    from repro_torch.kernels.calendar import build_calendar
+
+    flag = torch.tensor([True], device="cuda")
+    for m, n_slots in ((0, 512), (101, 100), (513, 513), (513, 512), (4, 513)):
+        with pytest.raises(ValueError):  # M = 0, M > n_slots, M or n_slots > 512
+            build_calendar(torch.ones(m, dtype=torch.float64, device="cuda"), flag,
+                           torch.zeros(n_slots, dtype=torch.int32, device="cuda"))
 
 
 @pytest.fixture
@@ -557,30 +564,75 @@ def test_chain_probe_times_both_chains():
     r = chain_probe(1 << 12)
     assert r["n"] == 1 << 12
     assert 1 <= r["add_cycles"] < r["row_cycles"] and 0 < r["add_ns"] < r["row_ns"]
+    # the round-robin step (a redux.sync and a few integer operations) is
+    # shorter than a farm row in the reference's order (two DSETPs)
+    assert 0 < r["rr_step_cycles"] < r["straight_row_cycles"]
+    assert 0 < r["rr_step_ns"] < r["straight_row_ns"]
+    assert r["rr_step_cycles"] <= r["rr16_step_cycles"]
 
 
-def _calendar_equal(w, do_sw=True):
+def _calendar_equal(w, do_sw=True, n_slots=512):
     from repro_torch.kernels.calendar import build_calendar
 
-    out_gpu = torch.full((512,), -7, dtype=torch.int32, device="cuda")
+    out_gpu = torch.full((n_slots,), -7, dtype=torch.int32, device="cuda")
     flag = torch.tensor([do_sw], device="cuda")
     before = _lib.LAUNCHES["build_calendar"]
     build_calendar(w.cuda(), flag, out_gpu)
     assert _lib.LAUNCHES["build_calendar"] == before + 1
-    want = build_calendar(w, torch.tensor([do_sw]), torch.full((512,), -7, dtype=torch.int32))
+    want = build_calendar(w, torch.tensor([do_sw]),
+                          torch.full((n_slots,), -7, dtype=torch.int32))
     assert torch.equal(out_gpu.cpu(), want)
     return want
 
 
-@pytest.mark.parametrize("m", [1, 5, 16, 32])
-@pytest.mark.parametrize("kind", ["equal", "dominant", "random", "ties"])
+# the smoke's member counts: one warp's edges (31, 32, 33), numpy's 128-lane
+# block (128, 129) and the kernel's 512
+@pytest.mark.parametrize("m", [1, 5, 16, 31, 32, 33, 64, 128, 129, 256, 511, 512])
+@pytest.mark.parametrize("kind", CALENDAR_KINDS)
 def test_build_calendar_equals_plain(m, kind):
-    rng = np.random.default_rng(m)
-    w = {"equal": np.ones(m), "dominant": np.r_[40.0, np.full(m - 1, 0.05)][:m],
-         "random": rng.uniform(0.05, 8.0, m),
-         "ties": np.repeat(rng.uniform(0.3, 2.0, (m + 2) // 3), 3)[:m]}[kind]
-    cal = _calendar_equal(torch.from_numpy(w))
+    cal = _calendar_equal(torch.from_numpy(calendar_weights(m, kind, m)))
     assert int(cal.min()) >= 0 and int(cal.max()) < m
+
+
+@pytest.mark.parametrize("n_slots,m", [(1, 1), (100, 1), (100, 7), (100, 100), (511, 16),
+                                       (511, 300), (511, 511)])
+@pytest.mark.parametrize("kind", ["random", "ties", "dominant"])
+def test_build_calendar_slot_counts_equal_plain(n_slots, m, kind):
+    cal = _calendar_equal(torch.from_numpy(calendar_weights(m, kind, n_slots + m)),
+                          n_slots=n_slots)
+    assert cal.shape == (n_slots,) and int(cal.max()) < m
+
+
+def test_build_calendar_in_a_graph_replay():
+    """One captured launch replayed with new weights (and a new switch flag)
+    copied in between: each replay equals the plain version on them, and a
+    replay with do_sw false leaves the last calendar in place."""
+    from repro_torch.kernels.calendar import build_calendar
+
+    w = torch.ones(64, dtype=torch.float64, device="cuda")
+    flag = torch.tensor([True], device="cuda")
+    out = torch.full((512,), -7, dtype=torch.int32, device="cuda")
+    build_calendar(w, flag, out)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    before = _lib.LAUNCHES["build_calendar"]
+    with torch.cuda.graph(g):
+        build_calendar(w, flag, out)
+    assert _lib.LAUNCHES["build_calendar"] == before + 1
+    rng = np.random.default_rng(20)
+    for i, kind in enumerate(["random", "dominant", "ties", "random"]):
+        wn = calendar_weights(64, kind, i)
+        w.copy_(torch.from_numpy(wn))
+        g.replay()
+        torch.cuda.synchronize()
+        want = build_calendar(torch.from_numpy(wn), torch.tensor([True]),
+                              torch.empty(512, dtype=torch.int32))
+        assert torch.equal(out.cpu(), want), kind
+    w.copy_(torch.from_numpy(rng.uniform(0.05, 8.0, 64)))
+    flag.fill_(False)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
 
 
 def test_build_calendar_without_switch_leaves_out_untouched():

@@ -179,7 +179,8 @@ def test_plain_running_sum_is_numpy_cumsum(n):
     np.testing.assert_array_equal(seq_cumsum(torch.from_numpy(x)).numpy(), np.cumsum(x))
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 9, 16, 17, 32])
+# past 128 lanes numpy sums the two halves of the vector, each pairwise
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 16, 17, 32, 127, 128, 129, 200, 256, 511, 512])
 def test_np_sum_is_numpy_sum(m):
     x = np.random.default_rng(m).uniform(0, 3, m) * np.random.default_rng(m + 1).choice(
         [1.0, 1e-3, 1e5], m)

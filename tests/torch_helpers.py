@@ -161,3 +161,27 @@ def signed_sum_input(n, seed) -> np.ndarray:
     x[rng.random(n) < 0.05] = -0.0
     x[0] = -0.0
     return x
+
+
+CALENDAR_KINDS = ("equal", "dominant", "random", "ties")
+
+
+def calendar_weights(m, kind, seed) -> np.ndarray:
+    """Float64 weights of m calendar members: ``CALENDAR_KINDS`` (as
+    ``chip_smoke.calendar_weights`` makes them), "surplus" (one member at
+    40 m over the rest at 0.05: hundreds of members raised to one slot, the
+    surplus loop's longest runs) and "log-uniform" (16 decades)."""
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return np.ones(m)
+    if kind == "dominant":
+        return np.r_[40.0, np.full(m - 1, 0.05)][:m]
+    if kind == "random":
+        return rng.uniform(0.05, 8.0, m)
+    if kind == "ties":
+        return np.repeat(rng.uniform(0.3, 2.0, (m + 2) // 3), 3)[:m]
+    if kind == "surplus":
+        return np.r_[40.0 * m, np.full(m - 1, 0.05)][:m]
+    if kind == "log-uniform":
+        return np.exp(rng.uniform(-8.0, 8.0, m))
+    raise ValueError(f"unknown weight kind {kind!r}")
