@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for the H100).
 
 Drives the port's main paths — the load balancer's closed loop, the
-simulator, the control plane as a service, the two-tier fabric, and
-LB-front-door serving of Yi-6B — through the entry points a user calls,
+simulator, the control plane as a service, the two-tier fabric,
+LB-front-door serving of Yi-6B and training with LB ingest — through the
+entry points a user calls,
 builds every CUDA kernel of those paths from the sources in this checkout,
 and holds each kernel against its plain PyTorch version at full width.
 Phases, one line (or more) each; any failure exits non-zero and prints no
@@ -104,7 +105,24 @@ result:
                 vlb_spray (20 windows; K = 8 stacks 16 x 64 member slots
                 through lb_route's "global" design), card == CPU, its
                 windows/s, packets/s and the card's busy share
-  9. result     the `kernels` JSON line, the card line, and the last line
+  9. train      training with LB ingest (repro_torch.train): the Yi-6B
+                smoke config (float32, TF32 off) through launch.train
+                --lb-ingest, 4 steps, card == CPU (loss, grad_norm, lr
+                within rtol/atol 2e-4, occupancy exact, lb_route once per
+                step); then Yi-6B at full width, 8 of its 32 layers (bf16,
+                random weights, remat, batch 4 x 2048 tokens): steps 1-6
+                with the embedded control plane and a checkpoint at step 3,
+                every leaf's gradient finite and non-zero after step 1, a
+                fresh trainer restored from step 3 repeating steps 4-6
+                exactly (steps 4-6 of both runs under deterministic
+                algorithms, the other steps not), one step under
+                torch.profiler (the card's busy share), 2 steps in
+                controld mode, 1 step with 8-bit moments and gradient
+                compression; lb_route launched once per step, flash_attention
+                never; median step ms (steps 1-3, 8-9), trained tokens/s,
+                peak memory against the state's reckoning, the checkpoint's
+                save and restore seconds
+ 10. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -112,6 +130,7 @@ result:
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1875,6 +1894,269 @@ def fabric_phase(torch, np):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training with LB ingest
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048   # Yi-6B width, depth cut 32 -> 8
+TRAIN_SMOKE = dict(steps=4, batch=8, seq=64)
+TRAIN_TOL = dict(rtol=2e-4, atol=2e-4)  # float32 on both, TF32 off: reassociation only
+TRAIN_STATE_BYTES_PER_PARAM = 2 + 2 + 4 + 4  # bf16 params, bf16 grads, f32 m and v
+
+
+def _train_dir(name):
+    import shutil
+
+    d = ROOT / "build" / "train" / name
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def train_smoke(torch, np):
+    """The launcher (``repro_torch.launch.train``) on the Yi-6B smoke config
+    with --lb-ingest, on the card and on the CPU, both from one checkpoint
+    drawn on the CPU: loss, grad_norm and lr within TRAIN_TOL, the ingest
+    occupancy exactly equal, lb_route once per step on the card."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import train_step as TS
+
+    cfg = get_smoke_config("yi-6b")
+    st = TS.init_train_state(torch.Generator().manual_seed(0), cfg, TS.TrainConfig(), "cpu")
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        d = _train_dir(f"smoke_{dev}")
+        ckpt.save(str(d), 0, {"params": st["params"], "opt": st["opt"], "step": st["step"]})
+        before = _lib.LAUNCHES["lb_route"]
+        tr = launch_train.main(
+            ["--arch", "yi-6b", "--demo", "--lb-ingest", "--steps", str(TRAIN_SMOKE["steps"]),
+             "--batch", str(TRAIN_SMOKE["batch"]), "--seq", str(TRAIN_SMOKE["seq"]),
+             "--ckpt-dir", str(d), "--device", dev])
+        hist[dev] = tr.history
+        if dev == "cuda":
+            check(_lib.LAUNCHES["lb_route"] - before == TRAIN_SMOKE["steps"],
+                  "smoke train: lb_route not launched once per step")
+    worst = 0.0
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        check(a["ingest_occupancy"] == b["ingest_occupancy"],
+              f"smoke train: occupancy differs card vs CPU: {a} {b}")
+        for k in ("loss", "grad_norm", "lr"):
+            err = abs(a[k] - b[k])
+            check(err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(b[k]),
+                  f"smoke train: {k} differs card vs CPU: {a[k]} {b[k]}")
+            worst = max(worst, err / abs(b[k]))
+    say("[train] " + json.dumps(dict(
+        run="yi-6b smoke config (float32, TF32 off) through launch.train --lb-ingest",
+        **TRAIN_SMOKE, card_equals_cpu=f"loss, grad_norm, lr within {TRAIN_TOL}; occupancy exact",
+        worst_rel_diff=worst, occupancy=[h["ingest_occupancy"] for h in hist["cuda"]],
+        loss_card=[h["loss"] for h in hist["cuda"]], loss_cpu=[h["loss"] for h in hist["cpu"]]),
+        sort_keys=True))
+
+
+def _profiled_kernels(torch, fn, top=8):
+    """``fn()`` under torch.profiler: (wall s, device busy s, the ``top``
+    kernels by device time as [name, ms, share of busy])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(per.values())
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])[:top]
+    return wall, busy_us / 1e6, [[k[:90], v / 1e3, v / busy_us] for k, v in ranked]
+
+
+def _grad_check(torch, O):
+    """Patch ``optimizer.update`` for one call: record, per leaf, whether
+    its gradient is finite and non-zero. Returns (undo, results)."""
+    from repro_torch.tree import leaves
+
+    orig, seen = O.update, []
+
+    def update(grads, state, params, cfg):
+        flags = [torch.stack([torch.isfinite(g).all(), g.abs().amax() > 0])
+                 for g in leaves(grads)]
+        seen.append(torch.stack(flags).cpu())
+        return orig(grads, state, params, cfg)
+
+    O.update = update
+    return (lambda: setattr(O, "update", orig)), seen
+
+
+def _timed_steps(torch, tr, times):
+    """Wrap the trainer's step with a host clock that ends after the card;
+    each step's seconds go to ``times``."""
+    step = tr.step_fn
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = step(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    tr.step_fn = timed
+    return tr
+
+
+def _deterministic(torch, fn):
+    """``fn()`` under ``torch.use_deterministic_algorithms(True)``: only the
+    resume check runs so; a user's training, and every timed step, does not."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_full(torch, np):
+    """Yi-6B at full width, depth cut to TRAIN_LAYERS (bf16, random weights,
+    remat), LB ingest over a one-process mesh: steps 1-3 with the embedded
+    control plane and a checkpoint at step 3, steps 4-6 live and then again
+    in a fresh trainer restored from step 3 (both under deterministic
+    algorithms, and equal), one profiled step, 2 steps in controld mode, 1
+    step with 8-bit moments and gradient compression. Returns the launches
+    of these runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import _lib
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    cfg = get_config("yi-6b").with_(n_layers=TRAIN_LAYERS)
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-4, warmup_steps=2, decay_steps=100),
+                        remat=True, lb_ingest=True)
+    mesh = Mesh(("data",), (1,))
+    ck = _train_dir("ckpt")
+    run = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+
+    # seconds of steps 1-3, 4-6 live and resumed (deterministic), 7 (profiled), 8-9, 10
+    times = []
+
+    def trainer(train_cfg=tc, **kw):
+        return _timed_steps(torch, Trainer(cfg, train_cfg, TrainerConfig(
+            ckpt_dir=str(ck), device="cuda", **kw), mesh=mesh), times)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    tr = trainer(ckpt_every=3)
+    tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(tr.state["params"]))
+    undo, grads_ok = _grad_check(torch, O)
+    try:
+        tr.run(1, **run)
+    finally:
+        undo()
+    ok = grads_ok[0]
+    check(bool(ok.all()), f"full train: {int((~ok).any(1).sum())} of {len(ok)} leaves have a "
+                          "gradient that is not finite or is zero after step 1")
+    t0 = time.perf_counter()
+    tr.run(2, **run)                          # steps 2-3; run() waits for step 3's save
+    t_save = time.perf_counter() - t0 - sum(times[1:3])  # the host copy and the write
+    next_event = tr.next_event
+    tr.cfg.ckpt_every = 1 << 30
+    hist = _deterministic(torch, lambda: tr.run(3, **run))   # steps 4-6
+    check(_lib.LAUNCHES["lb_route"] == 6 and _lib.LAUNCHES["flash_attention"] == 0,
+          f"full train: launches after 6 steps {dict(_lib.LAUNCHES)}")
+    embedded = [dict(h) for h in hist]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del tr, hist
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tr2 = trainer()
+    tr2.cfg.ckpt_every = 1 << 30
+    step = tr2.init_or_restore(torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    check(step == 3, f"full train: restored step {step}, not 3")
+    tr2.next_event = next_event  # event numbers are not checkpointed (nor in the reference)
+    resumed = _deterministic(torch, lambda: tr2.run(3, **run))
+    for a, b in zip(resumed[-3:], embedded[-3:]):
+        check(a == b, f"full train: the resume from step 3 differs:\n{a}\n{b}")
+    wall, busy, top_kernels = _profiled_kernels(torch, lambda: tr2.run(1, **run))  # step 7
+
+    tr3 = trainer(use_controld=True)
+    tr3.state, tr3.next_event = tr2.state, tr2.next_event
+    del tr2
+    controld = tr3.run(2, **run)              # steps 8-9
+    tc8 = dataclasses.replace(tc, adamw=dataclasses.replace(tc.adamw, eight_bit=True),
+                              grad_compress=True)
+    params = tr3.state["params"]
+    tr3.state["opt"] = None
+    torch.cuda.empty_cache()
+    tr4 = trainer(tc8)
+    tr4.state = dict(tr3.state, opt=O.init(params, tc8.adamw), efb=None)
+    tr4.next_event = tr3.next_event
+    del tr3
+    eight = tr4.run(1, **run)                 # step 10
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    for h in embedded + resumed + controld + eight:
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"full train: a step's loss is not finite: {h}")
+    check(launches["lb_route"] == 13 and launches["flash_attention"] == 0,
+          f"full train: launches {launches} (lb_route once per step of 13, flash_attention never)")
+    check(int(tr4.state["step"]) == 10, f"full train: step {int(tr4.state['step'])}")
+
+    step_s = times[0:3] + times[10:12]  # f32 moments, not deterministic, not profiled
+    det_s = times[3:9]
+    occ = [h["ingest_occupancy"] for h in embedded]
+    trained = occ[0] * TRAIN_BATCH * (TRAIN_SEQ - 1)
+    state_gb = n_params * TRAIN_STATE_BYTES_PER_PARAM / 1e9
+    say("[train] " + json.dumps(dict(
+        run=f"yi-6b width, {TRAIN_LAYERS} of 32 layers, bf16, remat, lb_ingest (1-process mesh)",
+        n_params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=t_init,
+        step_ms_median=statistics.median(step_s) * 1e3, step_ms=[t * 1e3 for t in step_s],
+        step_ms_of="steps 1-3 and 8-9 (not deterministic, not profiled)",
+        step_ms_deterministic=[t * 1e3 for t in det_s],
+        occupancy=occ, trained_tokens_per_step=trained,
+        trained_tokens_per_s=trained / statistics.median(step_s),
+        processed_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(step_s),
+        busy_share_of_a_step=busy / wall, profiled_step_ms=wall * 1e3, busy_ms=busy * 1e3,
+        busy_measured_by="torch.profiler: the card's kernel, copy and set intervals of step 7",
+        top_kernels_of_step7=top_kernels,
+        ckpt_save_wait_s=t_save, ckpt_restore_s=t_restore,
+        resume_equal="steps 4-6 restored from step 3 equal the live run's (both deterministic)",
+        peak_mem_gb=peak_gb, state_gb_reckoned=state_gb,
+        state_reckoning=f"{n_params} params x {TRAIN_STATE_BYTES_PER_PARAM} B (bf16 params "
+                        "and grads, f32 m and v)",
+        loss=[h["loss"] for h in embedded + resumed[-1:] + controld + eight],
+        leaves_with_finite_nonzero_grad_step1=len(grads_ok[0]),
+        step_ms_8bit_compressed=times[12] * 1e3,
+        launches={k: v for k, v in launches.items() if v}), sort_keys=True))
+    import shutil
+    shutil.rmtree(ROOT / "build" / "train", ignore_errors=True)
+    return launches
+
+
+def train_phase(torch, np):
+    """Training with LB ingest (repro_torch.train): the smoke config card ==
+    CPU, then Yi-6B's width at 8 layers. Returns the full-width launches."""
+    t0 = time.perf_counter()
+    train_smoke(torch, np)
+    launches = train_full(torch, np)
+    say(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1889,6 +2171,9 @@ def main() -> int:
               flush=True)
         return 1
     sys.path.insert(0, str(SRC))
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms only
+    # with a fixed workspace, set before its first handle ([train]'s resume)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
 
     try:
@@ -1921,6 +2206,7 @@ def main() -> int:
         results.update(simnet_results)
         controld_launches = controld_phase(torch, np)
         fabric_launches = fabric_phase(torch, np)
+        train_launches = train_phase(torch, np)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -1929,12 +2215,14 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=(loop_launches[name] + serve_launches[name]
                               + simnet_launches.get(name, 0) + controld_launches[name]
-                              + fabric_launches.get(name, 0)),
+                              + fabric_launches.get(name, 0) + train_launches.get(name, 0)),
                     **results[name])
                for name in REPLACES]
     for row in kernels:
         if fabric_launches.get(row["name"]):  # of which in the fabric phase
             row["launches_fabric"] = fabric_launches[row["name"]]
+        if train_launches.get(row["name"]):  # of which in the training phase
+            row["launches_train"] = train_launches[row["name"]]
         if row["name"] == "flash_attention":  # of which through the wgmma design
             row["launches_wgmma"] = (loop_launches["flash_attention_wgmma"]
                                      + serve_launches["flash_attention_wgmma"])

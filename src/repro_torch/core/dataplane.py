@@ -11,6 +11,7 @@ stacked on a leading dim) on one device and exposes
     route_events(ev, ent)   -> Route        (host-side event numbers)
     plan(member)            -> (pos, counts)  per-member dispatch plan
     dispatch(...) / combine(...) -> per-member packed buffers + drops
+    redistribute(mesh, ...) -> the all_to_all exchange across ranks
     segment(bundles)        -> PacketBatch  (vectorized segmentation §II-C)
     reassembly_plan(...)    -> sort-based completion detection
     make_reassembler(...)   -> stateful batched CN-side reassembler
@@ -151,6 +152,12 @@ class DataPlane:
         """Scatter by a precomputed plan; returns (buf, occ, dropped)."""
         return combine_payloads(payload, member, pos, n_members=n_members,
                                 capacity=capacity)
+
+    # -- redistribution across ranks -----------------------------------------
+    def redistribute(self, mesh, axis_names, capacity_per_src: int):
+        """Build the all_to_all exchange (LB -> CN delivery) over the mesh's
+        process group (``router.make_redistribute``)."""
+        return _router.make_redistribute(mesh, axis_names, capacity_per_src)
 
     # -- ingest (segmentation & reassembly, paper §II-C) ----------------------
     @staticmethod

@@ -13,8 +13,10 @@ value (``protocol.decode_fields``), so the u64 compare is plain int64 math.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.protocol import SLOT_MASK, validate
 from repro_torch.core.tables import DeviceTables
@@ -184,3 +186,45 @@ def dispatch(
     pos, keep, counts = member_positions(member, n_members, capacity)
     buf, occ = scatter_by_plan(payload, member, pos, keep, n_members, capacity)
     return buf, occ, counts
+
+
+# ---------------------------------------------------------------------------
+# Redistribution across ranks: the "LB -> CN delivery" as an all_to_all.
+# ---------------------------------------------------------------------------
+
+def make_redistribute(mesh, axis_names, capacity_per_src: int):
+    """Build the exchange of event payloads between data-parallel ranks.
+
+    Each rank plays both DAQ-aggregation point (arrival order) and CN (event
+    owner). Within a rank: pack the local events into per-member send
+    buffers of ``capacity_per_src`` rows (``dispatch``); one
+    ``torch.distributed.all_to_all_single`` over the mesh's process group
+    swaps the member dim across ranks, and a second carries the occupancy;
+    each member then holds every event routed to it. With one rank along
+    ``axis_names`` the packed buffer is the result and no collective runs.
+
+    Returns fn(payload[B_local, ...], member[B_local]) ->
+      (recv[W*capacity_per_src, ...], occ[W*capacity_per_src]) on each rank,
+      source-major (rows from rank s at ``s*capacity_per_src``), as the
+      reference's shard_map returns per shard.
+    """
+    axis = tuple(axis_names) if isinstance(axis_names, (tuple, list)) else (axis_names,)
+    n_members = math.prod(mesh.shape[a] for a in axis)
+
+    def exchange(x):
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=mesh.group)
+        return out
+
+    def redistribute(payload, member):
+        buf, occ, _ = dispatch(payload, member, n_members, capacity_per_src)
+        flat = buf.reshape((-1,) + tuple(payload.shape[1:]))
+        occ = occ.reshape(-1)
+        if n_members > 1:
+            if dist.get_world_size(mesh.group) != n_members:
+                raise ValueError(f"the process group has {dist.get_world_size(mesh.group)} ranks; "
+                                 f"the mesh's {axis} axes have {n_members}")
+            flat, occ = exchange(flat), exchange(occ)
+        return flat, occ
+
+    return redistribute

@@ -1,0 +1,175 @@
+"""Parameter/activation sharding rules per architecture family.
+
+Port of the JAX package's ``repro/distributed/sharding.py``. Physical mesh
+axes: ("pod", "data", "model") multi-pod or ("data", "model") single-pod.
+Policy:
+
+  * TP on "model" for: q-head projections, d_ff, expert d_ff, vocab — only
+    when the dim is divisible by the model-axis size (checked per param; the
+    fallback is FSDP-only for that param).
+  * FSDP on "data" (+"pod") for the largest remaining dim of every large
+    param.
+  * Activations: batch on ("pod", "data").
+
+``Mesh`` stands where ``jax.sharding.Mesh`` stands: axis names and sizes,
+and the process group of the data-parallel ranks. The rules resolve to
+placement specs (a tuple per leaf: a mesh axis, a tuple of axes or None per
+dim), equal to the reference's ``PartitionSpec``s. Executing a step placed
+by them (FSDP or DTensor over a ``DeviceMesh``) is not in the port yet
+(ROADMAP.md queue 1).
+
+A list in a params tree (the port's per-layer list) is described as the
+reference stores it (``repro_torch.tree``): one leaf per path whose leading
+dim is the list's length, so a spec has the layer dim first.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Optional
+
+from repro_torch.distributed.context import ShardingRules
+from repro_torch.tree import flat_paths, stacked_shape, unflatten_paths
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Named mesh axes and their sizes; ``group`` is the process group of
+    the ranks along the data axes (None: the default group, or a single
+    process when the data axes have size 1)."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+    group: Optional[object] = None
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"axis names {self.axis_names} and sizes {self.axis_sizes} "
+                             "differ in length")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def data_axes(mesh: Mesh):
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def model_axis(mesh: Mesh) -> Optional[str]:
+    return "model" if "model" in mesh.axis_names else None
+
+
+def data_extent(mesh: Mesh) -> int:
+    """Ranks along the data axes: the data-parallel members."""
+    return math.prod(mesh.shape[a] for a in data_axes(mesh))
+
+
+def logical_rules(mesh: Mesh, *, seq_axis: Optional[str] = None) -> ShardingRules:
+    """seq_axis="model" => Megatron-style sequence-parallel activations (the
+    residual stream stays seq-sharded on the model axis between blocks)."""
+    d_ax = data_axes(mesh)
+    batch = d_ax if len(d_ax) > 1 else (d_ax[0] if d_ax else None)
+    return ShardingRules(
+        mesh=mesh,
+        rules={
+            "batch": batch,
+            "vocab": model_axis(mesh),
+            "ff": model_axis(mesh),
+            "heads": model_axis(mesh),
+            "seq": (model_axis(mesh) if seq_axis == "model" else None),
+        },
+    )
+
+
+# -- parameter annotation -----------------------------------------------------
+
+_TP_RULES = [
+    # (path regex, dim index (negative ok), logical group)
+    (r".*attn/w[qkv]$", -1, "tp_out"),     # [*, d, H*hd] shard H*hd
+    (r".*attn/wo$", -2, "tp_in"),          # [*, H*hd, d] shard H*hd (input dim)
+    (r".*(mlp|dense)/w_(gate|up)$", -1, "tp_out"),
+    (r".*(mlp|dense)/w_down$", -2, "tp_in"),
+    (r".*moe/w_(gate|up)$", -1, "tp_out"),  # [L, E, d, ff]
+    (r".*moe/w_down$", -2, "tp_in"),        # [L, E, ff, d]
+    (r".*embed$", 0, "vocab"),
+    (r".*head$", -1, "vocab"),
+    (r".*rwkv/(ck)$", -1, "tp_out"),
+    (r".*rwkv/(cv)$", -2, "tp_in"),
+    (r".*rwkv/w[rkvg]$|.*rwkv/wo$", -1, "tp_out_sq"),
+    (r".*mamba/w_in$", -1, "tp_out"),
+    (r".*mamba/w_out$", -2, "tp_in"),
+]
+
+
+def param_sharding(
+    params,
+    mesh: Mesh,
+    cfg,
+    *,
+    fsdp: bool = True,
+    min_fsdp_size: int = 2**16,
+    wide_tp: bool = False,
+    tp_enabled: bool = True,
+):
+    """Returns a tree of placement specs (one tuple per leaf, in the
+    reference's stacked layout) matching ``params``: leaves are anything
+    with a ``shape`` (tensors, numpy arrays).
+
+    TP where divisible; optional FSDP on the largest remaining dim (prefers
+    dims already unsharded). kv-head projections smaller than the model axis
+    stay replicated across "model" (GQA kv<TP).
+
+    ``wide_tp`` (serving): TP dims shard over ALL mesh axes (data+model
+    combined) when divisible. ``tp_enabled=False``: pure-DP/FSDP layout (no
+    model-axis param sharding).
+    """
+    m_ax = model_axis(mesh)
+    m_size = mesh.shape[m_ax] if m_ax else 1
+    d_ax = data_axes(mesh)
+    d_size = data_extent(mesh)
+    all_ax = tuple(d_ax) + ((m_ax,) if m_ax else ())
+    all_size = d_size * m_size
+
+    def one(pstr, shape):
+        ndim = len(shape)
+        spec = [None] * ndim
+        if tp_enabled and m_ax and m_size > 1:
+            for pat, dim, _group in _TP_RULES:
+                if re.match(pat, pstr):
+                    di = dim % ndim
+                    # wide TP only where no head-reshape follows the matmul
+                    # (attention projections reshape H*hd -> [H, hd]).
+                    wide_ok = wide_tp and "attn/" not in pstr
+                    if wide_ok and shape[di] % all_size == 0:
+                        spec[di] = all_ax
+                    elif shape[di] % m_size == 0:
+                        spec[di] = m_ax
+                    break
+        if fsdp and d_ax and d_size > 1 and math.prod(shape) >= min_fsdp_size:
+            # largest unsharded dim divisible by the data extent
+            used = {a for s in spec if s for a in (s if isinstance(s, tuple) else (s,))}
+            if not (used & set(d_ax)):
+                cand = sorted((i for i in range(ndim) if spec[i] is None),
+                              key=lambda i: -shape[i])
+                for i in cand:
+                    if shape[i] % d_size == 0:
+                        spec[i] = d_ax if len(d_ax) > 1 else d_ax[0]
+                        break
+        return tuple(spec)
+
+    return unflatten_paths({path: one(path, stacked_shape(leaf))
+                            for path, leaf in flat_paths(params).items()})
+
+
+def batch_sharding(mesh: Mesh, ndim: int, *, batch_dim: int = 0) -> tuple:
+    d_ax = data_axes(mesh)
+    spec = [None] * ndim
+    if d_ax:
+        spec[batch_dim] = d_ax if len(d_ax) > 1 else d_ax[0]
+    return tuple(spec)
+
+
+def replicated(mesh: Mesh) -> tuple:
+    return ()

@@ -12,8 +12,9 @@ int32 ``out`` (``n_slots = out.shape[0]`` slots, at most 512) when the
 device bool ``do_sw`` holds, and leaves ``out`` untouched otherwise: the
 switch decision is read on the device, so a captured window step has no host
 read. The port's host calendar (``core.calendar.build_calendar``) refuses
-more members than slots too. A CUDA input launches the kernel; a CPU input
-takes ``ref.build_calendar_ref``.
+more positive-weight members than slots and gives a zero weight no slot; the
+kernel's contract, like ``_device_calendar``'s, is all weights positive. A
+CUDA input launches the kernel; a CPU input takes ``ref.build_calendar_ref``.
 """
 from __future__ import annotations
 

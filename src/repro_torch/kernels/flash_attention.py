@@ -14,6 +14,12 @@ Two designs compute the same function, chosen by ``_design(dtype, d)``:
 ``"wgmma"`` (TMA ring, wgmma, warp-specialised; bf16 at d in
 ``WGMMA_HEAD_DIMS``) and ``"mma"`` (mma.sync, fp32 and the other head dims).
 The choice is by shape alone: a failed build or launch of either raises.
+
+Forward only, as the Pallas kernel is: the kernel's output has no
+``grad_fn``, so a call on inputs that require grad while autograd records
+raises rather than cutting the graph (training attends through the plain
+``models.layers.attention``, as the JAX package trains through its
+``layers.attention``).
 """
 from __future__ import annotations
 
@@ -45,6 +51,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (k.shape[0], k.shape[1], k.shape[3]) != (b, t, d) or hkv == 0 or hq % hkv:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
                          "(same B, T and d; Hq a multiple of Hkv)")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention is forward only (no backward, as the Pallas "
+                           "kernel): call it under torch.no_grad(), or attend through "
+                           "models.layers.attention to train")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":

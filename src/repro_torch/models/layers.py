@@ -3,10 +3,12 @@ caches. Port of the JAX package's ``repro/models/layers.py``: functions over
 plain dicts of tensors, with the same names, layouts (``x @ W`` with W
 ``[in, out]``) and arithmetic.
 
-Attention over a fresh sequence (a prefill, no sliding window) goes through
-the hand-written kernel ``kernels.flash_attention``; everything else (decode
-against a ring cache, SWA) through the plain chunked online-softmax
-``attention``, as the JAX package computes it in jnp. The port writes KV
+Attention goes through the plain chunked online-softmax ``attention``, as
+the JAX package computes it in jnp (training, decode against a ring cache,
+SWA), unless the caller asks ``self_attention_block`` for the hand-written
+kernel ``kernels.flash_attention`` (``flash=True``: serving's prefill over a
+fresh sequence with no sliding window). The kernel is forward only, so
+training never asks for it. The port writes KV
 caches in place (the JAX package returns new arrays), so a decode step does
 not copy the cache; a caller that needs the old cache clones it first.
 """
@@ -201,14 +203,15 @@ def init_kv_cache(batch, size, n_kv, hd, dtype, device="cuda") -> KVCache:
 
 
 def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] = None,
-                         q_chunk: int = 1024, k_chunk: int = 1024):
+                         q_chunk: int = 1024, k_chunk: int = 1024, flash: bool = False):
     """x: [B, T, d]. Returns (out [B, T, d], new_cache); ``cache`` is
     written in place.
 
-    With T > 1 the keys are the fresh sequence (all valid, positions
-    increasing along each row, as ``model.step_with_cache`` makes them), and
-    without a sliding window that is exactly the flash kernel's function, so
-    it goes through ``kernels.flash_attention``.
+    ``flash``: the caller's choice of ``kernels.flash_attention`` (forward
+    only) for T > 1 without a sliding window. There the keys are the fresh
+    sequence (all valid, positions increasing along each row, as
+    ``model.step_with_cache`` makes them), which is exactly the kernel's
+    function. Otherwise the plain ``attention`` runs.
     """
     b, t, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -248,7 +251,7 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
         kk, vv = cache.k, cache.v
         kpos, kvalid = cache.pos, cache.pos >= 0
 
-    if t > 1 and cfg.swa_window is None:
+    if flash and t > 1 and cfg.swa_window is None:
         o = _flash.flash_attention(q, k, v, causal=cfg.causal)
     else:
         o = attention(q, kk, vv, qpos=positions, kpos=kpos, kvalid=kvalid,

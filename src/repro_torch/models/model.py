@@ -1,4 +1,5 @@
-"""Model assembly of the port: the dense family's prefill/decode path.
+"""Model assembly of the port: the dense family's training and
+prefill/decode paths.
 
 Port of the JAX package's ``repro/models/model.py`` for the dense family.
 Parameters are a plain dict of tensors with one entry per layer in
@@ -10,12 +11,17 @@ JAX parameters across with no transposes.
 Public API:
     init_params(cfg, generator, device)        -> params
     params_from_numpy(tree, cfg, device)       -> params (from the JAX pytree)
+    forward(params, batch, cfg, remat=...)     -> (logits [B, T, V] f32, aux)
+    train_loss(params, batch, cfg)             -> (loss, metrics)
     init_decode_state(cfg, batch, max_len, device) -> cache state
     prefill(params, batch, state, cfg)         -> (logits_last, state)
     decode_step(params, token, state, cfg)     -> (logits, state)
 
-``forward`` and ``train_loss`` come with the training slice; the moe, vlm,
-audio, hybrid and ssm families raise ``NotImplementedError``.
+``forward`` attends through the plain chunked ``layers.attention`` (it is
+differentiable; the JAX package trains through the same function); only
+the cached path's prefill asks for the forward-only ``flash_attention``
+kernel. The moe, vlm, audio, hybrid and ssm families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -47,10 +55,10 @@ def _dense_only(cfg: ModelConfig) -> None:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk):
+def _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk, flash=False):
     h, new_cache = L.self_attention_block(
         p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-        positions=positions, cache=cache, q_chunk=q_chunk, k_chunk=k_chunk,
+        positions=positions, cache=cache, q_chunk=q_chunk, k_chunk=k_chunk, flash=flash,
     )
     x = x + h
     ff = L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
@@ -137,7 +145,7 @@ def to_device(tree, device):
 
 
 # ---------------------------------------------------------------------------
-# decode path (serving)
+# forward (training / no-cache path)
 # ---------------------------------------------------------------------------
 
 def _embed(params, batch, cfg):
@@ -146,6 +154,66 @@ def _embed(params, batch, cfg):
     if "embeds" in batch:
         return batch["embeds"].to(_dtype(cfg))
     return params["embed"][batch["tokens"].long()]
+
+
+def _head_logits(params, x, cfg):
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    # The JAX package takes f32 logits from bf16 operands
+    # (preferred_element_type=f32): each bf16 x bf16 product is exact in f32
+    # and the sum is kept in f32. Upcasting both operands to f32 exactly and
+    # taking an f32 product computes the same.
+    return torch.matmul(x.to(F32), params["head"].to(F32))
+
+
+def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
+            q_chunk: int = 1024, k_chunk: int = 1024):
+    """Full-sequence forward -> (logits [B, T, V] f32, aux loss). ``remat``
+    recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` around its scan body does."""
+    _dense_only(cfg)
+    x = _embed(params, batch, cfg)
+    b, t, _ = x.shape
+    positions = torch.arange(t, dtype=torch.int32, device=x.device)[None].expand(b, t)
+
+    def body(x, p):
+        return _attn_block(p, x, cfg, positions, None, q_chunk, k_chunk)[0]
+
+    for p in params["layers"]:
+        x = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
+    logits = _head_logits(params, x, cfg)
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits, torch.zeros((), dtype=F32, device=x.device)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
+               q_chunk: int = 1024, k_chunk: int = 1024):
+    """Next-token CE over the labels >= 0 (the ingest's dropped rows carry
+    -1), plus z-loss 1e-4 and 0.01 x the aux loss (zero for the dense
+    family), as the reference computes them."""
+    logits, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk,
+                          k_chunk=k_chunk)
+    labels = batch["labels"].long()
+    if cfg.causal:
+        logits_s, labels_s = logits[:, :-1], labels[:, 1:]
+    else:
+        logits_s, labels_s = logits, labels
+    mask = (labels_s >= 0).to(F32)
+    logp = torch.log_softmax(logits_s, dim=-1)
+    # a masked label reads any column: its term is multiplied by 0
+    ll = logp.gather(-1, labels_s.clamp(min=0)[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = -(ll * mask).sum() / denom
+    # z-loss keeps the softmax normalizer tame (standard at scale).
+    zl = 1e-4 * ((torch.logsumexp(logits_s, dim=-1) ** 2) * mask).sum() / denom
+    loss = ce + zl + 0.01 * aux
+    return loss, {"ce": ce, "z_loss": zl, "moe_aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# decode path (serving)
+# ---------------------------------------------------------------------------
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
@@ -157,15 +225,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda")
     kv = [L.init_kv_cache(batch, size, cfg.n_kv_heads, cfg.hd, _dtype(cfg), dev)
           for _ in range(cfg.n_layers)]
     return {"kv": kv, "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-
-
-def _logits_last(params, x, cfg):
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    # The JAX package takes f32 logits from bf16 operands
-    # (preferred_element_type=f32): each bf16 x bf16 product is exact in f32
-    # and the sum is kept in f32. Upcasting both operands to f32 exactly and
-    # taking an f32 product computes the same.
-    return torch.matmul(x.to(F32), params["head"].to(F32))
 
 
 def step_with_cache(params, batch, state, cfg: ModelConfig, *,
@@ -181,10 +240,10 @@ def step_with_cache(params, batch, state, cfg: ModelConfig, *,
     new_state["pos"] = pos0 + t
     new_kv = []
     for p, cache in zip(params["layers"], state["kv"]):
-        x, nc, _ = _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk)
+        x, nc, _ = _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk, flash=True)
         new_kv.append(nc)
     new_state["kv"] = new_kv
-    logits = _logits_last(params, x[:, -1:, :], cfg)
+    logits = _head_logits(params, x[:, -1:, :], cfg)
     return logits[:, 0], new_state
 
 

@@ -1,1 +1,2 @@
-"""Test-support utilities shipped with the package (fault injection)."""
+"""Test-support utilities shipped with the package (fault injection, the
+property-testing front end)."""

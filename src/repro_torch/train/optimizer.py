@@ -1,0 +1,103 @@
+"""AdamW with optional int8 per-row quantized moments (8-bit Adam).
+
+Port of the JAX package's ``repro/train/optimizer.py``: plain functions over
+the params tree, not ``torch.optim``, so the state keeps the reference's
+keys (``mu/<path>/m|v``, ``count``) and checkpoints cross over. The update
+is written in place: each parameter tensor is overwritten with its new
+value (under ``torch.no_grad``), and the returned params are the same
+tensors; a caller that needs the old values copies them first (the
+checkpoint's ``AsyncSaver`` copies to the host before it returns).
+
+A leaf of the layer list counts the list as a leading dim
+(``repro_torch.tree``), as the reference's stacked (scanned) layers do: the
+rule "decoupled weight decay on matrices only" (``ndim >= 2``) then decays
+the layers' norm scales and not ``ln_f``, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.tree import leaves, tree_map
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    eight_bit: bool = False
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay, in float32 (``step``: an int32 count)."""
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps) / max(cfg.decay_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+def _q_state(x):
+    """Shape-preserving per-row int8 quantization (rows on the last dim);
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return {"q": q, "s": scale}
+
+
+def _deq_state(st):
+    return st["q"].to(F32) * st["s"]
+
+
+def init(params, cfg: AdamWConfig):
+    def one(p, stacked):
+        z = torch.zeros(p.shape, dtype=F32, device=p.device)
+        if cfg.eight_bit:
+            return {"m": _q_state(z), "v": _q_state(z)}
+        return {"m": z, "v": z.clone()}
+
+    dev = leaves(params)[0].device
+    return {"mu": tree_map(one, params), "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def update(grads, state, params, cfg: AdamWConfig):
+    """Returns (params, new_state, metrics); ``params`` are updated in
+    place. The arithmetic is the reference's, step for step, in float32."""
+    count = state["count"] + 1
+    lr = schedule(cfg, count)
+
+    # global-norm clip
+    gnorm = torch.sqrt(sum(torch.sum(g.to(F32) ** 2) for g in leaves(grads)))
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+    b1c = 1 - torch.pow(cfg.b1, count.to(F32))
+    b2c = 1 - torch.pow(cfg.b2, count.to(F32))
+
+    def one(p, g, mu, stacked):
+        gf = g.to(F32) * clip
+        if cfg.eight_bit:
+            m, v = _deq_state(mu["m"]), _deq_state(mu["v"])
+        else:
+            m, v = mu["m"], mu["v"]
+        m = cfg.b1 * m + (1 - cfg.b1) * gf
+        v = cfg.b2 * v + (1 - cfg.b2) * gf * gf
+        upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if p.ndim + stacked >= 2:  # decoupled weight decay on matrices only
+            upd = upd + cfg.weight_decay * p.to(F32)
+        p.copy_((p.to(F32) - lr * upd).to(p.dtype))
+        return {"m": _q_state(m), "v": _q_state(v)} if cfg.eight_bit else {"m": m, "v": v}
+
+    new_mu = tree_map(one, params, grads, state["mu"])
+    return params, {"mu": new_mu, "count": count}, {"grad_norm": gnorm, "lr": lr}

@@ -453,6 +453,82 @@ def test_smoke_prefill_on_the_card_equals_the_cpu(arch, _full_f32):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
+def test_flash_attention_refuses_autograd_on_the_card():
+    """The kernel has no backward: under autograd it raises before any
+    launch; under no_grad it launches."""
+    q = torch.randn(1, 64, 4, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    before = _lib.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash_attention(q, q.detach(), q.detach())
+    assert _lib.LAUNCHES["flash_attention"] == before
+    with torch.no_grad():
+        flash_attention(q, q, q)
+    assert _lib.LAUNCHES["flash_attention"] == before + 1
+
+
+def _loss_and_grads(cfg, params, batch):
+    from repro_torch.tree import leaves
+
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss, _ = M.train_loss(params, batch, cfg, remat=True, q_chunk=8, k_chunk=8)
+    return loss.detach(), torch.autograd.grad(loss, ps)
+
+
+def test_train_loss_backward_gives_every_leaf_a_gradient(_full_f32):
+    """One backward of the smoke config on the card: every leaf's gradient
+    finite and non-zero, no flash_attention launch, and loss and gradients
+    within rtol/atol 2e-4 of the CPU's (float32, TF32 off)."""
+    cfg = get_smoke_config("yi_6b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 24)))
+    labels = toks.clone()
+    labels[1, 5:9] = -1
+    out = {}
+    before = dict(_lib.LAUNCHES)
+    for dev in ("cuda", "cpu"):
+        out[dev] = _loss_and_grads(cfg, M.to_device(params, dev),
+                                   {"tokens": toks.to(dev), "labels": labels.to(dev)})
+    assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"]
+    loss, grads = out["cuda"]
+    assert torch.isfinite(loss)
+    for g, w in zip(grads, out["cpu"][1]):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(loss.cpu(), out["cpu"][0], rtol=2e-4, atol=2e-4)
+
+
+def test_smoke_trainer_with_lb_ingest_on_the_card_equals_the_cpu(tmp_path, _full_f32):
+    """The trainer with LB ingest, from one checkpoint, 3 steps on the card
+    and on the CPU: occupancy equal, loss and grad_norm within rtol 2e-4;
+    lb_route launched once per step on the card."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke_config("yi_6b")
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-3), remat=True, lb_ingest=True,
+                        q_chunk=8, k_chunk=8)
+    st = TS.init_train_state(torch.Generator().manual_seed(0), cfg, tc, "cpu")
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        d = str(tmp_path / dev)
+        ckpt.save(d, 0, {"params": st["params"], "opt": st["opt"], "step": st["step"]})
+        tr = Trainer(cfg, tc, TrainerConfig(ckpt_dir=d, device=dev), mesh=Mesh(("data",), (1,)))
+        tr.init_or_restore(torch.Generator(device=dev).manual_seed(5))
+        before = _lib.LAUNCHES["lb_route"]
+        hist[dev] = tr.run(3, batch=8, seq=16)
+        if dev == "cuda":
+            assert _lib.LAUNCHES["lb_route"] == before + 3
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        assert a["ingest_occupancy"] == b["ingest_occupancy"]
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=2e-4)
+
+
 # -- the simulator's device helpers (farm_serve, seq_cumsum, build_calendar),
 # -- the chain probe and the fused engine on the card ------------------------
 

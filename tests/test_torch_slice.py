@@ -163,14 +163,36 @@ def test_port_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
     assert len(names) >= 40
-    for sub in ("controld", "telemetry", "testing", "fabric"):
+    for sub in ("controld", "telemetry", "testing", "fabric", "train", "distributed",
+                "checkpoint"):
         assert f"repro_torch.{sub}" in names, sub
     for mod in ("controld.daemon", "controld.ha", "controld.journal", "controld.messages",
                 "controld.replication", "controld.transport", "telemetry.registry",
                 "telemetry.export", "telemetry.trace", "telemetry.traceview",
-                "testing.faults", "fabric.spray", "fabric.elephant", "fabric.sim",
-                "fabric.scenarios", "fabric.run", "serve.engine"):
+                "testing.faults", "testing.hypo", "fabric.spray", "fabric.elephant",
+                "fabric.sim", "fabric.scenarios", "fabric.run", "serve.engine",
+                "train.optimizer", "train.train_step", "train.trainer",
+                "distributed.context", "distributed.sharding", "distributed.compression",
+                "checkpoint.ckpt", "launch.train", "tree"):
         assert f"repro_torch.{mod}" in names, mod
+
+
+def test_calendar_edges_run_without_hypothesis():
+    """The port's property tests draw through ``repro_torch.testing.hypo``:
+    with hypothesis unimportable (a ``sys.modules`` entry of None before
+    pytest starts) the file collects and passes on the seeded fallback."""
+    code = ("import sys\n"
+            "sys.modules['hypothesis'] = None\n"
+            "import pytest\n"
+            "sys.exit(pytest.main(['-q', '-p', 'no:cacheprovider', '-p', 'no:hypothesispytest',\n"
+            "                      '-p', 'no:xdist', '--assert=plain',\n"
+            "                      'tests/test_torch_calendar_edges.py']))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                          env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'tests'}",
+                               "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert " passed" in proc.stdout and "failed" not in proc.stdout
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -211,6 +233,20 @@ class TestDeviceDefault:
                      lambda: BatchReassembler(),
                      lambda: StreamingPipeline(DAQConfig(), TransportConfig(), em),
                      lambda: closed_loop.run(closed_loop.parse_args(["--steps", "1"]))):
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
+
+    def test_training_entry_points_raise(self, tmp_path):
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import train as launch_train
+        from repro_torch.train import train_step as TS
+        from repro_torch.train.trainer import Trainer, TrainerConfig
+
+        cfg = get_smoke_config("yi_6b")
+        assert TrainerConfig().device == "cuda"
+        for make in (lambda: Trainer(cfg, TS.TrainConfig(), TrainerConfig(ckpt_dir=str(tmp_path))),
+                     lambda: TS.init_train_state(torch.Generator(), cfg, TS.TrainConfig()),
+                     lambda: launch_train.main(["--demo", "--ckpt-dir", str(tmp_path)])):
             with pytest.raises(RuntimeError, match="cuda"):
                 make()
 

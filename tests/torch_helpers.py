@@ -185,3 +185,72 @@ def calendar_weights(m, kind, seed) -> np.ndarray:
     if kind == "log-uniform":
         return np.exp(rng.uniform(-8.0, 8.0, m))
     raise ValueError(f"unknown weight kind {kind!r}")
+
+
+# -- the gloo multi-process cases of tests/test_torch_distributed.py ----------
+
+#: LB members of the multi-process ingest: more than any world size (nodes
+#: past W are dropped), with one heavy member (its events overflow cap)
+DIST_MEMBERS = 6
+
+
+def dist_case(world: int) -> dict:
+    """The numpy inputs of one world size, made alike in the parent (for the
+    reference) and in every rank (which takes its rows)."""
+    rng = np.random.default_rng(100 + world)
+    b, t = 8 * world, 8
+    from repro_torch.core.protocol import encode_headers
+
+    events = rng.integers(0, 1 << 40, b).astype(np.uint64)
+    tokens = rng.integers(0, 256, (b, t)).astype(np.int32)
+    member = rng.integers(-1, world, 8 * world).astype(np.int32)
+    member[::2] = np.where(rng.random(4 * world) < 0.7, 0, member[::2])  # member 0 overflows
+    return dict(
+        weights=np.r_[4.0, rng.uniform(0.5, 2.0, DIST_MEMBERS - 1)],
+        tokens=tokens,
+        headers=encode_headers(events, rng.integers(0, 1 << 16, b).astype(np.uint32)),
+        payload=(np.arange(8 * world * 2, dtype=np.float32).reshape(-1, 2) * 10.0),
+        member=member,
+        grads=rng.normal(size=(world, 1000)).astype(np.float32),
+    )
+
+
+def dist_program(pkg, weights):
+    """One LB instance of ``DIST_MEMBERS`` members (node id = member id)."""
+    em = pkg.EpochManager(max_members=16)
+    em.initialize({i: pkg.MemberSpec(node_id=i) for i in range(len(weights))},
+                  {i: float(w) for i, w in enumerate(weights)})
+    return em
+
+
+def dist_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One gloo rank: ``_ingest`` of its arrival shard, ``make_redistribute``
+    of its payload rows, ``psum_compressed`` of its gradient; the results go
+    to ``out_dir/rank<r>.npz``."""
+    import torch.distributed as dist
+
+    import repro_torch.core as tcore
+    from repro_torch.core.router import make_redistribute
+    from repro_torch.distributed.compression import psum_compressed
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.train.train_step import _ingest
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        c = dist_case(world)
+        mesh = Mesh(("data",), (world,))
+        tables = dist_program(tcore, c["weights"]).device_tables("cpu")
+        rows = slice(rank * len(c["tokens"]) // world, (rank + 1) * len(c["tokens"]) // world)
+        out, occ = _ingest({"tokens": c["tokens"][rows], "labels": c["tokens"][rows].copy(),
+                            "headers": c["headers"][rows]}, tables, mesh)
+        per = len(c["member"]) // world
+        mine = slice(rank * per, (rank + 1) * per)
+        recv, rocc = make_redistribute(mesh, ("data",), 3)(
+            torch.from_numpy(c["payload"][mine]), torch.from_numpy(c["member"][mine]))
+        summed, residual = psum_compressed(torch.from_numpy(c["grads"][rank]))
+        np.savez(f"{out_dir}/rank{rank}.npz", tokens=out["tokens"].numpy(),
+                 labels=out["labels"].numpy(), occ=occ.numpy(), recv=recv.numpy(),
+                 rocc=rocc.numpy(), summed=summed.numpy(), residual=residual.numpy())
+    finally:
+        dist.destroy_process_group()
