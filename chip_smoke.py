@@ -3,8 +3,8 @@
 
 Drives the port's main paths — the load balancer's closed loop, the
 simulator, the control plane as a service, the two-tier fabric,
-LB-front-door serving of Yi-6B and training with LB ingest — through the
-entry points a user calls,
+LB-front-door serving of Yi-6B, training with LB ingest and serving of the
+MoE family (Mixtral-8x22B, Arctic) — through the entry points a user calls,
 builds every CUDA kernel of those paths from the sources in this checkout,
 and holds each kernel against its plain PyTorch version at full width.
 Phases, one line (or more) each; any failure exits non-zero and prints no
@@ -122,7 +122,28 @@ result:
                 never; median step ms (steps 1-3, 8-9), trained tokens/s,
                 peak memory against the state's reckoning, the checkpoint's
                 save and restore seconds
- 10. result     the `kernels` JSON line, the card line, and the last line
+ 10. moe        the MoE family, after the earlier phases' tensors are
+                freed: the Mixtral smoke config served card == CPU;
+                dispatch_plan at the pack's shapes (a 4000-token prefill's
+                8000 k-major packets over 8 experts and over Arctic's 128, a
+                4-lane decode step's 8), exactly equal to plain, timed with
+                inputs in L2; flash_attention at Mixtral's prefill shape
+                (T=4096, 48/8 heads) against plain and SDPA; one Mixtral MoE
+                layer at full width (bf16, T=512) with its positions from the
+                kernel bit-equal to the same layer with plain positions;
+                Mixtral-8x22B at published width, 8 of its 56 layers (40.9
+                GB of random bf16 weights), 2 replicas x 4 slots, 8192-token
+                contexts (a 4096-slot ring), 12 prompts of 256-4000 tokens and
+                one of 4500 (past the window: plain attention, ring
+                eviction), a drain of replica 1 and 4 more requests; every
+                prefill within the window launches flash_attention once per
+                layer (wgmma), the long one never, every forward step
+                launches dispatch_plan once per layer, every routing tick
+                lb_route; the shares of the longest in-window prefill taken
+                by flash_attention, the expert products and dispatch_plan
+                (CUDA events) and its drops; then Arctic at published width,
+                2 of its 35 layers (55.4 GB; 1 if 2 do not fit), 4 requests
+ 11. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -581,11 +602,10 @@ def wide_kernel_phase(torch, np):
 def flash_phase(torch, np):
     """flash_attention against its plain version on the card (bf16 at the
     Yi-6B prefill shape, at a ragged T causal and not, at B=2 with a ragged
-    T and with Granite-20B's 48/1 heads; fp32 at a small shape), each check
-    naming the design that ran it; then the kernel's (wgmma design), the
-    plain version's and SDPA's times at the prefill shape."""
-    import torch.nn.functional as F
-
+    T, with Granite-20B's 48/1 heads and Mixtral-8x22B's 48/8; fp32 at a
+    small shape), each check naming the design that ran it; then the
+    kernel's (wgmma design), the plain version's and SDPA's times at the
+    prefill shape."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import _design, flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -635,7 +655,8 @@ def flash_phase(torch, np):
     # keys. atol 5e-3 sits above that and far under a padded-key fault at
     # T=65 and 100 (|o| ~ sqrt(e/T) ~ 0.2 there)
     # B=2 at a ragged T: a tensor map not bounded per batch would read
-    # batch 1's rows into batch 0's last tile; 48/1 heads: Granite-20B's MQA
+    # batch 1's rows into batch 0's last tile; 48/1 heads: Granite-20B's MQA;
+    # 48/8 heads at T=4096: Mixtral-8x22B's longest in-window prefill
     errs = []
     for b, t, hq, hkv, causal in ((1, FLASH_T, FLASH_HQ, FLASH_HKV, True),
                                   (1, 3000, FLASH_HQ, FLASH_HKV, True),
@@ -643,6 +664,7 @@ def flash_phase(torch, np):
                                   (2, 1000, FLASH_HQ, FLASH_HKV, True),
                                   (2, 1000, FLASH_HQ, FLASH_HKV, False),
                                   (1, 3000, 48, 1, True),
+                                  (1, 4096, 48, 8, True),
                                   (1, 65, FLASH_HQ, FLASH_HKV, False),
                                   (1, 100, FLASH_HQ, FLASH_HKV, False)):
         q, k, v = qkv(b, t, hq, hkv, FLASH_D, torch.bfloat16)
@@ -659,26 +681,41 @@ def flash_phase(torch, np):
                 f"fp32 B=2 T=200 8/2 heads d=80 causal={causal}")
 
     q, k, v = qkv(1, FLASH_T, FLASH_HQ, FLASH_HKV, FLASH_D, torch.bfloat16)
+    design = _design(q.dtype, FLASH_D)
+    check(design == "wgmma", f"the Yi-6B prefill shape chose the {design} design")
+    row = flash_times(torch, q, k, v, "[kernels]")
+    return dict(row, max_abs_err=max(errs), design=design, design_sources=DESIGN_SOURCES)
+
+
+def flash_times(torch, q, k, v, tag):
+    """flash_attention's (causal), its plain version's and SDPA's times at
+    q/k/v's shape (bf16), the bound (bf16 q, o, k, v once each; the causal
+    half of the products at the tensor cores' rate) and SDPA's distance
+    from plain."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import _design, flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, T, d]
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_err = float((sdpa().transpose(1, 2).float()
                      - flash_attention_ref(q, k, v).float()).abs().max())
-    design = _design(q.dtype, FLASH_D)
-    check(design == "wgmma", f"the Yi-6B prefill shape chose the {design} design")
     t_k, _ = time_on_card(torch, lambda: flash_attention(q, k, v, causal=True))
     t_p, _ = time_on_card(torch, lambda: flash_attention_ref(q, k, v, causal=True), reps=5)
     t_l, _ = time_on_card(torch, sdpa)
-    bytes_moved = 2 * FLASH_T * FLASH_D * (2 * FLASH_HQ + 2 * FLASH_HKV)  # bf16 q, o, k, v
-    ops = 4 * FLASH_HQ * FLASH_D * FLASH_T * (FLASH_T + 1) // 2
+    bytes_moved = 2 * b * t * d * (2 * hq + 2 * hkv)
+    ops = 4 * b * hq * d * t * (t + 1) // 2
     b_ms, b_by = bound(bytes_moved, ops, BF16_FLOPS_PER_S)
-    say(f"[kernels] flash_attention bf16 B=1 T={FLASH_T} {FLASH_HQ}/{FLASH_HKV} heads "
-        f"d={FLASH_D} causal: kernel ({design}) {t_k:.4f} ms ({ops / t_k / 1e9:.1f} "
-        f"TFLOP/s, {t_k / t_l:.3f}x SDPA), plain {t_p:.4f} ms, "
+    shape = f"B={b} T={t} Hq={hq} Hkv={hkv} d={d} bf16 causal"
+    say(f"{tag} flash_attention {shape}: kernel ({_design(q.dtype, d)}) {t_k:.4f} ms "
+        f"({ops / t_k / 1e9:.1f} TFLOP/s, {t_k / t_l:.3f}x SDPA), plain {t_p:.4f} ms, "
         f"SDPA {t_l:.4f} ms (max |SDPA - plain| {lib_err:.3g}), bound {b_ms:.4f} ms "
         f"({b_by}: {ops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB)")
-    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs),
-                library_ms=t_l, design=design, design_sources=DESIGN_SOURCES,
-                shape=f"B=1 T={FLASH_T} Hq={FLASH_HQ} Hkv={FLASH_HKV} d={FLASH_D} bf16 causal")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+                shape=shape)
 
 
 # ---------------------------------------------------------------------------
@@ -814,14 +851,14 @@ FULL_SERVE = dict(n_replicas=2, lane_bits=2, max_len=4096, rebalance_every=4)
 N_REQUESTS, N_AFTER_DRAIN, MAX_NEW = 12, 4, 16
 
 
-def small_serve(torch, np):
-    """The Yi-6B smoke config (fp32) served on the card and on the CPU from
-    one set of weights: the same routing, tokens and stats."""
+def small_serve(torch, np, arch="yi_6b", tag="[serve]"):
+    """A smoke config (fp32) served on the card and on the CPU from one set
+    of weights: the same routing, tokens and stats."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeConfig, ServingEngine
 
-    cfg = get_smoke_config("yi_6b")
+    cfg = get_smoke_config(arch)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     seen = {}
     for dev in ("cuda", "cpu"):
@@ -833,16 +870,17 @@ def small_serve(torch, np):
         eng.run_until_done(300)
         seen[dev] = ([(r.event_number, r.entropy, r.member, r.node, r.lane, r.output,
                        r.done) for r in reqs], eng.stats)
-    check(seen["cuda"] == seen["cpu"], f"small serve differs card vs CPU:\n"
+    check(seen["cuda"] == seen["cpu"], f"small serve of {arch} differs card vs CPU:\n"
                                        f"{seen['cuda']}\n{seen['cpu']}")
     check(all(r[-1] and len(r[-2]) == 6 for r in seen["cuda"][0]), "small serve unfinished")
-    say(f"[serve] yi-6b smoke (fp32), 2 replicas, 9 requests: card == CPU "
+    say(f"{tag} {cfg.name} (fp32), 2 replicas, 9 requests: card == CPU "
         f"(routing, lanes, tokens, stats {seen['cuda'][1]})")
 
 
 def _observed_engine(torch):
     """ServingEngine that records, around the engine's own calls, each
-    prefill's flash_attention launches and time, each routing tick's
+    prefill's flash_attention launches and time (and its dispatch_plan
+    launches, in ``prefill_plans``), each routing tick's
     lb_route launches, and each replica's decode step times (with
     ``pin_step_s``, the hub is told a fixed time per replica instead)."""
     from repro_torch.kernels import _lib
@@ -852,6 +890,7 @@ def _observed_engine(torch):
         def __init__(self, *a, pin_step_s=None, **kw):
             super().__init__(*a, **kw)
             self.prefills, self.routes, self.decode_s = [], [], {}
+            self.prefill_plans = []
             report = self.hub.report_step
 
             def observed(m, step_time, **kw):
@@ -870,43 +909,53 @@ def _observed_engine(torch):
         def _prefill_into_slot(self, req):
             torch.cuda.synchronize()
             before, t0 = _lib.LAUNCHES["flash_attention"], time.perf_counter()
+            plans = _lib.LAUNCHES["dispatch_plan"]
             super()._prefill_into_slot(req)
             torch.cuda.synchronize()
             self.prefills.append((len(req.prompt), _lib.LAUNCHES["flash_attention"] - before,
                                   time.perf_counter() - t0))
+            self.prefill_plans.append(_lib.LAUNCHES["dispatch_plan"] - plans)
 
     return ObservedEngine
 
 
-def kernel_share_of_prefill(torch, M, cfg, params, prompt):
-    """Share of one prefill's device time spent in flash_attention: CUDA
-    events around each launch and around the whole prefill."""
-    from repro_torch.kernels import flash_attention as fa
+def prefill_spans(torch, M, cfg, params, prompt, max_len, targets):
+    """One prefill of ``prompt`` on a fresh batch-1 state, with CUDA events
+    around it and around every call it makes to each of ``targets``
+    (``{name: (module, attribute)}``, patched for the prefill's time).
+    Returns ``({name: (ms, calls)}, prefill ms, {name: [each call's
+    result]})``."""
+    spans = {name: [] for name in targets}
+    results = {name: [] for name in targets}
+    origs = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
 
-    orig, spans = fa.flash_attention, []
+    def timed(name):
+        def call(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = origs[name](*a, **kw)
+            e.record()
+            spans[name].append((s, e))
+            results[name].append(out)
+            return out
+        return call
 
-    def timed(*a, **kw):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = orig(*a, **kw)
-        e.record()
-        spans.append((s, e))
-        return out
-
-    state = M.init_decode_state(cfg, 1, FULL_SERVE["max_len"], "cuda")
+    state = M.init_decode_state(cfg, 1, max_len, "cuda")
     tokens = torch.as_tensor(prompt[None], dtype=torch.int32, device="cuda")
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    fa.flash_attention = timed
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, timed(name))
     try:
         a.record()
         M.prefill(params, {"tokens": tokens}, state, cfg)
         b.record()
         b.synchronize()
     finally:
-        fa.flash_attention = orig
-    kernel_ms = sum(s.elapsed_time(e) for s, e in spans)
-    return kernel_ms, a.elapsed_time(b), len(spans)
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, origs[name])
+    per = {name: (sum(s.elapsed_time(e) for s, e in v), len(v)) for name, v in spans.items()}
+    return per, a.elapsed_time(b), results
 
 
 def decode_profile(torch, M, cfg, params, state, steps=3):
@@ -937,26 +986,26 @@ def decode_profile(torch, M, cfg, params, state, steps=3):
                 decode_device_ops_per_step=n_ops / steps)
 
 
-def full_serve(torch, np):
-    """Yi-6B at full depth and width on the card behind the LB front door."""
-    from repro_torch.configs import get_config
+def flash_launches(cfg, n: int) -> int:
+    """flash_attention launches of a prefill of ``n`` tokens: one per layer
+    when the sequence is longer than a token and no longer than the sliding
+    window (if any), else none (``layers.self_attention_block``)."""
+    return cfg.n_layers * (n > 1 and (cfg.swa_window is None or n <= cfg.swa_window))
+
+
+def serve_with_drain(torch, np, cfg, params, serve_kw, lens, rng, tag):
+    """Serve prompts of ``lens`` tokens (drawn from ``rng``) on the card
+    behind the LB front door, drain replica 1 hit-lessly as
+    examples/serve_lb.py does, serve N_AFTER_DRAIN more, and hold the run to
+    its gates: every request finishes, the drained replica gets nothing, each
+    prefill launches flash_attention as ``flash_launches`` says (all through
+    the wgmma design) and every routing tick launches lb_route. The launch
+    counts are reset just before the run and read just after it. Returns
+    (engine, requests, the run's facts)."""
     from repro_torch.kernels import _lib
-    from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeConfig
 
-    cfg = get_config("yi-6b")
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    sizes = []
-    M.tree_map(lambda w: sizes.append(w.numel()), params)
-    eng = _observed_engine(torch)(cfg, ServeConfig(device="cuda", **FULL_SERVE), params)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(256, 4001, N_REQUESTS)
-    check(bool((lens >= 3072).any() and (lens % 64).any()),
-          f"prompt lengths {lens.tolist()} miss a long or a ragged prompt")
-
+    eng = _observed_engine(torch)(cfg, ServeConfig(device="cuda", **serve_kw), params)
     _lib.reset_launches()
     t0 = time.perf_counter()
     reqs = [eng.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=MAX_NEW)
@@ -984,7 +1033,7 @@ def full_serve(torch, np):
 
     check(all(r.event_number >= drain_start and r.node == 0 for r in drained),
           f"post-drain requests reached replica 1: {[(r.event_number, r.node) for r in drained]}")
-    say(f"[serve] drain of replica 1 scheduled at event {drain_start - committed}, starts at "
+    say(f"{tag} drain of replica 1 scheduled at event {drain_start - committed}, starts at "
         f"event {drain_start}: the last rebalance had committed the {committed} events "
         f"before it to its own epoch, so this run moves the engine's next event number "
         f"past them (arrivals there would still reach replica 1); then "
@@ -992,37 +1041,51 @@ def full_serve(torch, np):
 
     st = eng.stats
     after = {m: st["routed"].get(m, 0) - first_wave.get(m, 0) for m in (0, 1)}
-    check(all(r.done and len(r.output) == MAX_NEW for r in reqs), "a request did not finish")
-    check(st["rejected"] == 0 and st["completed"] == len(reqs), f"stats {st}")
     check(set(first_wave) == {0, 1}, f"first wave did not reach both replicas: {first_wave}")
     check(after == {0: N_AFTER_DRAIN, 1: 0}, f"drained replica 1 got work: {after}")
     check(st["rebalances"] >= 1, "the control loop never rebalanced")
-    check(len(eng.prefills) == len(reqs), "a request was not prefilled once")
+    serving_gates(cfg, eng, reqs, launches, tag)
+    return eng, reqs, dict(wall_s=wall, launches=launches, routed_first_wave=first_wave,
+                           routed_after_drain=after, drain_start_event=drain_start,
+                           events_committed_before_drain=committed)
+
+
+def serving_gates(cfg, eng, reqs, launches, tag):
+    """Every request finished with its tokens in the vocabulary, prefilled
+    once; each prefill launched flash_attention as ``flash_launches`` says,
+    all through the wgmma design; every routing tick launched lb_route."""
+    st = eng.stats
+    check(all(r.done and len(r.output) == MAX_NEW for r in reqs),
+          f"{tag} a request did not finish")
+    check(st["rejected"] == 0 and st["completed"] == len(reqs), f"{tag} stats {st}")
+    check(len(eng.prefills) == len(reqs), f"{tag} a request was not prefilled once")
     for n, fl, _ in eng.prefills:
-        check(fl == cfg.n_layers * (n > 1),
-              f"prefill of {n} tokens launched flash_attention {fl} times")
-    check(launches["flash_attention"] == cfg.n_layers * sum(n > 1 for n, _, _ in eng.prefills),
-          f"flash_attention launches {launches['flash_attention']} in the serving run")
+        check(fl == flash_launches(cfg, n),
+              f"{tag} prefill of {n} tokens launched flash_attention {fl} times")
+    check(launches["flash_attention"] == sum(flash_launches(cfg, n) for n, _, _ in eng.prefills),
+          f"{tag} flash_attention launches {launches['flash_attention']} in the serving run")
     check(launches["flash_attention_wgmma"] == launches["flash_attention"],
-          f"{launches['flash_attention_wgmma']} of the {launches['flash_attention']} "
+          f"{tag} {launches['flash_attention_wgmma']} of the {launches['flash_attention']} "
           "flash_attention launches of the serving run went through the wgmma design")
     for n, lb in eng.routes:
-        check(lb >= 1, f"a routing tick of {n} requests launched lb_route {lb} times")
-
+        check(lb >= 1, f"{tag} a routing tick of {n} requests launched lb_route {lb} times")
     for r in reqs:
-        check(all(0 <= t < cfg.vocab for t in r.output), "token out of the vocabulary")
-    longest = max(reqs, key=lambda r: len(r.prompt)).prompt
-    k_ms, p_ms, n_spans = kernel_share_of_prefill(torch, M, cfg, params, longest)
-    check(n_spans == cfg.n_layers, "the profiled prefill missed flash_attention")
-    decode = decode_profile(torch, M, cfg, params, eng.states[0])
+        check(all(0 <= t < cfg.vocab for t in r.output), f"{tag} token out of the vocabulary")
+
+
+def serve_line(cfg, eng, reqs, run, serve_kw, **extra) -> dict:
+    """The numbers of a serving run: tokens/s (host clock around work that
+    ends on the card), prefill and decode-step medians, launches, routing
+    and the rest of ``run`` (a drain's facts)."""
+    launches, st = run["launches"], eng.stats
     pre_s = [s for _, _, s in eng.prefills]
     n_prompt = sum(n for n, _, _ in eng.prefills)
     n_out = sum(len(r.output) for r in reqs)
-    line = dict(
-        model=cfg.name, n_params=sum(sizes), dtype=cfg.dtype, init_s=t_init, **FULL_SERVE,
+    return dict(
+        model=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype, **serve_kw,
         lanes_per_replica=eng.n_lanes, requests=len(reqs), prompt_tokens=n_prompt,
         prompt_lens=[n for n, _, _ in eng.prefills], max_new_tokens=MAX_NEW,
-        served_tokens=n_out, wall_s=wall, served_tokens_per_s=n_out / wall,
+        served_tokens=n_out, wall_s=run["wall_s"], served_tokens_per_s=n_out / run["wall_s"],
         prefill_ms_median=statistics.median(pre_s) * 1e3, prefill_ms_max=max(pre_s) * 1e3,
         prefill_tokens_per_s=n_prompt / sum(pre_s),
         decode_step_ms_median={m: statistics.median(v) * 1e3
@@ -1032,14 +1095,42 @@ def full_serve(torch, np):
         flash_wgmma_launches=launches["flash_attention_wgmma"],
         lb_route_launches=launches["lb_route"],
         route_calls=st["route_calls"], rebalances=st["rebalances"],
-        routed_first_wave=first_wave, routed_after_drain=after,
-        drain_start_event=drain_start, events_committed_before_drain=committed,
+        **{k: v for k, v in run.items() if k not in ("wall_s", "launches")}, **extra)
+
+
+def full_serve(torch, np):
+    """Yi-6B at full depth and width on the card behind the LB front door."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sizes = []
+    M.tree_map(lambda w: sizes.append(w.numel()), params)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 4001, N_REQUESTS)
+    check(bool((lens >= 3072).any() and (lens % 64).any()),
+          f"prompt lengths {lens.tolist()} miss a long or a ragged prompt")
+    eng, reqs, run = serve_with_drain(torch, np, cfg, params, FULL_SERVE, lens, rng, "[serve]")
+
+    longest = max(reqs, key=lambda r: len(r.prompt)).prompt
+    per, p_ms, _ = prefill_spans(torch, M, cfg, params, longest, FULL_SERVE["max_len"],
+                                 {"flash_attention": (fa, "flash_attention")})
+    k_ms, n_spans = per["flash_attention"]
+    check(n_spans == cfg.n_layers, "the profiled prefill missed flash_attention")
+    decode = decode_profile(torch, M, cfg, params, eng.states[0])
+    line = serve_line(
+        cfg, eng, reqs, run, FULL_SERVE, n_params=sum(sizes), init_s=t_init,
         flash_share_of_prefill=k_ms / p_ms, share_prefill_tokens=len(longest),
         share_method="CUDA events around each flash_attention launch and the whole prefill",
         share_kernel_ms=k_ms, share_prefill_ms=p_ms, **decode,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     say("[serve] " + json.dumps(line, sort_keys=True))
-    return launches
+    return run["launches"]
 
 
 CONTROLD_SERVE = dict(n_replicas=2, lane_bits=1, max_len=256, rebalance_every=2,
@@ -2157,6 +2248,252 @@ def train_phase(torch, np):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x22B at published width, 8 of its 56 layers (20.4 B params, 40.9
+# GB in bf16): 2 replicas x 4 slots, 8192-token contexts (a 4096-slot ring,
+# its sliding window); 12 prompts of 256-4000 tokens and one past the window
+MIXTRAL_LAYERS = 8
+MOE_SERVE = dict(n_replicas=2, lane_bits=2, max_len=8192, rebalance_every=4)
+MOE_LONG_PROMPT = 4500
+# Arctic at published width, 2 of its 35 layers (55.4 GB; 1 layer when the
+# card's free memory cannot hold 2 beside the caches): 4 requests
+ARCTIC_LAYERS, ARCTIC_REQUESTS = 2, 4
+ARCTIC_SERVE = dict(n_replicas=2, lane_bits=1, max_len=2048, rebalance_every=4)
+# the pack's shapes: a prefill of 4000 tokens (8000 k-major packets) over
+# Mixtral's 8 experts and over Arctic's 128, a decode step of 4 lanes (8
+# packets); the full-width layer check's tokens
+MOE_PREFILL_T, MOE_DECODE_T, MOE_LAYER_T = 4000, 4, 512
+MIXTRAL_FLASH_T = 4096
+
+
+def _moe_members(torch, np, rng, n_tokens, n_experts, top_k=2):
+    """k-major expert choices of ``n_tokens`` tokens as the pack takes them
+    (one group), from a skewed router: a few experts take most tokens."""
+    p = rng.dirichlet(np.full(n_experts, 0.3))
+    idx = np.stack([rng.choice(n_experts, top_k, replace=False, p=p)
+                    for _ in range(n_tokens)])
+    return torch.from_numpy(idx.T.reshape(-1).astype(np.int32)).cuda()
+
+
+def moe_kernels(torch, np):
+    """dispatch_plan at the MoE path's shapes, exactly equal to plain (pos,
+    counts), also after the timing's graph replays, timed with its inputs in
+    L2 as the path leaves them (``time_warm``) beside its bound and the
+    plain version; flash_attention timed at Mixtral's longest in-window
+    prefill (48/8 heads, T = its 4096-token window; ``flash_phase`` holds
+    it against plain) beside SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dispatch import dispatch_plan
+    from repro_torch.kernels.flash_attention import _design
+
+    rng = np.random.default_rng(23)
+    plans = {}
+    for name, n_tokens, e in (("mixtral_prefill", MOE_PREFILL_T, 8),
+                              ("mixtral_decode", MOE_DECODE_T, 8),
+                              ("arctic_prefill", MOE_PREFILL_T, 128)):
+        member = _moe_members(torch, np, rng, n_tokens, e)
+        n = member.numel()
+        got = dispatch_plan(member, n_members=e)
+        want = ref.dispatch_plan_ref(member, n_members=e)
+        check_equal(torch, f"dispatch_plan {name} N={n} n_members={e}", got, want)
+        t_k, last = time_warm(torch, lambda: dispatch_plan(member, n_members=e))
+        check_equal(torch, f"dispatch_plan {name} after graph replays", last, want)
+        t_p, _ = time_warm(torch, lambda: ref.dispatch_plan_ref(member, n_members=e))
+        b_ms, b_by = bound(n * 8 + e * 4, n * 20)
+        plans[name] = dict(n=n, n_members=e, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=max_err(got, want),
+                           timing="graphs of 200 calls, inputs in L2")
+        say(f"[moe] dispatch_plan {name}: N={n} packets over {e} experts, equal to plain "
+            f"(pos, counts), also after graph replays; kernel {t_k * 1e3:.3f} us, plain "
+            f"{t_p * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by})")
+
+    mk = lambda h: torch.from_numpy(rng.standard_normal(
+        (1, MIXTRAL_FLASH_T, h, 128), dtype=np.float32)).to("cuda", torch.bfloat16)
+    q, k, v = mk(48), mk(8), mk(8)
+    design = _design(q.dtype, q.shape[-1])
+    check(design == "wgmma", f"Mixtral's prefill shape chose the {design} design")
+    flash = dict(flash_times(torch, q, k, v, "[moe]"), design=design)
+    return plans, flash
+
+
+def moe_layer_check(torch, cfg, moe_params):
+    """One MoE layer at full width (bf16, MOE_LAYER_T tokens): ``moe_ffn``
+    with its positions from the kernel (one launch) against the same
+    function with the plain version's positions: the output bit for bit,
+    the drop count equal."""
+    from repro_torch.kernels import _lib, dispatch as disp, ref
+    from repro_torch.models import moe as MOE
+
+    x = torch.randn((1, MOE_LAYER_T, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5)).bfloat16()
+    before = _lib.LAUNCHES["dispatch_plan"]
+    y, aux = MOE.moe_ffn(moe_params, x, cfg)
+    check(_lib.LAUNCHES["dispatch_plan"] == before + 1,
+          "the full-width MoE layer did not launch dispatch_plan once")
+    orig = disp.dispatch_plan
+    disp.dispatch_plan = ref.dispatch_plan_ref
+    try:
+        y_p, aux_p = MOE.moe_ffn(moe_params, x, cfg)
+    finally:
+        disp.dispatch_plan = orig
+    check(_lib.LAUNCHES["dispatch_plan"] == before + 1, "the plain positions launched the kernel")
+    check(bool(torch.isfinite(y).all()), "the full-width MoE layer gave non-finite values")
+    check(torch.equal(y, y_p), "the full-width MoE layer differs between the kernel's and "
+                               f"the plain positions: max |diff| {(y - y_p).abs().max()}")
+    check(int(aux["dropped"]) == int(aux_p["dropped"]) and torch.equal(
+        aux["aux_loss"], aux_p["aux_loss"]), "the MoE layer's drops or aux loss differ")
+    line = dict(tokens=MOE_LAYER_T, dropped=int(aux["dropped"]),
+                aux_loss=float(aux["aux_loss"]), bit_equal=True)
+    say(f"[moe] one {cfg.name} MoE layer at full width (bf16, T={MOE_LAYER_T}): positions "
+        f"from the kernel == from plain: output bit-equal, dropped {line['dropped']} of "
+        f"{cfg.top_k * MOE_LAYER_T} equal, aux loss equal")
+    return line
+
+
+def _moe_forward_checks(cfg, eng, launches, tag):
+    """dispatch_plan once per layer in every forward step of the run: each
+    prefill (``prefill_plans``) and each replica's decode step."""
+    for (n, _, _), plans in zip(eng.prefills, eng.prefill_plans):
+        check(plans == cfg.n_layers,
+              f"{tag} prefill of {n} tokens launched dispatch_plan {plans} times")
+    steps = sum(len(v) for v in eng.decode_s.values())
+    check(launches["dispatch_plan"] == cfg.n_layers * (len(eng.prefills) + steps),
+          f"{tag} dispatch_plan launched {launches['dispatch_plan']} times over "
+          f"{len(eng.prefills)} prefills and {steps} decode steps of {cfg.n_layers} layers")
+    return steps
+
+
+def mixtral_serve(torch, np):
+    """Mixtral-8x22B at published width, MIXTRAL_LAYERS of its 56 layers,
+    served with a drain; the share of its longest in-window prefill taken by
+    flash_attention, the expert products and dispatch_plan."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch as disp, flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=MIXTRAL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sizes = []
+    M.tree_map(lambda w: sizes.append(w.numel()), params)
+    # ModelConfig.param_count leaves out the final norm's d_model scales
+    check(sum(sizes) == cfg.param_count()[0] + cfg.d_model,
+          f"{sum(sizes)} params drawn, the config counts {cfg.param_count()[0]}")
+    layer = moe_layer_check(torch, cfg, params["layers"][0]["moe"])
+
+    rng = np.random.default_rng(1)
+    lens = np.append(rng.integers(256, 4001, N_REQUESTS), MOE_LONG_PROMPT)
+    eng, reqs, run = serve_with_drain(torch, np, cfg, params, MOE_SERVE, lens, rng, "[moe]")
+    launches = run["launches"]
+    steps = _moe_forward_checks(cfg, eng, launches, "[moe]")
+    check(any(n > cfg.swa_window for n, _, _ in eng.prefills),
+          "no prompt went past the sliding window")
+
+    inside = [r for r in reqs if len(r.prompt) <= cfg.swa_window]
+    longest = max(inside, key=lambda r: len(r.prompt)).prompt
+    per, p_ms, res = prefill_spans(
+        torch, M, cfg, params, longest, MOE_SERVE["max_len"],
+        {"flash_attention": (fa, "flash_attention"),
+         "expert_products": (MOE, "expert_products"),
+         "dispatch_plan": (disp, "dispatch_plan"),
+         "moe_ffn": (MOE, "moe_ffn")})
+    for name in ("flash_attention", "expert_products", "dispatch_plan"):
+        check(per[name][1] == cfg.n_layers,
+              f"the profiled prefill called {name} {per[name][1]} times")
+    dropped = sum(int(aux["dropped"]) for _, aux in res["moe_ffn"])
+    decode = decode_profile(torch, M, cfg, params, eng.states[0])
+    line = serve_line(
+        cfg, eng, reqs, run, MOE_SERVE, n_params=sum(sizes), init_s=t_init,
+        dispatch_plan_launches=launches["dispatch_plan"], decode_steps_total=steps,
+        long_prompt=MOE_LONG_PROMPT, full_width_layer=layer,
+        share_prefill_tokens=len(longest), share_prefill_ms=p_ms,
+        share_method="CUDA events around each call and around the whole prefill",
+        **{f"{name}_share_of_prefill": per[name][0] / p_ms
+           for name in ("flash_attention", "expert_products", "dispatch_plan")},
+        **{f"{name}_ms_in_prefill": per[name][0]
+           for name in ("flash_attention", "expert_products", "dispatch_plan", "moe_ffn")},
+        share_prefill_dropped=dropped,
+        share_prefill_assignments=cfg.n_layers * cfg.top_k * len(longest), **decode,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say("[moe] " + json.dumps(line, sort_keys=True))
+    return launches
+
+
+def arctic_serve(torch, np):
+    """Arctic at published width, ARCTIC_LAYERS of its 35 layers (1 when the
+    card's free memory cannot hold 2 beside the caches): 128 experts and the
+    dense residual, ARCTIC_REQUESTS requests."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig
+
+    cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=ARCTIC_LAYERS)
+    free, _total = torch.cuda.mem_get_info()
+    need = 2 * cfg.param_count()[0]
+    if need + (4 << 30) > free:
+        say(f"[moe] arctic at {ARCTIC_LAYERS} layers needs {need / 1e9:.1f} GB of weights, "
+            f"the card has {free / 1e9:.1f} GB free: 1 layer")
+        cfg = dataclasses.replace(cfg, n_layers=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    eng = _observed_engine(torch)(cfg, ServeConfig(device="cuda", **ARCTIC_SERVE), params)
+    rng = np.random.default_rng(2)
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=MAX_NEW)
+            for n in rng.integers(256, 2001, ARCTIC_REQUESTS)]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    run = dict(wall_s=time.perf_counter() - t0, launches=dict(_lib.LAUNCHES))
+    serving_gates(cfg, eng, reqs, run["launches"], "[moe] arctic:")
+    steps = _moe_forward_checks(cfg, eng, run["launches"], "[moe] arctic:")
+    say("[moe] " + json.dumps(serve_line(
+        cfg, eng, reqs, run, ARCTIC_SERVE, n_params=cfg.param_count()[0] + cfg.d_model,
+        init_s=t_init, dispatch_plan_launches=run["launches"]["dispatch_plan"],
+        decode_steps_total=steps, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9),
+        sort_keys=True))
+    return run["launches"]
+
+
+def moe_phase(torch, np):
+    """The MoE family: the Mixtral smoke config served card == CPU; the
+    pack's kernel at the family's shapes; Mixtral-8x22B (8 layers) and
+    Arctic (2 layers) at published width served on the card. Earlier
+    phases' tensors are freed first. Returns (the main-path launches of the
+    two full-width serving runs, summed; the kernel rows' MoE numbers)."""
+    import gc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_serve(torch, np, arch="mixtral_8x22b", tag="[moe]")
+    plans, flash = moe_kernels(torch, np)
+    launches = mixtral_serve(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in arctic_serve(torch, np).items():
+        launches[k] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[moe] phase {time.perf_counter() - t0:.1f} s")
+    return launches, plans, flash
+
+
 def main() -> int:
     try:
         import torch
@@ -2207,6 +2544,9 @@ def main() -> int:
         controld_launches = controld_phase(torch, np)
         fabric_launches = fabric_phase(torch, np)
         train_launches = train_phase(torch, np)
+        moe_launches, moe_plans, moe_flash = moe_phase(torch, np)
+        results["dispatch_plan"]["moe_shapes"] = moe_plans
+        results["flash_attention"]["mixtral_prefill"] = moe_flash
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -2215,7 +2555,8 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=(loop_launches[name] + serve_launches[name]
                               + simnet_launches.get(name, 0) + controld_launches[name]
-                              + fabric_launches.get(name, 0) + train_launches.get(name, 0)),
+                              + fabric_launches.get(name, 0) + train_launches.get(name, 0)
+                              + moe_launches[name]),
                     **results[name])
                for name in REPLACES]
     for row in kernels:
@@ -2223,9 +2564,12 @@ def main() -> int:
             row["launches_fabric"] = fabric_launches[row["name"]]
         if train_launches.get(row["name"]):  # of which in the training phase
             row["launches_train"] = train_launches[row["name"]]
+        if moe_launches[row["name"]]:  # of which in the MoE phase
+            row["launches_moe"] = moe_launches[row["name"]]
         if row["name"] == "flash_attention":  # of which through the wgmma design
             row["launches_wgmma"] = (loop_launches["flash_attention_wgmma"]
-                                     + serve_launches["flash_attention_wgmma"])
+                                     + serve_launches["flash_attention_wgmma"]
+                                     + moe_launches["flash_attention_wgmma"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

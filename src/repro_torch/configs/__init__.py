@@ -2,28 +2,29 @@
 
 Each module defines CONFIG (the published config, as in the JAX package's
 ``repro.configs``) and smoke_config() (a reduced same-family config for the
-CPU tests). The port runs the dense family; the other archs of the repo
-raise ``NotImplementedError`` until their family is ported.
+CPU tests). The port runs the dense and moe families; the other archs of
+the repo raise ``NotImplementedError`` until their family is ported.
 """
 from __future__ import annotations
 
 import importlib
 
 #: archs the port runs (dense family: GQA 4 and 2 KV heads, MQA, MHA,
-#: fractional RoPE 0.25 and 0.5, head dims 80 and 128)
+#: fractional RoPE 0.25 and 0.5, head dims 80 and 128; moe family: 8 experts
+#: with a sliding window, 128 experts with a dense residual)
 ARCH_IDS = [
     "granite_20b",
     "stablelm_3b",
     "chatglm3_6b",
     "yi_6b",
+    "mixtral_8x22b",
+    "arctic_480b",
 ]
 
 #: archs of the JAX package not ported yet, with the ROADMAP item that
 #: brings each
 _NOT_PORTED = {
     "llama_3_2_vision_90b": "vlm family",
-    "arctic_480b": "moe family",
-    "mixtral_8x22b": "moe family",
     "hubert_xlarge": "audio family",
     "zamba2_2_7b": "hybrid family",
     "rwkv6_7b": "ssm family",
@@ -39,7 +40,7 @@ def _module(arch: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{arch}: the {_NOT_PORTED[name]} is not ported yet "
-            "(ROADMAP.md queue 1, item 6: the other model families)")
+            "(ROADMAP.md queue 1, the item \"The other model families\")")
     if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; the port runs {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")

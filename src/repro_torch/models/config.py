@@ -1,7 +1,7 @@
 """Model configuration: the JAX package's ``ModelConfig``, field for field,
 so a config built for one package describes the same model in the other.
-The port runs the dense family (``configs/``); the other families' fields
-are kept so every config of the repo stays expressible."""
+The port runs the dense and moe families (``configs/``); the other
+families' fields are kept so every config of the repo stays expressible."""
 from __future__ import annotations
 
 import dataclasses

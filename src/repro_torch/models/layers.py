@@ -7,8 +7,8 @@ Attention goes through the plain chunked online-softmax ``attention``, as
 the JAX package computes it in jnp (training, decode against a ring cache,
 SWA), unless the caller asks ``self_attention_block`` for the hand-written
 kernel ``kernels.flash_attention`` (``flash=True``: serving's prefill over a
-fresh sequence with no sliding window). The kernel is forward only, so
-training never asks for it. The port writes KV
+fresh sequence of no more tokens than the sliding window, if any). The
+kernel is forward only, so training never asks for it. The port writes KV
 caches in place (the JAX package returns new arrays), so a decode step does
 not copy the cache; a caller that needs the old cache clones it first.
 """
@@ -208,10 +208,14 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
     written in place.
 
     ``flash``: the caller's choice of ``kernels.flash_attention`` (forward
-    only) for T > 1 without a sliding window. There the keys are the fresh
+    only, one launch per call that takes it) for T > 1 when there is no
+    sliding window or T <= ``cfg.swa_window``. There the keys are the fresh
     sequence (all valid, positions increasing along each row, as
-    ``model.step_with_cache`` makes them), which is exactly the kernel's
-    function. Otherwise the plain ``attention`` runs.
+    ``model.step_with_cache`` makes them), and no query-key pair of T
+    tokens lies a window apart, so the window masks nothing: exactly the
+    kernel's function. A longer prompt, a decode step and ``flash=False``
+    run the plain windowed ``attention`` (the kernel has no window, as the
+    Pallas kernel has none).
     """
     b, t, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -251,7 +255,7 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
         kk, vv = cache.k, cache.v
         kpos, kvalid = cache.pos, cache.pos >= 0
 
-    if flash and t > 1 and cfg.swa_window is None:
+    if flash and t > 1 and (cfg.swa_window is None or t <= cfg.swa_window):
         o = _flash.flash_attention(q, k, v, causal=cfg.causal)
     else:
         o = attention(q, kk, vv, qpos=positions, kpos=kpos, kvalid=kvalid,

@@ -1,8 +1,8 @@
-"""Model assembly of the port: the dense family's training and
+"""Model assembly of the port: the dense and moe families' training and
 prefill/decode paths.
 
-Port of the JAX package's ``repro/models/model.py`` for the dense family.
-Parameters are a plain dict of tensors with one entry per layer in
+Port of the JAX package's ``repro/models/model.py`` for the dense and moe
+families. Parameters are a plain dict of tensors with one entry per layer in
 ``params["layers"]`` (a list) where the JAX package stacks the layers on a
 leading dim for ``scan``; the layers run in a Python loop. Weights keep the
 JAX layout (``x @ W``, W ``[in, out]``), so ``params_from_numpy`` carries the
@@ -20,8 +20,10 @@ Public API:
 ``forward`` attends through the plain chunked ``layers.attention`` (it is
 differentiable; the JAX package trains through the same function); only
 the cached path's prefill asks for the forward-only ``flash_attention``
-kernel. The moe, vlm, audio, hybrid and ssm families raise
-``NotImplementedError``.
+kernel. A moe layer's FFN is ``moe.moe_ffn`` (one ``dispatch_plan`` launch
+per layer call on the card); ``forward`` sums its aux loss over the layers,
+the cached path drops it, as the reference does. The vlm, audio, hybrid and
+ssm families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,18 +37,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
-_TODO = "ROADMAP.md queue 1, item 6: the other model families"
+_TODO = 'ROADMAP.md queue 1, the item "The other model families"'
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet ({_TODO})")
 
@@ -61,18 +64,26 @@ def _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk, flash=False):
         positions=positions, cache=cache, q_chunk=q_chunk, k_chunk=k_chunk, flash=flash,
     )
     x = x + h
-    ff = L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
-    return x + ff, new_cache, None
+    y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        ff, aux = MOE.moe_ffn(p["moe"], y, cfg)
+    else:
+        ff, aux = L.mlp(p["mlp"], y, cfg.act), None
+    return x + ff, new_cache, aux
 
 
 def _attn_block_init(generator, cfg, dtype, device):
-    return {
+    p = {
         "attn": L.attn_init(generator, cfg, dtype, device),
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, cfg.n_layers,
-                          dtype, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = MOE.moe_init(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, cfg.n_layers,
+                              dtype, device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +94,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random parameters drawn on ``device`` from ``generator`` (a
     ``torch.Generator`` on that device). The draws differ from
     ``jax.random``'s; ``params_from_numpy`` carries JAX weights across."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     return {
@@ -105,19 +116,21 @@ def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
-    """The JAX ``init_params`` pytree (dense family), taken leaf by leaf with
-    ``np.asarray``, as the port's parameters: the stacked ``layers`` leaves
-    are split on their leading dim, every leaf becomes a tensor of
-    ``cfg.dtype`` on ``device``. Same layout, so no transposes."""
-    _dense_only(cfg)
+    """The JAX ``init_params`` pytree (dense or moe family), taken leaf by
+    leaf with ``np.asarray``, as the port's parameters: the stacked
+    ``layers`` leaves are split on their leading dim, every leaf becomes a
+    tensor of ``cfg.dtype`` on ``device`` but a MoE router, which stays
+    float32 as ``moe.moe_init`` draws it. Same layout, so no transposes."""
+    _check_ported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     conv = lambda a: _tensor_from_numpy(a, dtype, dev)
 
-    def layer(node, i):
+    def layer(node, i, name=None):
         if isinstance(node, dict):
-            return {k: layer(v, i) for k, v in node.items()}
-        return conv(np.asarray(node)[i])
+            return {k: layer(v, i, k) for k, v in node.items()}
+        return _tensor_from_numpy(np.asarray(node)[i], F32 if name == "router" else dtype,
+                                  dev)
 
     out = {k: conv(np.asarray(tree[k])) for k in ("embed", "ln_f", "head")}
     out["layers"] = [layer(tree["layers"], i) for i in range(cfg.n_layers)]
@@ -171,27 +184,33 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
     recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``jax.checkpoint`` around its scan body does."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = _embed(params, batch, cfg)
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32, device=x.device)[None].expand(b, t)
 
-    def body(x, p):
-        return _attn_block(p, x, cfg, positions, None, q_chunk, k_chunk)[0]
+    zero = torch.zeros((), dtype=F32, device=x.device)
 
+    def body(x, p):
+        y, _, aux = _attn_block(p, x, cfg, positions, None, q_chunk, k_chunk)
+        return y, (aux["aux_loss"] if aux else zero)
+
+    auxs = []
     for p in params["layers"]:
-        x = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
+        x, aux = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
+        auxs.append(aux)
     logits = _head_logits(params, x, cfg)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits, torch.zeros((), dtype=F32, device=x.device)
+    return logits, torch.stack(auxs).sum()
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
                q_chunk: int = 1024, k_chunk: int = 1024):
     """Next-token CE over the labels >= 0 (the ingest's dropped rows carry
-    -1), plus z-loss 1e-4 and 0.01 x the aux loss (zero for the dense
-    family), as the reference computes them."""
+    -1), plus z-loss 1e-4 and 0.01 x the aux loss (the moe layers' summed
+    load-balance loss; zero for the dense family), as the reference
+    computes them."""
     logits, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk,
                           k_chunk=k_chunk)
     labels = batch["labels"].long()
@@ -219,7 +238,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Cache state for serving: one ring KV cache per layer of size
     min(max_len, swa_window or max_len), and each lane's next position."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     size = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
     kv = [L.init_kv_cache(batch, size, cfg.n_kv_heads, cfg.hd, _dtype(cfg), dev)
@@ -231,7 +250,7 @@ def step_with_cache(params, batch, state, cfg: ModelConfig, *,
                     q_chunk: int = 1024, k_chunk: int = 1024):
     """Run T tokens (T=1 decode, T>1 prefill) against the cache state; the
     caches in ``state`` are written in place."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = _embed(params, batch, cfg)
     b, t, _ = x.shape
     pos0 = state["pos"]  # int32[B] — lanes advance independently

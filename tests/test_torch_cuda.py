@@ -438,7 +438,7 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
         flash_attention(q.half(), q.half(), q.half())
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "stablelm_3b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "stablelm_3b", "mixtral_8x22b", "arctic_480b"])
 def test_smoke_prefill_on_the_card_equals_the_cpu(arch, _full_f32):
     cfg = get_smoke_config(arch)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -527,6 +527,99 @@ def test_smoke_trainer_with_lb_ingest_on_the_card_equals_the_cpu(tmp_path, _full
         assert a["ingest_occupancy"] == b["ingest_occupancy"]
         for k in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=2e-4)
+
+
+# -- the MoE family: the expert pack through dispatch_plan ---------------------
+
+def _moe_members(n_tokens, n_experts, top_k, groups, seed):
+    """The pack's members as ``moe.pack_positions`` forms them: k-major
+    expert choices per group, offset by ``group * E`` (a skewed router:
+    a few experts take most tokens)."""
+    rng = np.random.default_rng(seed)
+    p = rng.dirichlet(np.full(n_experts, 0.3))
+    idx = np.stack([rng.choice(n_experts, top_k, replace=False, p=p)
+                    for _ in range(n_tokens)])
+    ng = n_tokens // groups
+    member_g = idx.reshape(groups, ng, top_k).transpose(0, 2, 1).reshape(groups, -1)
+    member_g = member_g + np.arange(groups)[:, None] * n_experts
+    return torch.from_numpy(member_g.reshape(-1).astype(np.int32)).cuda()
+
+
+# (tokens, experts, groups): a Mixtral prefill of 4000 tokens, a decode step
+# of 4 lanes, an Arctic prefill over 128 experts, 4 dispatch groups
+@pytest.mark.parametrize("n,e,g", [(4000, 8, 1), (4, 8, 1), (4000, 128, 1), (1024, 8, 4)])
+def test_dispatch_plan_at_the_moe_shapes_equals_plain(n, e, g):
+    from repro_torch.kernels.ref import dispatch_plan_ref
+
+    member = _moe_members(n, e, 2, g, n + e + g)
+    before = _lib.LAUNCHES["dispatch_plan"]
+    got = dispatch_plan(member, n_members=g * e)
+    assert _lib.LAUNCHES["dispatch_plan"] == before + 1
+    want = dispatch_plan_ref(member, n_members=g * e)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_top_k_keeps_lax_tie_order_on_the_card():
+    from repro_torch.models.moe import top_k
+
+    for probs in (torch.full((4096, 8), 0.125), torch.full((7, 128), 1 / 128),
+                  torch.tensor([[0.1, 0.3, 0.3, 0.3, 0, 0, 0, 0]])):
+        vals, idx = top_k(probs.cuda(), 2)
+        cv, ci = top_k(probs, 2)
+        assert torch.equal(idx.cpu(), ci) and torch.equal(vals.cpu(), cv)
+    assert ci.tolist() == [[1, 2]]
+
+
+@pytest.mark.parametrize("arch,groups", [("mixtral_8x22b", 1), ("mixtral_8x22b", 4),
+                                         ("arctic_480b", 1)])
+def test_moe_ffn_with_kernel_positions_equals_plain_positions(arch, groups, monkeypatch,
+                                                              _full_f32):
+    """One launch of dispatch_plan per call; the output, aux loss and drop
+    count bit-equal to the same function with the plain version's
+    positions, and the output within rtol 1e-5 of the CPU's, atol 1e-5 of
+    its largest |value| (float32 sums of terms up to ~100 here, taken in
+    another order by cuBLAS than on the CPU: 3e-5 apart on the card)."""
+    from repro_torch.kernels import dispatch as disp
+    from repro_torch.kernels.ref import dispatch_plan_ref
+    from repro_torch.models import moe as MOE
+
+    cfg = get_smoke_config(arch).with_(capacity_factor=0.5, moe_dispatch_groups=groups)
+    p = MOE.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    p["router"] = p["router"] * 8  # skewed loads: capacity binds
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(4, 32, cfg.d_model))
+                         .astype(np.float32))
+    pc, xc = M.tree_map(lambda t: t.cuda(), p), x.cuda()
+    before = _lib.LAUNCHES["dispatch_plan"]
+    y, aux = MOE.moe_ffn(pc, xc, cfg)
+    assert _lib.LAUNCHES["dispatch_plan"] == before + 1
+    monkeypatch.setattr(disp, "dispatch_plan", dispatch_plan_ref)
+    y_p, aux_p = MOE.moe_ffn(pc, xc, cfg)
+    assert _lib.LAUNCHES["dispatch_plan"] == before + 1
+    assert torch.equal(y, y_p) and torch.equal(aux["aux_loss"], aux_p["aux_loss"])
+    assert int(aux["dropped"]) == int(aux_p["dropped"]) > 0
+    y_c, aux_c = MOE.moe_ffn(p, x, cfg)
+    torch.testing.assert_close(y.cpu(), y_c, rtol=1e-5, atol=1e-5 * float(y_c.abs().max()))
+    assert int(aux["dropped"]) == int(aux_c["dropped"])
+
+
+def test_moe_train_loss_backward_on_the_card_equals_the_cpu(_full_f32):
+    """The Mixtral smoke config's loss and every gradient (the router's
+    too) on the card within rtol/atol 2e-4 of the CPU's; the remat'd
+    forward launches dispatch_plan twice per layer (forward, recompute)."""
+    cfg = get_smoke_config("mixtral_8x22b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 24)))
+    out = {}
+    before = _lib.LAUNCHES["dispatch_plan"]
+    for dev in ("cuda", "cpu"):
+        out[dev] = _loss_and_grads(cfg, M.to_device(params, dev),
+                                   {"tokens": toks.to(dev), "labels": toks.to(dev)})
+    assert _lib.LAUNCHES["dispatch_plan"] == before + 2 * cfg.n_layers
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0], rtol=2e-4, atol=2e-4)
 
 
 # -- the simulator's device helpers (farm_serve, seq_cumsum, build_calendar),

@@ -1,6 +1,6 @@
-"""The port's model substrate (configs, layers, dense prefill/decode) on the
-CPU against the JAX package's, from the same numpy inputs and the same
-weights (carried across by ``params_from_numpy``)."""
+"""The port's model substrate (configs, layers, dense and moe prefill/decode)
+on the CPU against the JAX package's, from the same numpy inputs and the
+same weights (carried across by ``params_from_numpy``)."""
 import dataclasses
 
 import jax
@@ -18,6 +18,7 @@ from repro_torch.models import model as TM
 from torch_helpers import to_np
 
 DENSE = ["yi_6b", "stablelm_3b", "granite_20b", "chatglm3_6b"]
+MOE = ["mixtral_8x22b", "arctic_480b"]
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -30,7 +31,7 @@ def _t(a):
 
 # -- configs -------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_configs_equal_the_jax_package(arch):
     for get in ("get_config", "get_smoke_config"):
         want = dataclasses.asdict(getattr(j_configs, get)(arch))
@@ -38,11 +39,17 @@ def test_configs_equal_the_jax_package(arch):
 
 
 def test_archs_not_ported_raise():
-    assert sorted(t_configs.ARCH_IDS) == sorted(DENSE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_configs.get_config("mixtral-8x22b")
+    """The vlm, audio, hybrid and ssm archs raise at the registry and in the
+    model's entry points; the dense and moe ones run."""
+    assert sorted(t_configs.ARCH_IDS) == sorted(DENSE + MOE)
+    for arch in ("llama-3.2-vision-90b", "hubert-xlarge", "zamba2-2.7b", "rwkv6-7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_configs.get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_decode_state(j_configs.get_smoke_config("rwkv6_7b"), 1, 8, "cpu")
+    for arch in ("llama_3_2_vision_90b", "zamba2_2_7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TM.init_params(j_configs.get_smoke_config(arch), torch.Generator(), "cpu")
 
 
 # -- layers --------------------------------------------------------------------
@@ -143,9 +150,11 @@ def jax_params_np(cfg, seed=0):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_then_decode_logits_equal_jax(arch):
     cfg = j_configs.get_smoke_config(arch)
+    if cfg.family == "moe":
+        cfg = cfg.with_(capacity_factor=100.0)  # drop-free, as the reference's test
     tree = jax_params_np(cfg)
     params = TM.params_from_numpy(tree, t_configs.get_smoke_config(arch), "cpu")
     rng = np.random.default_rng(5)
@@ -173,6 +182,72 @@ def test_params_from_numpy_carries_bf16_exactly():
     assert w.dtype == torch.bfloat16
     np.testing.assert_array_equal(w.float().numpy(),
                                   tree["layers"]["attn"]["wk"][1].astype(np.float32))
+
+
+def test_params_from_numpy_keeps_the_moe_router_f32():
+    """A bf16 moe tree: the router stays float32 (as both packages draw it),
+    every other leaf is bf16, and both carry their bits exactly."""
+    cfg = j_configs.get_smoke_config("mixtral_8x22b").with_(dtype="bfloat16")
+    tree = jax_params_np(cfg)
+    params = TM.params_from_numpy(tree, cfg, "cpu")
+    moe = params["layers"][1]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert tree["layers"]["moe"]["router"].dtype == np.float32
+    np.testing.assert_array_equal(moe["router"].numpy(), tree["layers"]["moe"]["router"][1])
+    assert moe["w_up"].dtype == torch.bfloat16 and params["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(moe["w_up"].float().numpy(),
+                                  tree["layers"]["moe"]["w_up"][1].astype(np.float32))
+
+
+def test_mixtral_swa_ring_decode_past_the_window_equals_jax():
+    """tests/test_models.py's ring test through the port: a 30-token
+    prefill (past the 16-token window: the plain windowed attention) and 10
+    decode steps over the 16-slot ring; each step's logits equal the JAX
+    package's, and the last equals the port's full forward at position 39."""
+    cfg = j_configs.get_smoke_config("mixtral_8x22b").with_(capacity_factor=100.0)
+    assert cfg.swa_window == 16
+    tree = jax_params_np(cfg)
+    params = TM.params_from_numpy(tree, cfg, "cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, 40)).astype(np.int32)
+    js = JM.init_decode_state(cfg, 1, max_len=64)
+    ts = TM.init_decode_state(cfg, 1, max_len=64, device="cpu")
+    assert ts["kv"][0].k.shape[1] == 16
+    _, js = JM.prefill(tree, {"tokens": jnp.asarray(toks[:, :30])}, js, cfg,
+                       q_chunk=8, k_chunk=8)
+    _, ts = TM.prefill(params, {"tokens": _t(toks[:, :30])}, ts, cfg, q_chunk=8, k_chunk=8)
+    for i in range(30, 40):
+        jl, js = JM.decode_step(tree, jnp.asarray(toks[:, i]), js, cfg)
+        tl, ts = TM.decode_step(params, _t(toks[:, i]), ts, cfg)
+        np.testing.assert_allclose(to_np(tl), np.asarray(jl), rtol=2e-4, atol=2e-4)
+    np.testing.assert_array_equal(to_np(ts["kv"][1].pos), np.asarray(js["kv"].pos[1]))
+    full, _ = TM.forward(params, {"tokens": _t(toks)}, cfg, remat=False, q_chunk=8, k_chunk=8)
+    np.testing.assert_allclose(to_np(tl), to_np(full[:, 39]), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("t,flash", [(16, True), (17, False)])
+def test_prefill_asks_for_flash_only_within_the_window(monkeypatch, t, flash):
+    """Mixtral's window is 16 in its smoke config: a prefill of 16 tokens
+    asks for flash_attention once per layer, one of 17 never (the kernel
+    has no window), and both equal the JAX package's prefill."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = j_configs.get_smoke_config("mixtral_8x22b").with_(capacity_factor=100.0)
+    tree = jax_params_np(cfg)
+    params = TM.params_from_numpy(tree, cfg, "cpu")
+    calls = []
+    orig = fa.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append(q.shape[1])
+        return orig(q, k, v, **kw)
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (1, t)).astype(np.int32)
+    tl, _ = TM.prefill(params, {"tokens": _t(toks)},
+                       TM.init_decode_state(cfg, 1, max_len=64, device="cpu"), cfg)
+    jl, _ = JM.prefill(tree, {"tokens": jnp.asarray(toks)},
+                       JM.init_decode_state(cfg, 1, max_len=64), cfg)
+    assert calls == ([t] * cfg.n_layers if flash else [])
+    np.testing.assert_allclose(to_np(tl), np.asarray(jl), rtol=2e-4, atol=2e-4)
 
 
 def test_bf16_logits_are_f32_like_jax():

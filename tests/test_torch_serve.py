@@ -21,14 +21,14 @@ from repro_torch.serve.engine import ServeConfig, ServingEngine
 FIELDS = ("rid", "event_number", "entropy", "member", "node", "lane", "output", "done")
 
 
-def _engines(n_replicas, max_len, lane_bits=1):
-    cfg = j_smoke("yi_6b")
+def _engines(n_replicas, max_len, lane_bits=1, arch="yi_6b"):
+    cfg = j_smoke(arch)
     tree = JM.init_params(jax.random.PRNGKey(0), cfg)
     params = TM.params_from_numpy(jax.tree.map(np.asarray, tree),
-                                  get_smoke_config("yi_6b"), "cpu")
+                                  get_smoke_config(arch), "cpu")
     j = JEngine(cfg, JServeConfig(n_replicas=n_replicas, lane_bits=lane_bits,
                                   max_len=max_len), tree)
-    t = ServingEngine(get_smoke_config("yi_6b"),
+    t = ServingEngine(get_smoke_config(arch),
                       ServeConfig(n_replicas=n_replicas, lane_bits=lane_bits,
                                   max_len=max_len, device="cpu"), params)
     return j, t
@@ -92,6 +92,40 @@ def test_lane_isolation():
     assert r2.output == solo2.output
 
 
+@pytest.mark.parametrize("lane_bits", [1, 2])
+def test_moe_engine_equals_jax_engine(lane_bits):
+    """The Mixtral smoke config behind the front door: the same routes,
+    lanes and greedy tokens as the JAX engine, with prompts past the
+    16-token window (plain attention, a ring of 16 slots). Each decode
+    step feeds every lane, idle ones too, into the shared expert capacity,
+    as the reference does (at 4 lanes n*k = 8 meets the floor of 8)."""
+    j, t = _engines(2, 64, lane_bits=lane_bits, arch="mixtral_8x22b")
+    jr = _submit(j, np.random.default_rng(3), 9, 4, 24, 6)
+    tr = _submit(t, np.random.default_rng(3), 9, 4, 24, 6)
+    j.run_until_done(300)
+    t.run_until_done(300)
+    assert _view(tr) == _view(jr)
+    assert t.stats == j.stats
+    assert any(len(r.prompt) > 16 for r in tr) and any(len(r.prompt) <= 16 for r in tr)
+    assert all(r.done and len(r.output) == 6 for r in tr)
+
+
+def test_moe_lane_isolation():
+    """Lanes share the experts' capacity in a decode step; at 2 lanes
+    nothing drops, so two concurrent requests equal their solo runs."""
+    _, eng = _engines(2, 64, arch="arctic_480b")
+    p1, p2 = np.arange(6), np.arange(6)[::-1].copy()
+    solo1 = eng.submit(p1, max_new_tokens=5)
+    eng.run_until_done(100)
+    solo2 = eng.submit(p2, max_new_tokens=5)
+    eng.run_until_done(100)
+    r1 = eng.submit(p1, max_new_tokens=5)
+    r2 = eng.submit(p2, max_new_tokens=5)
+    eng.run_until_done(200)
+    assert r1.output == solo1.output
+    assert r2.output == solo2.output
+
+
 def test_rebalance_closes_the_loop():
     """With ``rebalance_every`` the engine reweights from decode telemetry
     and garbage-collects drained epochs; requests still all complete."""
@@ -118,6 +152,14 @@ def test_launcher_on_the_cpu(capsys):
     eng = t_launch.main(["--arch", "yi-6b", "--requests", "4", "--max-new", "3",
                          "--device", "cpu"])
     assert eng.stats["completed"] == 4
+    assert "served 4 requests / 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "arctic-480b"])
+def test_launcher_runs_the_moe_archs_on_the_cpu(capsys, arch):
+    eng = t_launch.main(["--arch", arch, "--requests", "4", "--max-new", "3",
+                         "--device", "cpu"])
+    assert eng.stats["completed"] == 4 and eng.mcfg.family == "moe"
     assert "served 4 requests / 12 tokens" in capsys.readouterr().out
 
 

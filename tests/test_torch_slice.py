@@ -173,7 +173,8 @@ def test_port_imports_without_jax_or_repro():
                 "fabric.sim", "fabric.scenarios", "fabric.run", "serve.engine",
                 "train.optimizer", "train.train_step", "train.trainer",
                 "distributed.context", "distributed.sharding", "distributed.compression",
-                "checkpoint.ckpt", "launch.train", "tree"):
+                "checkpoint.ckpt", "launch.train", "tree", "models.moe",
+                "configs.mixtral_8x22b", "configs.arctic_480b"):
         assert f"repro_torch.{mod}" in names, mod
 
 
