@@ -3,8 +3,10 @@
 
 Drives the port's main paths — the load balancer's closed loop, the
 simulator, the control plane as a service, the two-tier fabric,
-LB-front-door serving of Yi-6B, training with LB ingest and serving of the
-MoE family (Mixtral-8x22B, Arctic) — through the entry points a user calls,
+LB-front-door serving of Yi-6B, training with LB ingest, serving of the MoE
+family (Mixtral-8x22B, Arctic) and the vlm, audio, hybrid and ssm families
+(Llama-3.2-Vision-90B, HuBERT-XLarge, Zamba2-2.7B, RWKV6-7B) — through the
+entry points a user calls,
 builds every CUDA kernel of those paths from the sources in this checkout,
 and holds each kernel against its plain PyTorch version at full width.
 Phases, one line (or more) each; any failure exits non-zero and prints no
@@ -143,7 +145,26 @@ result:
                 by flash_attention, the expert products and dispatch_plan
                 (CUDA events) and its drops; then Arctic at published width,
                 2 of its 35 layers (55.4 GB; 1 if 2 do not fit), 4 requests
- 11. result     the `kernels` JSON line, the card line, and the last line
+ 11. families   the vlm, audio, hybrid and ssm families, after the earlier
+                phases' tensors are freed: the four smoke configs card ==
+                CPU (fp32, TF32 off, rtol/atol 2e-4: HuBERT's forward,
+                Llama-Vision's prefill with vision tokens and 4 decode
+                steps, Zamba2 and RWKV6 served at 2 replicas x 4 slots with
+                equal routes, tokens and stats); flash_attention at
+                Zamba2's prefill shape (T=4096, 32/32 heads, d=80: the mma
+                design) and Llama-Vision's (64/8, d=128: wgmma), causal and
+                not, against plain and timed beside SDPA;
+                Llama-3.2-Vision-90B at published width, 20 of its 100
+                layers (38.4 GB): a 2048-token prefill of 4 lanes with their
+                own 1601 vision tokens (flash_attention once per self layer,
+                18, wgmma), 32 decode steps reusing the stored vision, a
+                4000-token prefill with the cross layers' share; Zamba2-2.7B
+                at full size served with a drain (9 mma launches per
+                prefill, the Mamba2 blocks' share of the longest prefill);
+                RWKV6-7B at full size served with a drain (no attention),
+                then a 2048-token prefill at rwkv_chunk 1 and 64;
+                HuBERT-XLarge's encoder over 4 x 1500 frames (no kernel)
+ 12. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -606,9 +627,7 @@ def flash_phase(torch, np):
     small shape), each check naming the design that ran it; then the
     kernel's (wgmma design), the plain version's and SDPA's times at the
     prefill shape."""
-    from repro_torch.kernels import _lib
-    from repro_torch.kernels.flash_attention import _design, flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention import _design
 
     rng = np.random.default_rng(12)
 
@@ -616,38 +635,6 @@ def flash_phase(torch, np):
         mk = lambda h: torch.from_numpy(
             rng.standard_normal((b, t, h, d), dtype=np.float32)).to("cuda", dtype)
         return mk(hq), mk(hkv), mk(hkv)
-
-    def compare(q, k, v, causal, atol, rtol, what):
-        before = _lib.LAUNCHES["flash_attention_wgmma"]
-        got = flash_attention(q, k, v, causal=causal)
-        want = flash_attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        design = "wgmma" if _lib.LAUNCHES["flash_attention_wgmma"] > before else "mma"
-        check(design == _design(q.dtype, q.shape[-1]),
-              f"flash_attention {what}: the {design} design ran, not the one chosen")
-        what = f"[{design}] {what}"
-        check(bool(torch.isfinite(got).all()), f"flash_attention {what}: non-finite output")
-        err = float((got.float() - want.float()).abs().max())
-        check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
-              f"flash_attention {what} differs from plain: max |err| {err}")
-        note = ""
-        if not causal and q.dtype == torch.bfloat16:
-            # what a kernel that lets zero-padded keys into a non-causal
-            # softmax (the Pallas kernel's padding fault, 128-key blocks)
-            # would read here; at a small T the check must tell it apart
-            pad = -k.shape[1] % 128
-            z = lambda x: torch.cat([x, x.new_zeros(x.shape[0], pad, *x.shape[2:])], 1)
-            fault = flash_attention_ref(q, z(k), z(v), causal=False).float()
-            f_err = float((fault - want.float()).abs().max())
-            caught = not torch.allclose(fault, want.float(), rtol=rtol, atol=atol)
-            check(caught or k.shape[1] > 128,
-                  f"flash_attention {what}: the check cannot tell a padded-key fault "
-                  f"apart (its max |err| {f_err})")
-            note = (f"; a padded-key fault would read {f_err:.3g}, "
-                    f"{'caught' if caught else 'NOT caught at this T'}")
-        say(f"[kernels] flash_attention {what}: within atol {atol:g} rtol {rtol:g} "
-            f"of plain (max |err| {err:.3g}){note}")
-        return err
 
     # bf16: the kernel rounds P to bf16 before the PV product, so a row's
     # error is ~2^-9 |v| sqrt(sum p^2): up to ~4e-3 in the first causal rows
@@ -668,23 +655,64 @@ def flash_phase(torch, np):
                                   (1, 65, FLASH_HQ, FLASH_HKV, False),
                                   (1, 100, FLASH_HQ, FLASH_HKV, False)):
         q, k, v = qkv(b, t, hq, hkv, FLASH_D, torch.bfloat16)
-        errs.append(compare(q, k, v, causal, 5e-3, 2e-2,
-                            f"bf16 B={b} T={t} {hq}/{hkv} heads d={FLASH_D} "
-                            f"{'causal' if causal else 'non-causal'}"))
+        errs.append(flash_compare(torch, q, k, v, causal, 5e-3, 2e-2,
+                                  f"bf16 B={b} T={t} {hq}/{hkv} heads d={FLASH_D} "
+                                  f"{'causal' if causal else 'non-causal'}"))
     # fp32 against a full-fp32 plain version (no TF32 in its einsums); it
     # stays off for the rest of the run (the fp32 card == CPU serve needs it)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for causal in (True, False):
         q, k, v = qkv(2, 200, 8, 2, 80, torch.float32)
-        compare(q, k, v, causal, 1e-4, 1e-4,
-                f"fp32 B=2 T=200 8/2 heads d=80 causal={causal}")
+        flash_compare(torch, q, k, v, causal, 1e-4, 1e-4,
+                      f"fp32 B=2 T=200 8/2 heads d=80 causal={causal}")
 
     q, k, v = qkv(1, FLASH_T, FLASH_HQ, FLASH_HKV, FLASH_D, torch.bfloat16)
     design = _design(q.dtype, FLASH_D)
     check(design == "wgmma", f"the Yi-6B prefill shape chose the {design} design")
     row = flash_times(torch, q, k, v, "[kernels]")
     return dict(row, max_abs_err=max(errs), design=design, design_sources=DESIGN_SOURCES)
+
+
+def flash_compare(torch, q, k, v, causal, atol, rtol, what, tag="[kernels]"):
+    """One flash_attention call against its plain version at q/k/v's shape,
+    naming the design that ran (the launch counts tell); for bf16 without
+    the causal mask, also what a padded-key fault would read there.
+    Returns the max |kernel - plain|."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import _design, flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    before = _lib.LAUNCHES["flash_attention_wgmma"]
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    design = "wgmma" if _lib.LAUNCHES["flash_attention_wgmma"] > before else "mma"
+    check(design == _design(q.dtype, q.shape[-1]),
+          f"flash_attention {what}: the {design} design ran, not the one chosen")
+    what = f"[{design}] {what}"
+    check(bool(torch.isfinite(got).all()), f"flash_attention {what}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+          f"flash_attention {what} differs from plain: max |err| {err}")
+    note = ""
+    if not causal and q.dtype == torch.bfloat16:
+        # what a kernel that lets zero-padded keys into a non-causal
+        # softmax (the Pallas kernel's padding fault, 128-key blocks)
+        # would read here; at a small T the check must tell it apart
+        pad = -k.shape[1] % 128
+        z = lambda x: torch.cat([x, x.new_zeros(x.shape[0], pad, *x.shape[2:])], 1)
+        fault = flash_attention_ref(q, z(k), z(v), causal=False).float()
+        f_err = float((fault - want.float()).abs().max())
+        caught = not torch.allclose(fault, want.float(), rtol=rtol, atol=atol)
+        check(caught or k.shape[1] > 128,
+              f"flash_attention {what}: the check cannot tell a padded-key fault "
+              f"apart (its max |err| {f_err})")
+        note = (f"; a padded-key fault would read {f_err:.3g}, "
+                f"{'caught' if caught else 'NOT caught at this T'}")
+    say(f"{tag} flash_attention {what}: within atol {atol:g} rtol {rtol:g} "
+        f"of plain (max |err| {err:.3g}){note}")
+    return err
 
 
 def flash_times(torch, q, k, v, tag):
@@ -851,7 +879,7 @@ FULL_SERVE = dict(n_replicas=2, lane_bits=2, max_len=4096, rebalance_every=4)
 N_REQUESTS, N_AFTER_DRAIN, MAX_NEW = 12, 4, 16
 
 
-def small_serve(torch, np, arch="yi_6b", tag="[serve]"):
+def small_serve(torch, np, arch="yi_6b", tag="[serve]", lane_bits=1):
     """A smoke config (fp32) served on the card and on the CPU from one set
     of weights: the same routing, tokens and stats."""
     from repro_torch.configs import get_smoke_config
@@ -862,7 +890,7 @@ def small_serve(torch, np, arch="yi_6b", tag="[serve]"):
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     seen = {}
     for dev in ("cuda", "cpu"):
-        eng = ServingEngine(cfg, ServeConfig(n_replicas=2, lane_bits=1, max_len=64,
+        eng = ServingEngine(cfg, ServeConfig(n_replicas=2, lane_bits=lane_bits, max_len=64,
                                              device=dev), M.to_device(params, dev))
         rng = np.random.default_rng(0)
         reqs = [eng.submit(rng.integers(0, cfg.vocab, int(rng.integers(4, 10))),
@@ -873,7 +901,8 @@ def small_serve(torch, np, arch="yi_6b", tag="[serve]"):
     check(seen["cuda"] == seen["cpu"], f"small serve of {arch} differs card vs CPU:\n"
                                        f"{seen['cuda']}\n{seen['cpu']}")
     check(all(r[-1] and len(r[-2]) == 6 for r in seen["cuda"][0]), "small serve unfinished")
-    say(f"{tag} {cfg.name} (fp32), 2 replicas, 9 requests: card == CPU "
+    say(f"{tag} {cfg.name} (fp32), 2 replicas x {1 << lane_bits} slots, 9 requests: "
+        f"card == CPU "
         f"(routing, lanes, tokens, stats {seen['cuda'][1]})")
 
 
@@ -919,8 +948,9 @@ def _observed_engine(torch):
     return ObservedEngine
 
 
-def prefill_spans(torch, M, cfg, params, prompt, max_len, targets):
-    """One prefill of ``prompt`` on a fresh batch-1 state, with CUDA events
+def prefill_spans(torch, M, cfg, params, prompt, max_len, targets, extra=None):
+    """One prefill of ``prompt`` on a fresh batch-1 state (its batch also
+    holds ``extra``, such as a vlm's vision tokens), with CUDA events
     around it and around every call it makes to each of ``targets``
     (``{name: (module, attribute)}``, patched for the prefill's time).
     Returns ``({name: (ms, calls)}, prefill ms, {name: [each call's
@@ -948,7 +978,7 @@ def prefill_spans(torch, M, cfg, params, prompt, max_len, targets):
         setattr(mod, attr, timed(name))
     try:
         a.record()
-        M.prefill(params, {"tokens": tokens}, state, cfg)
+        M.prefill(params, {"tokens": tokens, **(extra or {})}, state, cfg)
         b.record()
         b.synchronize()
     finally:
@@ -986,20 +1016,43 @@ def decode_profile(torch, M, cfg, params, state, steps=3):
                 decode_device_ops_per_step=n_ops / steps)
 
 
+def attention_layers(cfg) -> int:
+    """Self-attention layers a token passes: every layer (dense, moe), the
+    vlm's layers but its cross-attention ones, the hybrid's applications of
+    its shared block, none in the ssm family."""
+    if cfg.family == "vlm":
+        return cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
 def flash_launches(cfg, n: int) -> int:
-    """flash_attention launches of a prefill of ``n`` tokens: one per layer
-    when the sequence is longer than a token and no longer than the sliding
-    window (if any), else none (``layers.self_attention_block``)."""
-    return cfg.n_layers * (n > 1 and (cfg.swa_window is None or n <= cfg.swa_window))
+    """flash_attention launches of a prefill of ``n`` tokens: one per
+    self-attention layer when the sequence is longer than a token and no
+    longer than the sliding window (if any), else none
+    (``layers.self_attention_block``)."""
+    return attention_layers(cfg) * (n > 1 and (cfg.swa_window is None or n <= cfg.swa_window))
 
 
-def serve_with_drain(torch, np, cfg, params, serve_kw, lens, rng, tag):
+def flash_design(cfg) -> str:
+    """The flash_attention design the config's prefill takes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import _design
+
+    return _design(getattr(torch, cfg.dtype), cfg.hd)
+
+
+def serve_with_drain(torch, np, cfg, params, serve_kw, lens, rng, tag,
+                     drain_lens=(256, 4001)):
     """Serve prompts of ``lens`` tokens (drawn from ``rng``) on the card
     behind the LB front door, drain replica 1 hit-lessly as
     examples/serve_lb.py does, serve N_AFTER_DRAIN more, and hold the run to
     its gates: every request finishes, the drained replica gets nothing, each
-    prefill launches flash_attention as ``flash_launches`` says (all through
-    the wgmma design) and every routing tick launches lb_route. The launch
+    prefill launches flash_attention as ``flash_launches`` says (through the
+    design ``flash_design`` names) and every routing tick launches lb_route.
+    The post-drain prompts' lengths are drawn from ``drain_lens``. The launch
     counts are reset just before the run and read just after it. Returns
     (engine, requests, the run's facts)."""
     from repro_torch.kernels import _lib
@@ -1024,7 +1077,7 @@ def serve_with_drain(torch, np, cfg, params, serve_kw, lens, rng, tag):
     committed = drain_start - eng.next_event
     eng.next_event = max(eng.next_event, drain_start)
     drained = [eng.submit(rng.integers(0, cfg.vocab, int(n)), max_new_tokens=MAX_NEW)
-               for n in rng.integers(256, 4001, N_AFTER_DRAIN)]
+               for n in rng.integers(*drain_lens, N_AFTER_DRAIN)]
     reqs += drained
     eng.run_until_done()
     torch.cuda.synchronize()
@@ -1053,7 +1106,8 @@ def serve_with_drain(torch, np, cfg, params, serve_kw, lens, rng, tag):
 def serving_gates(cfg, eng, reqs, launches, tag):
     """Every request finished with its tokens in the vocabulary, prefilled
     once; each prefill launched flash_attention as ``flash_launches`` says,
-    all through the wgmma design; every routing tick launched lb_route."""
+    all through the design ``flash_design`` names; every routing tick
+    launched lb_route."""
     st = eng.stats
     check(all(r.done and len(r.output) == MAX_NEW for r in reqs),
           f"{tag} a request did not finish")
@@ -1064,9 +1118,12 @@ def serving_gates(cfg, eng, reqs, launches, tag):
               f"{tag} prefill of {n} tokens launched flash_attention {fl} times")
     check(launches["flash_attention"] == sum(flash_launches(cfg, n) for n, _, _ in eng.prefills),
           f"{tag} flash_attention launches {launches['flash_attention']} in the serving run")
-    check(launches["flash_attention_wgmma"] == launches["flash_attention"],
+    design = flash_design(cfg)
+    want_wgmma = launches["flash_attention"] if design == "wgmma" else 0
+    check(launches["flash_attention_wgmma"] == want_wgmma,
           f"{tag} {launches['flash_attention_wgmma']} of the {launches['flash_attention']} "
-          "flash_attention launches of the serving run went through the wgmma design")
+          f"flash_attention launches of the serving run went through the wgmma design, "
+          f"where {cfg.name} takes the {design} one")
     for n, lb in eng.routes:
         check(lb >= 1, f"{tag} a routing tick of {n} requests launched lb_route {lb} times")
     for r in reqs:
@@ -2494,6 +2551,361 @@ def moe_phase(torch, np):
     return launches, plans, flash
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the vlm, audio, hybrid and ssm families
+# ---------------------------------------------------------------------------
+
+FAMILY_TOL = dict(rtol=2e-4, atol=2e-4)  # float32 on both, TF32 off: reassociation only
+# Llama-3.2-Vision-90B at published width, 20 of its 100 layers (2 groups of 9
+# self and 1 cross layer; 19.2 B params, 38.4 GB in bf16): a 2048-token
+# prefill of 4 lanes, each with its own 1601 vision tokens, and 32 decode
+# steps reusing them; a 4000-token prefill of one lane
+VISION_LAYERS = 20
+VISION_LANES, VISION_PREFILL_T, VISION_LONG_T, VISION_DECODE_STEPS = 4, 2048, 4000, 32
+# Zamba2-2.7B and RWKV6-7B at full depth and width behind the LB front door
+ZAMBA_SERVE = dict(n_replicas=2, lane_bits=2, max_len=8192, rebalance_every=4)
+RWKV_SERVE = dict(n_replicas=2, lane_bits=2, max_len=2048, rebalance_every=4)
+RWKV_REQUESTS, RWKV_LENS = 8, (128, 1025)
+RWKV_PREFILL_T, RWKV_CHUNKS = 2048, (1, 64)
+# HuBERT-XLarge's encoder over 4 clips of 30 s (50 frames/s)
+HUBERT_CLIPS, HUBERT_FRAMES = 4, 1500
+# the families' prefill shapes of flash_attention: Zamba2's shared block
+# (B=1, T=4096, 32/32 heads, d=80: the mma design), Llama-3.2-Vision's self
+# layers (64/8 heads, d=128: wgmma)
+FAMILY_FLASH = {"zamba2_prefill": (4096, 32, 32, 80, "mma"),
+                "llama_vision_prefill": (4096, 64, 8, 128, "wgmma")}
+
+
+def _n_params(M, params) -> int:
+    sizes = []
+    M.tree_map(lambda w: sizes.append(w.numel()), params)
+    return sum(sizes)
+
+
+def families_small(torch, np):
+    """The four smoke configs (fp32, TF32 off) on the card and on the CPU
+    from one set of weights: HuBERT's forward logits, Llama-Vision's prefill
+    (with vision tokens) and 4 decode steps, within rtol/atol 2e-4; Zamba2
+    and RWKV6 served at 2 replicas x 4 slots with the same routes, tokens
+    and stats."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(31)
+    for arch in ("hubert_xlarge", "llama_3_2_vision_90b"):
+        cfg = get_smoke_config(arch)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        out = {}
+        if cfg.family == "audio":
+            embeds = torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model), np.float32))
+            for dev in ("cuda", "cpu"):
+                logits, _ = M.forward(M.to_device(params, dev), {"embeds": embeds.to(dev)},
+                                      cfg, remat=False)
+                out[dev] = [logits.cpu()]
+            what = "forward logits [2, 24, V]"
+        else:
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 15)).astype(np.int32))
+            vision = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_vision_tokens, cfg.d_model), np.float32))
+            for dev in ("cuda", "cpu"):
+                p = M.to_device(params, dev)
+                st = M.init_decode_state(cfg, 2, 32, device=dev)
+                logits, st = M.prefill(p, {"tokens": toks[:, :11].to(dev),
+                                           "vision_embeds": vision.to(dev)}, st, cfg)
+                got = [logits]
+                for i in range(11, 15):
+                    logits, st = M.decode_step(p, toks[:, i].to(dev), st, cfg)
+                    got.append(logits)
+                out[dev] = [g.cpu() for g in got]
+            what = "prefill (11 tokens, 16 vision tokens) and 4 decode steps' logits"
+        errs = [float((g - w).abs().max()) for g, w in zip(out["cuda"], out["cpu"])]
+        check(all(torch.allclose(g, w, **FAMILY_TOL) for g, w in zip(out["cuda"], out["cpu"])),
+              f"[families] {cfg.name}: card differs from the CPU (max |diff| {errs})")
+        say(f"[families] {cfg.name} (fp32): {what} card == CPU within rtol/atol 2e-4 "
+            f"(max |diff| {max(errs):.3g})")
+    for arch in ("zamba2_2_7b", "rwkv6_7b"):
+        small_serve(torch, np, arch=arch, tag="[families]", lane_bits=2)
+
+
+def families_flash(torch, np):
+    """flash_attention at the families' prefill shapes against its plain
+    version (bf16 atol 5e-3, rtol 2e-2; causal and not), each on the design
+    its config takes, and timed beside plain and SDPA."""
+    from repro_torch.kernels.flash_attention import _design
+
+    rng = np.random.default_rng(37)
+    rows = {}
+    for name, (t, hq, hkv, d, want) in FAMILY_FLASH.items():
+        mk = lambda h: torch.from_numpy(rng.standard_normal(
+            (1, t, h, d), dtype=np.float32)).to("cuda", torch.bfloat16)
+        q, k, v = mk(hq), mk(hkv), mk(hkv)
+        check(_design(q.dtype, d) == want, f"{name}: the {_design(q.dtype, d)} design chosen")
+        err = max(flash_compare(torch, q, k, v, causal, 5e-3, 2e-2,
+                                f"{name} bf16 B=1 T={t} {hq}/{hkv} heads d={d} "
+                                f"{'causal' if causal else 'non-causal'}", tag="[families]")
+                  for causal in (True, False))
+        rows[name] = dict(flash_times(torch, q, k, v, "[families]"), design=want,
+                          max_abs_err=err)
+        del q, k, v
+    return rows
+
+
+def vision_run(torch, np):
+    """Llama-3.2-Vision-90B at published width, VISION_LAYERS of its 100
+    layers: a prefill of 4 lanes (each its own vision tokens) and decode
+    steps that reuse the stored vision tokens; a long one-lane prefill with
+    the cross layers' share. flash_attention launches once per self layer
+    per prefill (wgmma), never in a decode step. Returns the launches of the
+    two prefills and the decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"), n_layers=VISION_LAYERS)
+    n_self = attention_layers(cfg)
+    check(flash_design(cfg) == "wgmma", f"{cfg.name} takes the {flash_design(cfg)} design")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = _n_params(M, params)
+    # ModelConfig.param_count leaves out the final norm's d_model scales
+    check(n_params == cfg.param_count()[0] + cfg.d_model,
+          f"{n_params} params drawn, the config counts {cfg.param_count()[0]}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    vision = torch.randn((VISION_LANES, cfg.n_vision_tokens, cfg.d_model), device="cuda",
+                         generator=gen).bfloat16()
+    toks = torch.randint(0, cfg.vocab, (VISION_LANES, VISION_PREFILL_T + VISION_DECODE_STEPS),
+                         device="cuda", generator=gen, dtype=torch.int32)
+    state = M.init_decode_state(cfg, VISION_LANES, VISION_PREFILL_T + VISION_DECODE_STEPS + 8,
+                                "cuda")
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    a, b, h0 = ev(), ev(), time.perf_counter()
+    a.record()
+    logits, state = M.prefill(params, {"tokens": toks[:, :VISION_PREFILL_T],
+                                       "vision_embeds": vision}, state, cfg)
+    b.record()
+    b.synchronize()
+    prefill_host_ms = (time.perf_counter() - h0) * 1e3
+    prefill_ms = a.elapsed_time(b)
+    check(_lib.LAUNCHES["flash_attention"] == n_self
+          and _lib.LAUNCHES["flash_attention_wgmma"] == n_self,
+          f"the {VISION_LANES}-lane prefill launched flash_attention "
+          f"{_lib.LAUNCHES['flash_attention']} times ({_lib.LAUNCHES['flash_attention_wgmma']} "
+          f"wgmma), not once per self layer ({n_self})")
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (VISION_LANES, cfg.vocab),
+          "the vision prefill's logits are not finite")
+    check(state["vision"] is not None and state["vision"].shape == vision.shape,
+          "the prefill did not store the vision tokens")
+    step_ms = []
+    for i in range(VISION_DECODE_STEPS):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        logits, state = M.decode_step(params, toks[:, VISION_PREFILL_T + i], state, cfg)
+        finite = bool(torch.isfinite(logits).all())  # ends when the step has
+        step_ms.append((time.perf_counter() - h0) * 1e3)
+        check(finite, f"decode step {i} gave non-finite logits")
+    launches = dict(_lib.LAUNCHES)
+    check(launches["flash_attention"] == n_self, "a decode step launched flash_attention")
+    check(torch.equal(state["pos"].cpu(), torch.full((VISION_LANES,),
+                                                     VISION_PREFILL_T + VISION_DECODE_STEPS,
+                                                     dtype=torch.int32)),
+          "the lanes' positions did not advance")
+    decode = decode_profile(torch, M, cfg, params, state)
+
+    long = np.random.default_rng(6).integers(0, cfg.vocab, VISION_LONG_T)
+    before = dict(_lib.LAUNCHES)
+    per, p_ms, _ = prefill_spans(torch, M, cfg, params, long, VISION_LONG_T + 8,
+                                 {"cross_block": (M, "_cross_block"),
+                                  "flash_attention": (fa, "flash_attention")},
+                                 extra={"vision_embeds": vision[:1]})
+    check(per["flash_attention"][1] == n_self and per["cross_block"][1] == cfg.n_layers - n_self,
+          f"the long prefill called flash_attention {per['flash_attention'][1]} and the cross "
+          f"layers {per['cross_block'][1]} times")
+    check(_lib.LAUNCHES["flash_attention_wgmma"] - before["flash_attention_wgmma"] == n_self,
+          "the long prefill's flash_attention did not run the wgmma design")
+    for k in launches:
+        launches[k] = _lib.LAUNCHES[k]
+    line = dict(
+        model=cfg.name, n_layers=cfg.n_layers, self_layers=n_self,
+        cross_layers=cfg.n_layers - n_self, dtype=cfg.dtype, n_params=n_params, init_s=t_init,
+        vision_tokens=cfg.n_vision_tokens, lanes=VISION_LANES, prefill_tokens=VISION_PREFILL_T,
+        prefill_ms=prefill_ms, prefill_host_ms=prefill_host_ms,
+        prefill_tokens_per_s=VISION_LANES * VISION_PREFILL_T / prefill_ms * 1e3,
+        decode_steps=VISION_DECODE_STEPS, decode_step_ms_median=statistics.median(step_ms),
+        decode_step_ms_max=max(step_ms), **decode,
+        long_prefill_tokens=VISION_LONG_T, long_prefill_ms=p_ms,
+        cross_share_of_long_prefill=per["cross_block"][0] / p_ms,
+        flash_share_of_long_prefill=per["flash_attention"][0] / p_ms,
+        share_method="CUDA events around each cross block, each flash_attention launch "
+                     "and the whole prefill",
+        flash_launches=launches["flash_attention"],
+        flash_wgmma_launches=launches["flash_attention_wgmma"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say("[families] " + json.dumps(line, sort_keys=True))
+    return launches
+
+
+def zamba_serve(torch, np):
+    """Zamba2-2.7B at full depth and width served with a drain; the Mamba2
+    blocks' and flash_attention's shares of its longest prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import model as M
+
+    cfg = get_config("zamba2-2.7b")
+    check(flash_design(cfg) == "mma", f"{cfg.name} takes the {flash_design(cfg)} design")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    lens = rng.integers(256, 4001, N_REQUESTS)
+    eng, reqs, run = serve_with_drain(torch, np, cfg, params, ZAMBA_SERVE, lens, rng,
+                                      "[families]")
+    longest = max(reqs, key=lambda r: len(r.prompt)).prompt
+    per, p_ms, _ = prefill_spans(torch, M, cfg, params, longest, ZAMBA_SERVE["max_len"],
+                                 {"mamba2_block": (M2, "mamba2_block"),
+                                  "flash_attention": (fa, "flash_attention")})
+    check(per["mamba2_block"][1] == cfg.n_layers
+          and per["flash_attention"][1] == attention_layers(cfg),
+          f"the profiled prefill called mamba2_block {per['mamba2_block'][1]} and "
+          f"flash_attention {per['flash_attention'][1]} times")
+    decode = decode_profile(torch, M, cfg, params, eng.states[0])
+    line = serve_line(
+        cfg, eng, reqs, run, ZAMBA_SERVE, n_params=_n_params(M, params), init_s=t_init,
+        attention_applications=attention_layers(cfg), flash_design="mma",
+        share_prefill_tokens=len(longest), share_prefill_ms=p_ms,
+        mamba2_share_of_prefill=per["mamba2_block"][0] / p_ms,
+        flash_share_of_prefill=per["flash_attention"][0] / p_ms,
+        share_method="CUDA events around each call and around the whole prefill",
+        **decode, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say("[families] " + json.dumps(line, sort_keys=True))
+    return run["launches"]
+
+
+def rwkv_serve(torch, np):
+    """RWKV6-7B at full depth and width served with a drain (the engine's
+    prefill takes the per-token scan, the reference's default); then one
+    model-level prefill of RWKV_PREFILL_T tokens at each of RWKV_CHUNKS."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("rwkv6-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    lens = rng.integers(*RWKV_LENS, RWKV_REQUESTS)
+    eng, reqs, run = serve_with_drain(torch, np, cfg, params, RWKV_SERVE, lens, rng,
+                                      "[families]", drain_lens=RWKV_LENS)
+    check(run["launches"]["flash_attention"] == 0, "the ssm family launched flash_attention")
+    decode = decode_profile(torch, M, cfg, params, eng.states[0])
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, RWKV_PREFILL_T))).cuda()
+    chunks, logits = {}, {}
+    for chunk in RWKV_CHUNKS:
+        state = M.init_decode_state(cfg, 1, RWKV_PREFILL_T, "cuda")
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        a.record()
+        logits[chunk], _ = M.prefill(params, {"tokens": toks}, state, cfg, rwkv_chunk=chunk)
+        b.record()
+        b.synchronize()
+        chunks[chunk] = dict(ms=a.elapsed_time(b), host_ms=(time.perf_counter() - h0) * 1e3)
+        check(bool(torch.isfinite(logits[chunk]).all()),
+              f"the rwkv_chunk={chunk} prefill gave non-finite logits")
+    lo, hi = RWKV_CHUNKS
+    line = serve_line(
+        cfg, eng, reqs, run, RWKV_SERVE, n_params=_n_params(M, params), init_s=t_init,
+        prefill_rwkv_chunk=1, model_prefill_tokens=RWKV_PREFILL_T,
+        model_prefill_ms={str(c): v["ms"] for c, v in chunks.items()},
+        model_prefill_host_ms={str(c): v["host_ms"] for c, v in chunks.items()},
+        model_prefill_speedup=chunks[lo]["ms"] / chunks[hi]["ms"],
+        model_prefill_max_abs_logit_diff=float((logits[lo] - logits[hi]).abs().max()),
+        **decode, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say("[families] " + json.dumps(line, sort_keys=True))
+    return run["launches"]
+
+
+def hubert_run(torch, np):
+    """HuBERT-XLarge's encoder at full depth and width (bf16, random
+    weights): ``forward`` over HUBERT_CLIPS x HUBERT_FRAMES frame embeddings,
+    no kernel on the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import model as M
+
+    cfg = get_config("hubert-xlarge")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    embeds = torch.randn((HUBERT_CLIPS, HUBERT_FRAMES, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(5)).bfloat16()
+    before = dict(_lib.LAUNCHES)
+    ms = []
+    with torch.no_grad():
+        for _ in range(4):  # the first call warms up
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, _ = M.forward(params, {"embeds": embeds}, cfg, remat=False)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+    check(logits.shape == (HUBERT_CLIPS, HUBERT_FRAMES, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "HuBERT's logits are not finite")
+    check(_lib.LAUNCHES == before, "HuBERT's forward launched a kernel")
+    t = statistics.median(ms[1:])
+    line = dict(model=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+                n_params=_n_params(M, params), clips=HUBERT_CLIPS, frames=HUBERT_FRAMES,
+                forward_ms=t, forward_ms_first=ms[0],
+                frames_per_s=HUBERT_CLIPS * HUBERT_FRAMES / t * 1e3,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say("[families] " + json.dumps(line, sort_keys=True))
+
+
+def families_phase(torch, np):
+    """The vlm, audio, hybrid and ssm families, after the earlier phases'
+    tensors are freed: the four smoke configs card == CPU; flash_attention
+    at their prefill shapes; Llama-3.2-Vision (20 layers) prefills and
+    decodes, Zamba2 and RWKV6 at full size served with a drain, HuBERT's
+    encoder at full size. Returns (the main-path launches of the vision
+    run and the two serving runs, summed; the flash rows)."""
+    import gc
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    free()
+    families_small(torch, np)
+    flash = families_flash(torch, np)
+    free()
+    launches = vision_run(torch, np)
+    free()
+    for run in (zamba_serve, rwkv_serve):
+        for k, v in run(torch, np).items():
+            launches[k] += v
+        free()
+    hubert_run(torch, np)
+    free()
+    say(f"[families] phase {time.perf_counter() - t0:.1f} s")
+    return launches, flash
+
+
 def main() -> int:
     try:
         import torch
@@ -2547,6 +2959,8 @@ def main() -> int:
         moe_launches, moe_plans, moe_flash = moe_phase(torch, np)
         results["dispatch_plan"]["moe_shapes"] = moe_plans
         results["flash_attention"]["mixtral_prefill"] = moe_flash
+        family_launches, family_flash = families_phase(torch, np)
+        results["flash_attention"].update(family_flash)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -2556,7 +2970,7 @@ def main() -> int:
                     launches=(loop_launches[name] + serve_launches[name]
                               + simnet_launches.get(name, 0) + controld_launches[name]
                               + fabric_launches.get(name, 0) + train_launches.get(name, 0)
-                              + moe_launches[name]),
+                              + moe_launches[name] + family_launches[name]),
                     **results[name])
                for name in REPLACES]
     for row in kernels:
@@ -2566,10 +2980,13 @@ def main() -> int:
             row["launches_train"] = train_launches[row["name"]]
         if moe_launches[row["name"]]:  # of which in the MoE phase
             row["launches_moe"] = moe_launches[row["name"]]
+        if family_launches[row["name"]]:  # of which in the families phase
+            row["launches_families"] = family_launches[row["name"]]
         if row["name"] == "flash_attention":  # of which through the wgmma design
             row["launches_wgmma"] = (loop_launches["flash_attention_wgmma"]
                                      + serve_launches["flash_attention_wgmma"]
-                                     + moe_launches["flash_attention_wgmma"])
+                                     + moe_launches["flash_attention_wgmma"]
+                                     + family_launches["flash_attention_wgmma"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

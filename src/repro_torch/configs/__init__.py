@@ -2,33 +2,30 @@
 
 Each module defines CONFIG (the published config, as in the JAX package's
 ``repro.configs``) and smoke_config() (a reduced same-family config for the
-CPU tests). The port runs the dense and moe families; the other archs of
-the repo raise ``NotImplementedError`` until their family is ported.
+CPU tests). The port runs every arch of the repo: the dense, moe, vlm,
+audio, hybrid and ssm families.
 """
 from __future__ import annotations
 
 import importlib
 
-#: archs the port runs (dense family: GQA 4 and 2 KV heads, MQA, MHA,
-#: fractional RoPE 0.25 and 0.5, head dims 80 and 128; moe family: 8 experts
-#: with a sliding window, 128 experts with a dense residual)
+#: the archs, in the JAX package's order (dense: GQA 4 and 2 KV heads, MQA,
+#: MHA, fractional RoPE 0.25 and 0.5, head dims 80 and 128; moe: 8 experts
+#: with a sliding window, 128 experts with a dense residual; vlm: a
+#: cross-attention layer every 10th; audio: an encoder; hybrid: Mamba2 with
+#: a shared attention block; ssm: RWKV6)
 ARCH_IDS = [
+    "llama_3_2_vision_90b",
+    "arctic_480b",
+    "mixtral_8x22b",
     "granite_20b",
     "stablelm_3b",
     "chatglm3_6b",
     "yi_6b",
-    "mixtral_8x22b",
-    "arctic_480b",
+    "hubert_xlarge",
+    "zamba2_2_7b",
+    "rwkv6_7b",
 ]
-
-#: archs of the JAX package not ported yet, with the ROADMAP item that
-#: brings each
-_NOT_PORTED = {
-    "llama_3_2_vision_90b": "vlm family",
-    "hubert_xlarge": "audio family",
-    "zamba2_2_7b": "hybrid family",
-    "rwkv6_7b": "ssm family",
-}
 
 
 def _normalize(arch: str) -> str:
@@ -37,10 +34,6 @@ def _normalize(arch: str) -> str:
 
 def _module(arch: str):
     name = _normalize(arch)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch}: the {_NOT_PORTED[name]} is not ported yet "
-            "(ROADMAP.md queue 1, the item \"The other model families\")")
     if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; the port runs {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")

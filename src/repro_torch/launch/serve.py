@@ -1,10 +1,12 @@
 """Serving launcher: LB-front-door engine with batched synthetic requests.
 
 The port of ``repro.launch.serve``: the same arguments and smoke config,
-plus ``--device`` (default ``cuda``).
+plus ``--device`` (default ``cuda``). It serves the dense, moe, hybrid and
+ssm archs; the engine refuses the vlm and audio ones (as the reference's
+fails on them).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --requests 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
 """
 from __future__ import annotations
 

@@ -1,7 +1,6 @@
 """Model configuration: the JAX package's ``ModelConfig``, field for field,
-so a config built for one package describes the same model in the other.
-The port runs the dense and moe families (``configs/``); the other
-families' fields are kept so every config of the repo stays expressible."""
+so a config built for one package describes the same model in the other
+(``configs/`` holds all ten archs of the repo)."""
 from __future__ import annotations
 
 import dataclasses

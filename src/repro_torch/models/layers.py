@@ -1,5 +1,5 @@
-"""Shared layer primitives: norms, RoPE, MLP, GQA attention (+SWA), KV
-caches. Port of the JAX package's ``repro/models/layers.py``: functions over
+"""Shared layer primitives: norms, RoPE, MLP, GQA attention (+SWA, cross),
+KV caches. Port of the JAX package's ``repro/models/layers.py``: functions over
 plain dicts of tensors, with the same names, layouts (``x @ W`` with W
 ``[in, out]``) and arithmetic.
 
@@ -169,16 +169,21 @@ def attention(q, k, v, *, qpos, kpos, kvalid=None, causal: bool = True,
 # Attention block + KV cache
 # ---------------------------------------------------------------------------
 
-def attn_init(generator, cfg, dtype, device="cuda"):
+def attn_init(generator, cfg, dtype, device="cuda", cross: bool = False):
+    """Projections ``wq``/``wk``/``wv``/``wo``; ``cross`` adds ``kv_norm``,
+    the RMS-norm scale of the attended (vision) tokens."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
     init = lambda shape, scale=1.0: dense_init(generator, shape, scale, dtype, device)
-    return {
+    p = {
         "wq": init((d, hq * hd)),
         "wk": init((d, hkv * hd)),
         "wv": init((d, hkv * hd)),
         "wo": init((hq * hd, d), out_scale),
     }
+    if cross:
+        p["kv_norm"] = torch.ones((d,), dtype=dtype, device=resolve_device(device))
+    return p
 
 
 @dataclasses.dataclass
@@ -262,3 +267,22 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
                       causal=cfg.causal, window=cfg.swa_window,
                       q_chunk=q_chunk, k_chunk=k_chunk)
     return o.reshape(b, t, hq * hd) @ params["wo"], new_cache
+
+
+def cross_attention_block(params, x, kv_src, cfg, *, q_chunk=1024, k_chunk=1024):
+    """Cross-attention to (vision) tokens. kv_src: [B, Nv, d]. No RoPE, no
+    mask: the keys are the RMS-normed ``kv_src`` at position 0, attended
+    non-causally through the plain ``attention`` (the kernel takes one T for
+    queries and keys; here they are T and Nv)."""
+    b, t, d = x.shape
+    nv = kv_src.shape[1]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = rms_norm(kv_src, params["kv_norm"], cfg.norm_eps)
+    q = (x @ params["wq"]).reshape(b, t, hq, hd)
+    k = (src @ params["wk"]).reshape(b, nv, hkv, hd)
+    v = (src @ params["wv"]).reshape(b, nv, hkv, hd)
+    zeros_q = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    zeros_k = torch.zeros((b, nv), dtype=torch.int32, device=x.device)
+    o = attention(q, k, v, qpos=zeros_q, kpos=zeros_k, causal=False,
+                  q_chunk=q_chunk, k_chunk=k_chunk)
+    return o.reshape(b, t, hq * hd) @ params["wo"]

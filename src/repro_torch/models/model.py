@@ -1,12 +1,15 @@
-"""Model assembly of the port: the dense and moe families' training and
-prefill/decode paths.
+"""Model assembly of the port: all ten archs behind one API (the dense, moe,
+vlm, audio, hybrid and ssm families).
 
-Port of the JAX package's ``repro/models/model.py`` for the dense and moe
-families. Parameters are a plain dict of tensors with one entry per layer in
-``params["layers"]`` (a list) where the JAX package stacks the layers on a
-leading dim for ``scan``; the layers run in a Python loop. Weights keep the
-JAX layout (``x @ W``, W ``[in, out]``), so ``params_from_numpy`` carries the
-JAX parameters across with no transposes.
+Port of the JAX package's ``repro/models/model.py``. Parameters are a plain
+dict of tensors with one entry per layer in a list where the JAX package
+stacks the layers on a leading dim for ``scan``; the layers run in a Python
+loop. Grouped stacks keep the reference's grouping: the vlm family's
+``groups`` are a list of ``{"self": [cross_attn_every - 1 blocks], "cross":
+block}``, the hybrid family's a list of ``{"mamba": [attn_every blocks]}``
+with one ``shared_attn`` block applied after each group. Weights keep the
+JAX layout (``x @ W``, W ``[in, out]``), so ``params_from_numpy`` carries
+the JAX parameters across with no transposes.
 
 Public API:
     init_params(cfg, generator, device)        -> params
@@ -20,10 +23,13 @@ Public API:
 ``forward`` attends through the plain chunked ``layers.attention`` (it is
 differentiable; the JAX package trains through the same function); only
 the cached path's prefill asks for the forward-only ``flash_attention``
-kernel. A moe layer's FFN is ``moe.moe_ffn`` (one ``dispatch_plan`` launch
+kernel, in each self-attention layer (the dense, moe and vlm families) and
+each application of the hybrid family's shared block. Cross-attention
+attends through the plain ``attention`` (queries and keys differ in
+length). A moe layer's FFN is ``moe.moe_ffn`` (one ``dispatch_plan`` launch
 per layer call on the card); ``forward`` sums its aux loss over the layers,
-the cached path drops it, as the reference does. The vlm, audio, hybrid and
-ssm families raise ``NotImplementedError``.
+the cached path drops it, as the reference does. The audio family has no
+decode path, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,21 +43,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
-_TODO = 'ROADMAP.md queue 1, the item "The other model families"'
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet ({_TODO})")
 
 
 # ---------------------------------------------------------------------------
@@ -72,9 +73,9 @@ def _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk, flash=False):
     return x + ff, new_cache, aux
 
 
-def _attn_block_init(generator, cfg, dtype, device):
+def _attn_block_init(generator, cfg, dtype, device, cross=False):
     p = {
-        "attn": L.attn_init(generator, cfg, dtype, device),
+        "attn": L.attn_init(generator, cfg, dtype, device, cross=cross),
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
@@ -86,6 +87,50 @@ def _attn_block_init(generator, cfg, dtype, device):
     return p
 
 
+def _cross_block(p, x, cfg, vision, q_chunk, k_chunk):
+    h = L.cross_attention_block(
+        p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), vision, cfg,
+        q_chunk=q_chunk, k_chunk=k_chunk,
+    )
+    x = x + h
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+
+
+def _mamba_block_init(generator, cfg, dtype, device):
+    return {
+        "mamba": M2.mamba2_init(generator, cfg, dtype, device),
+        "ln": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+
+
+def _mamba_block(p, x, cfg, state):
+    h, new_state = M2.mamba2_block(
+        p["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps), cfg, state=state)
+    return x + h, new_state
+
+
+def _rwkv_block_init(generator, cfg, dtype, device):
+    return {
+        "rwkv": R6.rwkv6_init(generator, cfg, dtype, device),
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+
+
+def _rwkv_block(p, x, cfg, state, chunk_size):
+    """state: dict(tshift [B,d], wkv [B,H,P,P], cshift [B,d]) or None."""
+    st_t = None if state is None else {"shift": state["tshift"], "wkv": state["wkv"]}
+    h, new_t = R6.rwkv6_time_mix(
+        p["rwkv"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+        state=st_t, chunk_size=chunk_size,
+    )
+    x = x + h
+    st_c = None if state is None else state["cshift"]
+    h2, new_c = R6.rwkv6_channel_mix(
+        p["rwkv"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, state=st_c)
+    return x + h2, {"tshift": new_t["shift"], "wkv": new_t["wkv"], "cshift": new_c}
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -93,17 +138,38 @@ def _attn_block_init(generator, cfg, dtype, device):
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random parameters drawn on ``device`` from ``generator`` (a
     ``torch.Generator`` on that device). The draws differ from
-    ``jax.random``'s; ``params_from_numpy`` carries JAX weights across."""
-    _check_ported(cfg)
+    ``jax.random``'s; ``params_from_numpy`` carries JAX weights across.
+    Leaves the reference draws in float32 inside a bf16 model (a MoE
+    router; RWKV6's mixes, decay and bonus; Mamba2's A, D and dt bias) are
+    float32 here too."""
     dev = resolve_device(device)
     dtype = _dtype(cfg)
-    return {
+    params: dict[str, Any] = {
         "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model), 1.0, dtype, dev),
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         "head": L.dense_init(generator, (cfg.d_model, cfg.vocab), 1.0, dtype, dev),
-        "layers": [_attn_block_init(generator, cfg, dtype, dev)
-                   for _ in range(cfg.n_layers)],
     }
+    if cfg.family in ("dense", "moe", "audio"):
+        params["layers"] = [_attn_block_init(generator, cfg, dtype, dev)
+                            for _ in range(cfg.n_layers)]
+    elif cfg.family == "vlm":
+        g, s = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+        params["groups"] = [
+            {"self": [_attn_block_init(generator, cfg, dtype, dev) for _ in range(s)],
+             "cross": _attn_block_init(generator, cfg, dtype, dev, cross=True)}
+            for _ in range(g)]
+    elif cfg.family == "hybrid":
+        params["groups"] = [
+            {"mamba": [_mamba_block_init(generator, cfg, dtype, dev)
+                       for _ in range(cfg.attn_every)]}
+            for _ in range(cfg.n_layers // cfg.attn_every)]
+        params["shared_attn"] = _attn_block_init(generator, cfg, dtype, dev)
+    elif cfg.family == "ssm":
+        params["layers"] = [_rwkv_block_init(generator, cfg, dtype, dev)
+                            for _ in range(cfg.n_layers)]
+    else:
+        raise ValueError(cfg.family)
+    return params
 
 
 def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -115,31 +181,51 @@ def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _carry(node, device, index=()):
+    """A JAX (sub)tree as tensors on ``device``, each leaf indexed by
+    ``index`` (the positions on its stacked leading dims) and kept in its
+    own dtype (bf16 bits carried exactly)."""
+    if isinstance(node, dict):
+        return {k: _carry(v, device, index) for k, v in node.items()}
+    a = np.asarray(node)[index]
+    dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else getattr(torch, a.dtype.name)
+    return _tensor_from_numpy(a, dtype, device)
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
-    """The JAX ``init_params`` pytree (dense or moe family), taken leaf by
-    leaf with ``np.asarray``, as the port's parameters: the stacked
-    ``layers`` leaves are split on their leading dim, every leaf becomes a
-    tensor of ``cfg.dtype`` on ``device`` but a MoE router, which stays
-    float32 as ``moe.moe_init`` draws it. Same layout, so no transposes."""
-    _check_ported(cfg)
+    """The JAX ``init_params`` pytree, taken leaf by leaf with
+    ``np.asarray``, as the port's parameters: stacked leaves are split on
+    their leading dims (``layers`` on one; the vlm's ``groups`` on one, its
+    ``self`` blocks on two; the hybrid's ``groups/mamba`` on two), and every
+    leaf becomes a tensor on ``device`` of the JAX leaf's own dtype (a bf16
+    model's float32 leaves stay float32, bit for bit). Same layout, so no
+    transposes."""
     dev = resolve_device(device)
-    dtype = _dtype(cfg)
-    conv = lambda a: _tensor_from_numpy(a, dtype, dev)
-
-    def layer(node, i, name=None):
-        if isinstance(node, dict):
-            return {k: layer(v, i, k) for k, v in node.items()}
-        return _tensor_from_numpy(np.asarray(node)[i], F32 if name == "router" else dtype,
-                                  dev)
-
-    out = {k: conv(np.asarray(tree[k])) for k in ("embed", "ln_f", "head")}
-    out["layers"] = [layer(tree["layers"], i) for i in range(cfg.n_layers)]
+    out = {k: _carry(tree[k], dev) for k in ("embed", "ln_f", "head")}
+    if cfg.family in ("dense", "moe", "audio", "ssm"):
+        out["layers"] = [_carry(tree["layers"], dev, (i,)) for i in range(cfg.n_layers)]
+    elif cfg.family == "vlm":
+        grp = tree["groups"]
+        s = cfg.cross_attn_every - 1
+        out["groups"] = [{"self": [_carry(grp["self"], dev, (g, i)) for i in range(s)],
+                          "cross": _carry(grp["cross"], dev, (g,))}
+                         for g in range(cfg.n_layers // cfg.cross_attn_every)]
+    elif cfg.family == "hybrid":
+        mb = tree["groups"]["mamba"]
+        out["groups"] = [{"mamba": [_carry(mb, dev, (g, i)) for i in range(cfg.attn_every)]}
+                         for g in range(cfg.n_layers // cfg.attn_every)]
+        out["shared_attn"] = _carry(tree["shared_attn"], dev)
+    else:
+        raise ValueError(cfg.family)
     return out
 
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the tensors of a params or decode-state tree (dicts,
-    lists, ``KVCache``s), leaf by leaf with the same leaves of ``rest``."""
+    lists, ``KVCache``s), leaf by leaf with the same leaves of ``rest``; a
+    ``None`` leaf (the vlm's vision tokens before a prefill) stays ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -163,7 +249,7 @@ def to_device(tree, device):
 
 def _embed(params, batch, cfg):
     """Token or stub-frontend embedding. batch: dict with 'tokens' [B,T] int
-    or 'embeds' [B,T,d] (any precomputed stream)."""
+    or 'embeds' [B,T,d] (audio frames / any precomputed stream)."""
     if "embeds" in batch:
         return batch["embeds"].to(_dtype(cfg))
     return params["embed"][batch["tokens"].long()]
@@ -179,40 +265,65 @@ def _head_logits(params, x, cfg):
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
-            q_chunk: int = 1024, k_chunk: int = 1024):
-    """Full-sequence forward -> (logits [B, T, V] f32, aux loss). ``remat``
-    recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant), as the reference's
-    ``jax.checkpoint`` around its scan body does."""
-    _check_ported(cfg)
+            q_chunk: int = 1024, k_chunk: int = 1024, rwkv_chunk: int = 1):
+    """Full-sequence forward -> (logits [B, T, V] f32, aux loss). ``batch``
+    may carry 'vision_embeds' [B, Nv, d] for the vlm family. ``remat``
+    recomputes each block in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant) where the reference wraps its scan body in
+    ``jax.checkpoint`` (not the hybrid family's shared block)."""
     x = _embed(params, batch, cfg)
     b, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32, device=x.device)[None].expand(b, t)
-
     zero = torch.zeros((), dtype=F32, device=x.device)
+    run = lambda fn, *a: checkpoint(fn, *a, use_reentrant=False) if remat else fn(*a)
 
-    def body(x, p):
+    def attn_body(x, p):
         y, _, aux = _attn_block(p, x, cfg, positions, None, q_chunk, k_chunk)
         return y, (aux["aux_loss"] if aux else zero)
 
-    auxs = []
-    for p in params["layers"]:
-        x, aux = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
-        auxs.append(aux)
+    aux_acc = zero
+    if cfg.family in ("dense", "moe", "audio"):
+        auxs = []
+        for p in params["layers"]:
+            x, aux = run(attn_body, x, p)
+            auxs.append(aux)
+        aux_acc = torch.stack(auxs).sum()
+    elif cfg.family == "vlm":
+        vision = batch["vision_embeds"].to(_dtype(cfg))
+        cross = lambda x, p: _cross_block(p, x, cfg, vision, q_chunk, k_chunk)
+        for gp in params["groups"]:
+            for p in gp["self"]:
+                x, _ = run(attn_body, x, p)
+            x = run(cross, x, gp["cross"])
+    elif cfg.family == "hybrid":
+        mamba = lambda x, p: _mamba_block(p, x, cfg, None)[0]
+        for gp in params["groups"]:
+            for p in gp["mamba"]:
+                x = run(mamba, x, p)
+            x, _, _ = _attn_block(params["shared_attn"], x, cfg, positions, None,
+                                  q_chunk, k_chunk)
+    elif cfg.family == "ssm":
+        rwkv = lambda x, p: _rwkv_block(p, x, cfg, None, rwkv_chunk)[0]
+        for p in params["layers"]:
+            x = run(rwkv, x, p)
+    else:
+        raise ValueError(cfg.family)
+
     logits = _head_logits(params, x, cfg)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits, torch.stack(auxs).sum()
+    return logits, aux_acc
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
-               q_chunk: int = 1024, k_chunk: int = 1024):
+               q_chunk: int = 1024, k_chunk: int = 1024, rwkv_chunk: int = 1):
     """Next-token CE over the labels >= 0 (the ingest's dropped rows carry
-    -1), plus z-loss 1e-4 and 0.01 x the aux loss (the moe layers' summed
-    load-balance loss; zero for the dense family), as the reference
-    computes them."""
+    -1) for causal archs, per-frame CE with unshifted labels for the
+    encoder (audio), plus z-loss 1e-4 and 0.01 x the aux loss (the moe
+    layers' summed load-balance loss; zero for the other families), as the
+    reference computes them."""
     logits, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk,
-                          k_chunk=k_chunk)
+                          k_chunk=k_chunk, rwkv_chunk=rwkv_chunk)
     labels = batch["labels"].long()
     if cfg.causal:
         logits_s, labels_s = logits[:, :-1], labels[:, 1:]
@@ -236,32 +347,109 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Cache state for serving: one ring KV cache per layer of size
-    min(max_len, swa_window or max_len), and each lane's next position."""
-    _check_ported(cfg)
+    """Cache state for serving. Attention caches are ring buffers of size
+    min(max_len, swa_window or max_len), one per self-attention layer (the
+    vlm's in a list per group) or one per application of the hybrid's shared
+    block; Mamba2 and RWKV6 states are O(1) in the length (float32, but the
+    Mamba2 conv carry in the model's dtype), one per block. The vlm's
+    ``vision`` is ``None`` until a prefill stores the batch's
+    ``vision_embeds``. The audio family (an encoder) has none."""
     dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
     size = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
-    kv = [L.init_kv_cache(batch, size, cfg.n_kv_heads, cfg.hd, _dtype(cfg), dev)
-          for _ in range(cfg.n_layers)]
-    return {"kv": kv, "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    kv = lambda n: [L.init_kv_cache(batch, size, cfg.n_kv_heads, cfg.hd, dtype, dev)
+                    for _ in range(n)]
+    if cfg.family in ("dense", "moe"):
+        return {"kv": kv(cfg.n_layers), "pos": pos}
+    if cfg.family == "vlm":
+        g, s = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+        return {"kv": [kv(s) for _ in range(g)], "pos": pos, "vision": None}
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.attn_every
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        ssm = lambda: {
+            "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                             dtype=F32, device=dev),
+            "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim), dtype=dtype,
+                                device=dev),
+        }
+        return {"kv": kv(g), "ssm": [[ssm() for _ in range(cfg.attn_every)]
+                                     for _ in range(g)], "pos": pos}
+    if cfg.family == "ssm":
+        h, p = cfg.rwkv_heads, cfg.ssm_head_dim
+        zeros = lambda *shape: [torch.zeros(shape, dtype=F32, device=dev)
+                                for _ in range(cfg.n_layers)]
+        return {"wkv": zeros(batch, h, p, p), "tshift": zeros(batch, cfg.d_model),
+                "cshift": zeros(batch, cfg.d_model), "pos": pos}
+    raise ValueError(f"{cfg.name}: family {cfg.family} has no decode path")
 
 
 def step_with_cache(params, batch, state, cfg: ModelConfig, *,
-                    q_chunk: int = 1024, k_chunk: int = 1024):
+                    q_chunk: int = 1024, k_chunk: int = 1024, rwkv_chunk: int = 1):
     """Run T tokens (T=1 decode, T>1 prefill) against the cache state; the
-    caches in ``state`` are written in place."""
-    _check_ported(cfg)
+    KV caches in ``state`` are written in place, the Mamba2 and RWKV6
+    states returned anew. A vlm batch carries ``vision_embeds`` at its
+    prefill; later steps reuse the stored ones."""
     x = _embed(params, batch, cfg)
     b, t, _ = x.shape
     pos0 = state["pos"]  # int32[B] — lanes advance independently
     positions = pos0[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
     new_state: dict[str, Any] = dict(state)
     new_state["pos"] = pos0 + t
-    new_kv = []
-    for p, cache in zip(params["layers"], state["kv"]):
-        x, nc, _ = _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk, flash=True)
-        new_kv.append(nc)
-    new_state["kv"] = new_kv
+
+    def attn(p, x, cache):
+        y, nc, _ = _attn_block(p, x, cfg, positions, cache, q_chunk, k_chunk, flash=True)
+        return y, nc
+
+    if cfg.family in ("dense", "moe"):
+        new_kv = []
+        for p, cache in zip(params["layers"], state["kv"]):
+            x, nc = attn(p, x, cache)
+            new_kv.append(nc)
+        new_state["kv"] = new_kv
+    elif cfg.family == "vlm":
+        # Vision tokens are static across decode: captured at prefill,
+        # reused from the state for the later steps.
+        if "vision_embeds" in batch:
+            vision = batch["vision_embeds"].to(_dtype(cfg))
+            new_state["vision"] = vision
+        elif state["vision"] is None:
+            raise ValueError(f"{cfg.name}: the first step (prefill) takes the batch's "
+                             "vision_embeds")
+        else:
+            vision = state["vision"]
+        new_kv = []
+        for gp, caches in zip(params["groups"], state["kv"]):
+            ncs = []
+            for p, cache in zip(gp["self"], caches):
+                x, nc = attn(p, x, cache)
+                ncs.append(nc)
+            x = _cross_block(gp["cross"], x, cfg, vision, q_chunk, k_chunk)
+            new_kv.append(ncs)
+        new_state["kv"] = new_kv
+    elif cfg.family == "hybrid":
+        new_kv, new_ssm = [], []
+        for gp, cache, ssm in zip(params["groups"], state["kv"], state["ssm"]):
+            nss = []
+            for p, st in zip(gp["mamba"], ssm):
+                x, ns = _mamba_block(p, x, cfg, st)
+                nss.append(ns)
+            x, nc = attn(params["shared_attn"], x, cache)
+            new_kv.append(nc)
+            new_ssm.append(nss)
+        new_state["kv"], new_state["ssm"] = new_kv, new_ssm
+    elif cfg.family == "ssm":
+        for name in ("tshift", "wkv", "cshift"):
+            new_state[name] = []
+        for i, p in enumerate(params["layers"]):
+            st = {name: state[name][i] for name in ("tshift", "wkv", "cshift")}
+            x, ns = _rwkv_block(p, x, cfg, st, rwkv_chunk)
+            for name, v in ns.items():
+                new_state[name].append(v)
+    else:
+        raise ValueError(cfg.family)
+
     logits = _head_logits(params, x[:, -1:, :], cfg)
     return logits[:, 0], new_state
 

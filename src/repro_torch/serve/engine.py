@@ -13,8 +13,12 @@ weighting it to 0 in the next epoch — in-flight requests keep their member).
 
 The decode engine is slot-based continuous batching: each replica owns
 ``n_lanes`` slots; finished sequences free their slot for the next routed
-request. Every prefill runs the ``flash_attention`` kernel once per layer on
-the card. Sampling is greedy.
+request. Every prefill runs the ``flash_attention`` kernel once per
+self-attention layer on the card (once per application of the hybrid
+family's shared block; never for the ssm family, which has no attention).
+Sampling is greedy. The engine takes token prompts: it refuses the vlm
+family (its prefill needs vision embeddings) and the audio family (an
+encoder, with no decode path), as the reference fails on both.
 
 With ``use_controld`` the engine is one tenant of a ``controld``
 ``ControlDaemon``: it reserves an LB instance, registers each replica as a
@@ -45,6 +49,14 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.telemetry.metrics import TelemetryHub
 from repro_torch.telemetry.trace import TraceBuffer, trace_id
+
+
+#: families the engine cannot serve, and why
+_NOT_SERVED = {
+    "vlm": "the engine takes token prompts only, and a vlm's prefill needs the "
+           "request's vision_embeds (run model.prefill/decode_step with them)",
+    "audio": "family audio has no decode path (an encoder: run model.forward)",
+}
 
 
 @dataclasses.dataclass
@@ -85,6 +97,8 @@ class ServeConfig:
 class ServingEngine:
     def __init__(self, model_cfg: ModelConfig, serve_cfg: ServeConfig, params,
                  metrics=None):
+        if model_cfg.family in _NOT_SERVED:
+            raise ValueError(f"{model_cfg.name}: {_NOT_SERVED[model_cfg.family]}")
         self.mcfg = model_cfg
         self.scfg = serve_cfg
         self.device = resolve_device(serve_cfg.device)

@@ -453,6 +453,50 @@ def test_smoke_prefill_on_the_card_equals_the_cpu(arch, _full_f32):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
+FAMILY_ARCHS = ["llama_3_2_vision_90b", "hubert_xlarge", "zamba2_2_7b", "rwkv6_7b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_families_smoke_on_the_card_equals_the_cpu(arch, _full_f32):
+    """The vlm, audio, hybrid and ssm smoke configs (fp32, TF32 off): the
+    forward's logits on the card equal the CPU's; for the three decoders
+    also a prefill (the vlm's with its vision tokens) and 3 decode steps."""
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    batch = {}
+    if cfg.family == "audio":
+        batch["embeds"] = torch.from_numpy(rng.normal(size=(2, 13, cfg.d_model)).astype(np.float32))
+    else:
+        batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 13)).astype(np.int32))
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = M.to_device(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        got = [M.forward(p, b, cfg, remat=False)[0]]
+        if cfg.family != "audio":
+            st = M.init_decode_state(cfg, 2, 32, device=dev)
+            logits, st = M.prefill(p, {**b, "tokens": b["tokens"][:, :10]}, st, cfg)
+            got.append(logits)
+            for i in range(10, 13):
+                logits, st = M.decode_step(p, b["tokens"][:, i], st, cfg)
+                got.append(logits)
+        out[dev] = [g.cpu() for g in got]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+# the families' prefill shapes: Zamba2's shared attention (32/32 heads, d = 80:
+# the mma design) and Llama-3.2-Vision's self layers (64/8, d = 128: wgmma)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 80), (64, 8, 128)])
+def test_families_flash_attention_at_their_prefill_shape_equals_plain(hq, hkv, d, causal):
+    _check_flash(1, 4096, hq, hkv, d, causal, torch.bfloat16, 5e-3, 2e-2, hq * 131 + d)
+
+
 def test_flash_attention_refuses_autograd_on_the_card():
     """The kernel has no backward: under autograd it raises before any
     launch; under no_grad it launches."""

@@ -113,14 +113,23 @@ def test_design_by_dtype_and_head_dim(d, dtype):
     assert set(WGMMA_HEAD_DIMS) <= set(HEAD_DIMS)
 
 
+#: the archs at head dim 80, served by the mma design: StableLM-3B's layers,
+#: Zamba2's shared attention block, HuBERT's (whose forward attends through
+#: the plain attention: an encoder has no cached prefill)
+MMA_ARCHS = ("stablelm_3b", "zamba2_2_7b", "hubert_xlarge")
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_ported_configs_select_wgmma_except_stablelm(arch):
     cfg = get_config(arch)
     dtype = getattr(torch, cfg.dtype)
     assert dtype == torch.bfloat16
+    if cfg.family == "ssm":  # RWKV6: no attention layer
+        assert cfg.n_heads == 0 and arch == "rwkv6_7b"
+        return
     assert cfg.hd in HEAD_DIMS
-    assert _design(dtype, cfg.hd) == ("mma" if arch == "stablelm_3b" else "wgmma")
-    assert (cfg.hd == 80) == (arch == "stablelm_3b")
+    assert _design(dtype, cfg.hd) == ("mma" if arch in MMA_ARCHS else "wgmma")
+    assert (cfg.hd == 80) == (arch in MMA_ARCHS)
 
 
 def test_shape_checks():

@@ -31,25 +31,50 @@ def _t(a):
 
 # -- configs -------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", j_configs.ARCH_IDS)
 def test_configs_equal_the_jax_package(arch):
     for get in ("get_config", "get_smoke_config"):
         want = dataclasses.asdict(getattr(j_configs, get)(arch))
         assert dataclasses.asdict(getattr(t_configs, get)(arch)) == want
 
 
-def test_archs_not_ported_raise():
-    """The vlm, audio, hybrid and ssm archs raise at the registry and in the
-    model's entry points; the dense and moe ones run."""
-    assert sorted(t_configs.ARCH_IDS) == sorted(DENSE + MOE)
-    for arch in ("llama-3.2-vision-90b", "hubert-xlarge", "zamba2-2.7b", "rwkv6-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_decode_state(j_configs.get_smoke_config("rwkv6_7b"), 1, 8, "cpu")
-    for arch in ("llama_3_2_vision_90b", "zamba2_2_7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_params(j_configs.get_smoke_config(arch), torch.Generator(), "cpu")
+def test_port_registers_the_ten_archs_of_the_jax_package():
+    assert t_configs.ARCH_IDS == j_configs.ARCH_IDS and len(t_configs.ARCH_IDS) == 10
+    with pytest.raises(ValueError, match="unknown arch"):
+        t_configs.get_config("gpt-2")
+
+
+def test_unknown_family_raises_value_error():
+    """A family outside the six raises ``ValueError(family)`` at every
+    entry point, as the reference's ``init_params`` does."""
+    cfg = j_configs.get_smoke_config("yi_6b").with_(family="conv")
+    with pytest.raises(ValueError, match="conv"):
+        JM.init_params(jax.random.PRNGKey(0), cfg)
+    with pytest.raises(ValueError, match="conv"):
+        TM.init_params(cfg, torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="conv"):
+        TM.init_decode_state(cfg, 1, 8, "cpu")
+    params = TM.init_params(j_configs.get_smoke_config("yi_6b"), torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="conv"):
+        TM.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cfg)
+    state = TM.init_decode_state(j_configs.get_smoke_config("yi_6b"), 1, 8, "cpu")
+    with pytest.raises(ValueError, match="conv"):
+        TM.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, state, cfg)
+
+
+@pytest.mark.parametrize("arch,reason", [("llama_3_2_vision_90b", "vision_embeds"),
+                                         ("hubert_xlarge", "no decode path")])
+def test_engine_refuses_vlm_and_audio(arch, reason):
+    """The engine takes token prompts: a vlm (whose prefill needs vision
+    embeddings) and the audio encoder are refused at construction with the
+    reason, where the reference engine fails later (an AttributeError at the
+    vlm's first prefill, a ValueError at audio's decode state)."""
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = t_configs.get_smoke_config(arch)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match=reason):
+        ServingEngine(cfg, ServeConfig(device="cpu"), params)
 
 
 # -- layers --------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's serving engine on the CPU against the JAX package's, from the
-same prompts and the same weights: the front door (event numbers, entropy,
-one batched route per tick), the routing, the lanes, the greedy tokens and
-the stats are equal; a drained replica gets no new work; lanes are
+same prompts and the same weights (the dense, moe, hybrid and ssm smoke
+configs): the front door (event numbers, entropy, one batched route per
+tick), the routing, the lanes, the greedy tokens and the stats are equal; a drained replica gets no new work; lanes are
 isolated; the launcher runs; and nothing runs on the CPU by default."""
 import jax
 import numpy as np
@@ -126,6 +126,40 @@ def test_moe_lane_isolation():
     assert r2.output == solo2.output
 
 
+@pytest.mark.parametrize("lane_bits", [1, 2])
+@pytest.mark.parametrize("arch", ["zamba2_2_7b", "rwkv6_7b"])
+def test_hybrid_and_ssm_engines_equal_jax_engine(arch, lane_bits):
+    """The Zamba2 and RWKV6 smoke configs behind the front door: the same
+    routes, lanes, greedy tokens and stats as the JAX engine at 2 and 4
+    lanes a replica (each lane's Mamba2, RWKV6 and KV states written along
+    the lane axis)."""
+    j, t = _engines(2, 64, lane_bits=lane_bits, arch=arch)
+    jr = _submit(j, np.random.default_rng(4), 9, 4, 24, 6)
+    tr = _submit(t, np.random.default_rng(4), 9, 4, 24, 6)
+    j.run_until_done(300)
+    t.run_until_done(300)
+    assert _view(tr) == _view(jr)
+    assert t.stats == j.stats
+    assert all(r.done and len(r.output) == 6 for r in tr)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_2_7b", "rwkv6_7b"])
+def test_hybrid_and_ssm_lane_isolation(arch):
+    """A lane's recurrent state is its own: two concurrent requests equal
+    their solo runs."""
+    _, eng = _engines(2, 64, arch=arch)
+    p1, p2 = np.arange(6), np.arange(6)[::-1].copy()
+    solo1 = eng.submit(p1, max_new_tokens=5)
+    eng.run_until_done(100)
+    solo2 = eng.submit(p2, max_new_tokens=5)
+    eng.run_until_done(100)
+    r1 = eng.submit(p1, max_new_tokens=5)
+    r2 = eng.submit(p2, max_new_tokens=5)
+    eng.run_until_done(200)
+    assert r1.output == solo1.output
+    assert r2.output == solo2.output
+
+
 def test_rebalance_closes_the_loop():
     """With ``rebalance_every`` the engine reweights from decode telemetry
     and garbage-collects drained epochs; requests still all complete."""
@@ -160,6 +194,14 @@ def test_launcher_runs_the_moe_archs_on_the_cpu(capsys, arch):
     eng = t_launch.main(["--arch", arch, "--requests", "4", "--max-new", "3",
                          "--device", "cpu"])
     assert eng.stats["completed"] == 4 and eng.mcfg.family == "moe"
+    assert "served 4 requests / 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,family", [("zamba2-2.7b", "hybrid"), ("rwkv6-7b", "ssm")])
+def test_launcher_runs_the_hybrid_and_ssm_archs_on_the_cpu(capsys, arch, family):
+    eng = t_launch.main(["--arch", arch, "--requests", "4", "--max-new", "3",
+                         "--device", "cpu"])
+    assert eng.stats["completed"] == 4 and eng.mcfg.family == family
     assert "served 4 requests / 12 tokens" in capsys.readouterr().out
 
 
