@@ -29,11 +29,16 @@ result:
                 and not (a tensor map not bounded per batch would read the
                 next batch's rows), with Granite-20B's 48/1 heads at T=3000,
                 and at T=65 and T=100 non-causal (a ragged last tile, where a
-                kernel that lets padded keys into the softmax must fail),
-                within atol 5e-3, rtol 2e-2 of its plain version; in fp32
-                within 1e-4. Each check names the design that ran it: wgmma
-                (csrc/flash_attention_wgmma.cu, bf16 at d = 64 or 128) or
-                mma (csrc/flash_attention.cu, the rest). Kernel time (CUDA
+                kernel that lets padded keys into the softmax must fail);
+                at d=80 (StableLM-3B's layers, Zamba2's shared block: one
+                wide and one narrow box per tile) at T=127, 128, 129 and
+                4096 causal and not, at B=2 with T=1000 causal and not and
+                at T=65 and T=100 non-causal, each with 32/32 and 32/4
+                heads; all within atol 5e-3, rtol 2e-2 of its plain
+                version; in fp32 (d=80) within 1e-4. Each check names the
+                design that ran it: wgmma (csrc/flash_attention_wgmma.cu,
+                bf16 at d = 64, 80 or 128) or mma (csrc/flash_attention.cu,
+                fp32 and bf16 at d = 16 or 32). Kernel time (CUDA
                 graph replay, L2 evicted, CUDA events, median), plain time,
                 the library call's time where one exists (SDPA for
                 flash_attention) and the bound (bytes at 3.35 TB/s, or
@@ -151,15 +156,15 @@ result:
                 Llama-Vision's prefill with vision tokens and 4 decode
                 steps, Zamba2 and RWKV6 served at 2 replicas x 4 slots with
                 equal routes, tokens and stats); flash_attention at
-                Zamba2's prefill shape (T=4096, 32/32 heads, d=80: the mma
-                design) and Llama-Vision's (64/8, d=128: wgmma), causal and
-                not, against plain and timed beside SDPA;
+                Zamba2's prefill shape (T=4096, 32/32 heads, d=80) and
+                Llama-Vision's (64/8, d=128), both on the wgmma design,
+                causal and not, against plain and timed beside SDPA;
                 Llama-3.2-Vision-90B at published width, 20 of its 100
                 layers (38.4 GB): a 2048-token prefill of 4 lanes with their
                 own 1601 vision tokens (flash_attention once per self layer,
                 18, wgmma), 32 decode steps reusing the stored vision, a
                 4000-token prefill with the cross layers' share; Zamba2-2.7B
-                at full size served with a drain (9 mma launches per
+                at full size served with a drain (9 wgmma launches per
                 prefill, the Mamba2 blocks' share of the longest prefill);
                 RWKV6-7B at full size served with a drain (no attention),
                 then a 2048-token prefill at rwkv_chunk 1 and 64;
@@ -243,8 +248,8 @@ DESIGNS = {
                       "walk moves no slot: a histogram of the winners, a member above its "
                       "quota traps); returns at once when do_sw is false",
 }
-# flash_attention has two designs, chosen by (dtype, head dim): the main path
-# (bf16, d=128) runs the wgmma one
+# flash_attention has two designs, chosen by (dtype, head dim): the main
+# paths (bf16, d = 80 and 128) run the wgmma one
 DESIGN_SOURCES = {
     "wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
     "mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -623,8 +628,9 @@ def wide_kernel_phase(torch, np):
 def flash_phase(torch, np):
     """flash_attention against its plain version on the card (bf16 at the
     Yi-6B prefill shape, at a ragged T causal and not, at B=2 with a ragged
-    T, with Granite-20B's 48/1 heads and Mixtral-8x22B's 48/8; fp32 at a
-    small shape), each check naming the design that ran it; then the
+    T, with Granite-20B's 48/1 heads and Mixtral-8x22B's 48/8; the d=80
+    edge set; fp32 at a small shape), each check naming the design that ran
+    it; then the
     kernel's (wgmma design), the plain version's and SDPA's times at the
     prefill shape."""
     from repro_torch.kernels.flash_attention import _design
@@ -657,13 +663,28 @@ def flash_phase(torch, np):
         q, k, v = qkv(b, t, hq, hkv, FLASH_D, torch.bfloat16)
         errs.append(flash_compare(torch, q, k, v, causal, 5e-3, 2e-2,
                                   f"bf16 B={b} T={t} {hq}/{hkv} heads d={FLASH_D} "
-                                  f"{'causal' if causal else 'non-causal'}"))
+                                  f"{'causal' if causal else 'non-causal'}",
+                                  pad_fault=t in (65, 100)))
+    # d=80 (a wide and a narrow box per tile): one 128-row tile exactly, one
+    # row short and one over, Zamba2's prefill length, B=2 at a ragged T and
+    # the ragged non-causal tails; 32/32 heads (StableLM-3B, Zamba2's shared
+    # block) and 32/4 (GQA read in place)
+    for hq, hkv in ((32, 32), (32, 4)):
+        for b, t, causal in [(1, t, c) for t in (127, 128, 129, 4096) for c in (True, False)] + [
+                (2, 1000, True), (2, 1000, False), (1, 65, False), (1, 100, False)]:
+            q, k, v = qkv(b, t, hq, hkv, 80, torch.bfloat16)
+            check(_design(q.dtype, 80) == "wgmma", "bf16 d=80 did not choose wgmma")
+            errs.append(flash_compare(torch, q, k, v, causal, 5e-3, 2e-2,
+                                      f"bf16 B={b} T={t} {hq}/{hkv} heads d=80 "
+                                      f"{'causal' if causal else 'non-causal'}",
+                                      pad_fault=t in (65, 100, 129)))
     # fp32 against a full-fp32 plain version (no TF32 in its einsums); it
     # stays off for the rest of the run (the fp32 card == CPU serve needs it)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for causal in (True, False):
+    for causal in (True, False):  # fp32 d=80 stays on the mma design
         q, k, v = qkv(2, 200, 8, 2, 80, torch.float32)
+        check(_design(q.dtype, 80) == "mma", "fp32 d=80 did not choose mma")
         flash_compare(torch, q, k, v, causal, 1e-4, 1e-4,
                       f"fp32 B=2 T=200 8/2 heads d=80 causal={causal}")
 
@@ -674,11 +695,14 @@ def flash_phase(torch, np):
     return dict(row, max_abs_err=max(errs), design=design, design_sources=DESIGN_SOURCES)
 
 
-def flash_compare(torch, q, k, v, causal, atol, rtol, what, tag="[kernels]"):
+def flash_compare(torch, q, k, v, causal, atol, rtol, what, tag="[kernels]",
+                  pad_fault=False):
     """One flash_attention call against its plain version at q/k/v's shape,
     naming the design that ran (the launch counts tell); for bf16 without
-    the causal mask, also what a padded-key fault would read there.
-    Returns the max |kernel - plain|."""
+    the causal mask, also what a padded-key fault would read there, which
+    must fail the check where ``pad_fault`` (T = 65, 100 and 129: a fifth
+    or more of the last 128-key tile is padding; at T = 127 one padded key
+    hides inside the tolerance). Returns the max |kernel - plain|."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import _design, flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -699,13 +723,13 @@ def flash_compare(torch, q, k, v, causal, atol, rtol, what, tag="[kernels]"):
     if not causal and q.dtype == torch.bfloat16:
         # what a kernel that lets zero-padded keys into a non-causal
         # softmax (the Pallas kernel's padding fault, 128-key blocks)
-        # would read here; at a small T the check must tell it apart
+        # would read here; where pad_fault the check must tell it apart
         pad = -k.shape[1] % 128
         z = lambda x: torch.cat([x, x.new_zeros(x.shape[0], pad, *x.shape[2:])], 1)
         fault = flash_attention_ref(q, z(k), z(v), causal=False).float()
         f_err = float((fault - want.float()).abs().max())
         caught = not torch.allclose(fault, want.float(), rtol=rtol, atol=atol)
-        check(caught or k.shape[1] > 128,
+        check(caught or not pad_fault,
               f"flash_attention {what}: the check cannot tell a padded-key fault "
               f"apart (its max |err| {f_err})")
         note = (f"; a padded-key fault would read {f_err:.3g}, "
@@ -2570,9 +2594,9 @@ RWKV_PREFILL_T, RWKV_CHUNKS = 2048, (1, 64)
 # HuBERT-XLarge's encoder over 4 clips of 30 s (50 frames/s)
 HUBERT_CLIPS, HUBERT_FRAMES = 4, 1500
 # the families' prefill shapes of flash_attention: Zamba2's shared block
-# (B=1, T=4096, 32/32 heads, d=80: the mma design), Llama-3.2-Vision's self
-# layers (64/8 heads, d=128: wgmma)
-FAMILY_FLASH = {"zamba2_prefill": (4096, 32, 32, 80, "mma"),
+# (B=1, T=4096, 32/32 heads, d=80), Llama-3.2-Vision's self layers (64/8
+# heads, d=128), both on the wgmma design
+FAMILY_FLASH = {"zamba2_prefill": (4096, 32, 32, 80, "wgmma"),
                 "llama_vision_prefill": (4096, 64, 8, 128, "wgmma")}
 
 
@@ -2763,7 +2787,7 @@ def zamba_serve(torch, np):
     from repro_torch.models import model as M
 
     cfg = get_config("zamba2-2.7b")
-    check(flash_design(cfg) == "mma", f"{cfg.name} takes the {flash_design(cfg)} design")
+    check(flash_design(cfg) == "wgmma", f"{cfg.name} takes the {flash_design(cfg)} design")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -2784,7 +2808,7 @@ def zamba_serve(torch, np):
     decode = decode_profile(torch, M, cfg, params, eng.states[0])
     line = serve_line(
         cfg, eng, reqs, run, ZAMBA_SERVE, n_params=_n_params(M, params), init_s=t_init,
-        attention_applications=attention_layers(cfg), flash_design="mma",
+        attention_applications=attention_layers(cfg), flash_design="wgmma",
         share_prefill_tokens=len(longest), share_prefill_ms=p_ms,
         mamba2_share_of_prefill=per["mamba2_block"][0] / p_ms,
         flash_share_of_prefill=per["flash_attention"][0] / p_ms,

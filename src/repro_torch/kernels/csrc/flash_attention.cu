@@ -16,7 +16,7 @@
 //     oracle of both, does not.
 //
 // Layout: q, o [B, T, Hq, d] and k, v [B, T, Hkv, d], contiguous; fp32 at
-// d in {16, 32, 64, 80, 128}, bf16 at d in {16, 32, 80} (bf16 at d = 64
+// d in {16, 32, 64, 80, 128}, bf16 at d in {16, 32} (bf16 at d = 64, 80
 // and 128 runs the wgmma design of flash_attention_wgmma.cu). Grid
 // (ceil(T/64), Hq, B): one block of four warps per (query tile of 64 rows,
 // head, batch); each warp owns 16
@@ -343,11 +343,11 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int batch,
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
     case 32: return launch<T, 32>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
-    case 80: return launch<T, 80>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
     default: break;
   }
   if constexpr (!std::is_same<T, bf16>::value) {  // bf16 runs the wgmma design there
     if (d == 64) return launch<T, 64>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
+    if (d == 80) return launch<T, 80>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
     if (d == 128) return launch<T, 128>(q, k, v, o, batch, t_len, hq, hkv, causal, s);
   }
   return (int)cudaErrorInvalidValue;

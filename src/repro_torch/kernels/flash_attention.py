@@ -12,7 +12,8 @@ launches a kernel (fp32 or bf16, d in ``HEAD_DIMS``); a CPU input takes
 
 Two designs compute the same function, chosen by ``_design(dtype, d)``:
 ``"wgmma"`` (TMA ring, wgmma, warp-specialised; bf16 at d in
-``WGMMA_HEAD_DIMS``) and ``"mma"`` (mma.sync, fp32 and the other head dims).
+``WGMMA_HEAD_DIMS``, 64, 80 and 128, every attention head dim of the configs
+the port serves) and ``"mma"`` (mma.sync, fp32 and bf16 at d 16 and 32).
 The choice is by shape alone: a failed build or launch of either raises.
 
 Forward only, as the Pallas kernel is: the kernel's output has no
@@ -31,7 +32,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 80, 128)
 #: head dims of the wgmma design (bf16 only)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

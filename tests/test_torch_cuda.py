@@ -384,7 +384,7 @@ def _full_f32():
 
 def _check_flash(b, t, hq, hkv, d, causal, dtype, atol, rtol, seed):
     """One call of the wrapper against the plain version; the launch counts
-    show which design ran (wgmma for bf16 at d = 64 or 128, else mma)."""
+    show which design ran (wgmma for bf16 at d = 64, 80 or 128, else mma)."""
     rng = np.random.default_rng(seed)
     mk = lambda h: (torch.from_numpy(rng.normal(size=(b, t, h, d)).astype(np.float32))
                     .to("cuda", dtype))
@@ -392,7 +392,7 @@ def _check_flash(b, t, hq, hkv, d, causal, dtype, atol, rtol, seed):
     before = dict(_lib.LAUNCHES)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    wgmma = dtype == torch.bfloat16 and d in (64, 128)
+    wgmma = dtype == torch.bfloat16 and d in (64, 80, 128)
     assert _flash_design(dtype, d) == ("wgmma" if wgmma else "mma")
     assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert (_lib.LAUNCHES["flash_attention_wgmma"]
@@ -418,10 +418,12 @@ def test_flash_attention_equals_plain(t, d, hq, hkv, causal, dtype, atol, rtol, 
 # the wgmma design's edges: one 128-row tile exactly, one row short and one
 # over; the Yi-6B prefill length; and B=2 at a ragged T, where a tensor map
 # that is not bounded per batch would read batch 1's rows into batch 0's last
-# tile. Heads: Yi-6B 32/4, ChatGLM3-6B 32/2, Granite-20B 48/1 (MQA)
+# tile. Heads: Yi-6B 32/4, ChatGLM3-6B 32/2, Granite-20B 48/1 (MQA),
+# StableLM-3B and Zamba2's shared block 32/32 (MHA); d = 80 is their head dim,
+# one wide and one narrow box per tile
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hq,hkv", [(32, 4), (32, 2), (48, 1)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(32, 4), (32, 2), (48, 1), (32, 32)])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("b,t", [(1, 127), (1, 128), (1, 129), (1, 4096), (2, 1000)])
 def test_flash_attention_wgmma_edges_equal_plain(b, t, d, hq, hkv, causal):
     _check_flash(b, t, hq, hkv, d, causal, torch.bfloat16, 5e-3, 2e-2, b * 7919 + t + d + hq)
@@ -489,8 +491,8 @@ def test_families_smoke_on_the_card_equals_the_cpu(arch, _full_f32):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
-# the families' prefill shapes: Zamba2's shared attention (32/32 heads, d = 80:
-# the mma design) and Llama-3.2-Vision's self layers (64/8, d = 128: wgmma)
+# the families' prefill shapes: Zamba2's shared attention (32/32 heads, d = 80)
+# and Llama-3.2-Vision's self layers (64/8, d = 128), both on the wgmma design
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hq,hkv,d", [(32, 32, 80), (64, 8, 128)])
 def test_families_flash_attention_at_their_prefill_shape_equals_plain(hq, hkv, d, causal):

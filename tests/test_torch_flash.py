@@ -36,7 +36,7 @@ def _jax_ref(q, k, v, causal):
 
 
 @pytest.mark.parametrize("t,h,d", [(32, 2, 16), (64, 1, 32), (96, 2, 8),
-                                   (130, 1, 16), (256, 1, 64)])
+                                   (130, 1, 16), (256, 1, 64), (130, 2, 80)])
 def test_causal_sweep_equals_pallas(t, h, d):
     q, k, v = _qkv(t, h, d, seed=t + d)
     want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
@@ -48,6 +48,15 @@ def test_causal_sweep_equals_pallas(t, h, d):
 
 def test_bf16_equals_pallas():
     q, k, v = (jnp.asarray(a).astype(jnp.bfloat16) for a in _qkv(64, 2, 32, seed=9))
+    want = j_flash(q, k, v, causal=True, block_q=32, block_k=32, interpret=True)
+    got = _port([np.asarray(a, np.float32) for a in (q, k, v)], jnp.bfloat16)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_head_dim_80_equals_pallas():
+    # d = 80 (StableLM-3B, Zamba2's shared block): one wide and one narrow
+    # box per tile on the card's wgmma design
+    q, k, v = (jnp.asarray(a).astype(jnp.bfloat16) for a in _qkv(96, 2, 80, seed=80))
     want = j_flash(q, k, v, causal=True, block_q=32, block_k=32, interpret=True)
     got = _port([np.asarray(a, np.float32) for a in (q, k, v)], jnp.bfloat16)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=2e-2, atol=2e-2)
@@ -67,6 +76,27 @@ def test_gqa_equals_pallas_on_repeated_heads(causal):
     rep = lambda a: jnp.repeat(jnp.asarray(a), 2, axis=2)
     want = j_flash(jnp.asarray(q), rep(k), rep(v), causal=causal, block_q=16,
                    block_k=16, interpret=True)
+    np.testing.assert_allclose(_port((q, k, v), causal=causal), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_non_causal_head_dim_80_equals_pallas():
+    # T a multiple of the block: the Pallas kernel pads nothing
+    q, k, v = _qkv(64, 2, 80, seed=81)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+                   block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(_port((q, k, v), causal=False), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_port((q, k, v), causal=False), _jax_ref(q, k, v, False),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_head_dim_80_equals_pallas_on_repeated_heads(causal):
+    q, k, v = _qkv(64, 4, 80, seed=82, hkv=2)
+    rep = lambda a: jnp.repeat(jnp.asarray(a), 2, axis=2)
+    want = j_flash(jnp.asarray(q), rep(k), rep(v), causal=causal, block_q=32,
+                   block_k=32, interpret=True)
     np.testing.assert_allclose(_port((q, k, v), causal=causal), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -106,21 +136,19 @@ def test_cpu_bf16_at_a_wgmma_shape_takes_the_plain_version(causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_design_by_dtype_and_head_dim(d, dtype):
-    # bf16 at d = 64 or 128 takes the wgmma kernel; fp32 and the other head
-    # dims keep the mma.sync kernel
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "mma"
+    # bf16 at d = 64, 80 or 128 takes the wgmma kernel; fp32 and bf16 at
+    # d = 16 and 32 keep the mma.sync kernel
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 80, 128) else "mma"
     assert _design(dtype, d) == want
     assert set(WGMMA_HEAD_DIMS) <= set(HEAD_DIMS)
 
 
-#: the archs at head dim 80, served by the mma design: StableLM-3B's layers,
-#: Zamba2's shared attention block, HuBERT's (whose forward attends through
-#: the plain attention: an encoder has no cached prefill)
-MMA_ARCHS = ("stablelm_3b", "zamba2_2_7b", "hubert_xlarge")
-
-
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_ported_configs_select_wgmma_except_stablelm(arch):
+def test_ported_configs_select_wgmma(arch):
+    # every config with attention, at d = 80 too (StableLM-3B's layers,
+    # Zamba2's shared block, HuBERT's, whose forward attends through the
+    # plain attention: an encoder has no cached prefill), takes the wgmma
+    # design
     cfg = get_config(arch)
     dtype = getattr(torch, cfg.dtype)
     assert dtype == torch.bfloat16
@@ -128,8 +156,7 @@ def test_ported_configs_select_wgmma_except_stablelm(arch):
         assert cfg.n_heads == 0 and arch == "rwkv6_7b"
         return
     assert cfg.hd in HEAD_DIMS
-    assert _design(dtype, cfg.hd) == ("mma" if arch in MMA_ARCHS else "wgmma")
-    assert (cfg.hd == 80) == (arch in MMA_ARCHS)
+    assert _design(dtype, cfg.hd) == "wgmma"
 
 
 def test_shape_checks():
