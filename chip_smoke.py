@@ -169,7 +169,15 @@ result:
                 RWKV6-7B at full size served with a drain (no attention),
                 then a 2048-token prefill at rwkv_chunk 1 and 64;
                 HuBERT-XLarge's encoder over 4 x 1500 frames (no kernel)
- 12. result     the `kernels` JSON line, the card line, and the last line
+ 12. roofline   every prefill, decode step, forward and training step
+                measured above (Yi-6B, Mixtral, Llama-Vision, Zamba2,
+                RWKV6, HuBERT; the Yi-6B-width training step) against the
+                port's analytic model of its work at its own shape and depth
+                (repro_torch.analysis.perfmodel, chips = dp = tp = 1) on the
+                H100's roofline (analysis.roofline.H100): model FLOPs,
+                analytic FLOPs and bytes, the compute and memory terms, the
+                measured ms, mfu and roofline_fraction, each in (0, 1.05]
+ 13. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -1040,6 +1048,23 @@ def decode_profile(torch, M, cfg, params, state, steps=3):
                 decode_device_ops_per_step=n_ops / steps)
 
 
+def measured(cfg, kind, batch, seq_len, ms, ms_of, **extra) -> dict:
+    """A path's measured time for the [roofline] phase: ``cfg`` at the depth
+    it ran, ``kind`` "prefill", "decode" or "train" over ``batch`` x
+    ``seq_len`` tokens (a decode step: one token a lane against a
+    ``seq_len``-deep cache)."""
+    return dict(cfg=cfg, kind=kind, batch=batch, seq_len=seq_len, ms=ms, ms_of=ms_of, **extra)
+
+
+def decode_measured(cfg, state, cache_len, decode) -> dict:
+    """``decode_profile``'s steps as a measured path: the card's busy ms a
+    step (the host's ms beside it)."""
+    return measured(cfg, "decode", state["pos"].shape[0], cache_len,
+                    decode["decode_device_busy_ms_per_step"],
+                    "the card's busy ms per decode step (torch.profiler)",
+                    host_ms=decode["decode_profiled_step_ms"])
+
+
 def attention_layers(cfg) -> int:
     """Self-attention layers a token passes: every layer (dense, moe), the
     vlm's layers but its cross-attention ones, the hybrid's applications of
@@ -1180,7 +1205,8 @@ def serve_line(cfg, eng, reqs, run, serve_kw, **extra) -> dict:
 
 
 def full_serve(torch, np):
-    """Yi-6B at full depth and width on the card behind the LB front door."""
+    """Yi-6B at full depth and width on the card behind the LB front door.
+    Returns (the serving run's launches, the measured paths)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
@@ -1211,7 +1237,9 @@ def full_serve(torch, np):
         share_kernel_ms=k_ms, share_prefill_ms=p_ms, **decode,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     say("[serve] " + json.dumps(line, sort_keys=True))
-    return run["launches"]
+    return run["launches"], [
+        measured(cfg, "prefill", 1, len(longest), p_ms, "CUDA events around one prefill"),
+        decode_measured(cfg, eng.states[0], FULL_SERVE["max_len"], decode)]
 
 
 CONTROLD_SERVE = dict(n_replicas=2, lane_bits=1, max_len=256, rebalance_every=2,
@@ -2316,17 +2344,21 @@ def train_full(torch, np):
         launches={k: v for k, v in launches.items() if v}), sort_keys=True))
     import shutil
     shutil.rmtree(ROOT / "build" / "train", ignore_errors=True)
-    return launches
+    return launches, [measured(cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+                               statistics.median(step_s) * 1e3,
+                               "host clock around a step that ends on the card, median of "
+                               "steps 1-3 and 8-9 (LB ingest, fwd+bwd with remat, AdamW)")]
 
 
 def train_phase(torch, np):
     """Training with LB ingest (repro_torch.train): the smoke config card ==
-    CPU, then Yi-6B's width at 8 layers. Returns the full-width launches."""
+    CPU, then Yi-6B's width at 8 layers. Returns the full-width launches and
+    the step's measured path."""
     t0 = time.perf_counter()
     train_smoke(torch, np)
-    launches = train_full(torch, np)
+    launches, paths = train_full(torch, np)
     say(f"[train] phase {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, paths
 
 
 # ---------------------------------------------------------------------------
@@ -2450,7 +2482,8 @@ def _moe_forward_checks(cfg, eng, launches, tag):
 def mixtral_serve(torch, np):
     """Mixtral-8x22B at published width, MIXTRAL_LAYERS of its 56 layers,
     served with a drain; the share of its longest in-window prefill taken by
-    flash_attention, the expert products and dispatch_plan."""
+    flash_attention, the expert products and dispatch_plan. Returns (the
+    serving run's launches, the measured paths)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2506,7 +2539,9 @@ def mixtral_serve(torch, np):
         share_prefill_assignments=cfg.n_layers * cfg.top_k * len(longest), **decode,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     say("[moe] " + json.dumps(line, sort_keys=True))
-    return launches
+    return launches, [
+        measured(cfg, "prefill", 1, len(longest), p_ms, "CUDA events around one prefill"),
+        decode_measured(cfg, eng.states[0], MOE_SERVE["max_len"], decode)]
 
 
 def arctic_serve(torch, np):
@@ -2556,7 +2591,8 @@ def moe_phase(torch, np):
     pack's kernel at the family's shapes; Mixtral-8x22B (8 layers) and
     Arctic (2 layers) at published width served on the card. Earlier
     phases' tensors are freed first. Returns (the main-path launches of the
-    two full-width serving runs, summed; the kernel rows' MoE numbers)."""
+    two full-width serving runs, summed; the kernel rows' MoE numbers;
+    Mixtral's measured paths)."""
     import gc
 
     t0 = time.perf_counter()
@@ -2564,7 +2600,7 @@ def moe_phase(torch, np):
     torch.cuda.empty_cache()
     small_serve(torch, np, arch="mixtral_8x22b", tag="[moe]")
     plans, flash = moe_kernels(torch, np)
-    launches = mixtral_serve(torch, np)
+    launches, paths = mixtral_serve(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
     for k, v in arctic_serve(torch, np).items():
@@ -2572,7 +2608,7 @@ def moe_phase(torch, np):
     gc.collect()
     torch.cuda.empty_cache()
     say(f"[moe] phase {time.perf_counter() - t0:.1f} s")
-    return launches, plans, flash
+    return launches, plans, flash, paths
 
 
 # ---------------------------------------------------------------------------
@@ -2682,7 +2718,7 @@ def vision_run(torch, np):
     steps that reuse the stored vision tokens; a long one-lane prefill with
     the cross layers' share. flash_attention launches once per self layer
     per prefill (wgmma), never in a decode step. Returns the launches of the
-    two prefills and the decode steps."""
+    two prefills and the decode steps, and the measured paths."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2775,12 +2811,17 @@ def vision_run(torch, np):
         flash_wgmma_launches=launches["flash_attention_wgmma"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     say("[families] " + json.dumps(line, sort_keys=True))
-    return launches
+    return launches, [
+        measured(cfg, "prefill", VISION_LANES, VISION_PREFILL_T, prefill_ms,
+                 "CUDA events around one prefill"),
+        measured(cfg, "prefill", 1, VISION_LONG_T, p_ms, "CUDA events around one prefill"),
+        decode_measured(cfg, state, VISION_PREFILL_T + VISION_DECODE_STEPS + 8, decode)]
 
 
 def zamba_serve(torch, np):
     """Zamba2-2.7B at full depth and width served with a drain; the Mamba2
-    blocks' and flash_attention's shares of its longest prefill."""
+    blocks' and flash_attention's shares of its longest prefill. Returns
+    (the serving run's launches, the measured paths)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import mamba2 as M2
@@ -2815,13 +2856,16 @@ def zamba_serve(torch, np):
         share_method="CUDA events around each call and around the whole prefill",
         **decode, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     say("[families] " + json.dumps(line, sort_keys=True))
-    return run["launches"]
+    return run["launches"], [
+        measured(cfg, "prefill", 1, len(longest), p_ms, "CUDA events around one prefill"),
+        decode_measured(cfg, eng.states[0], ZAMBA_SERVE["max_len"], decode)]
 
 
 def rwkv_serve(torch, np):
     """RWKV6-7B at full depth and width served with a drain (the engine's
     prefill takes the per-token scan, the reference's default); then one
-    model-level prefill of RWKV_PREFILL_T tokens at each of RWKV_CHUNKS."""
+    model-level prefill of RWKV_PREFILL_T tokens at each of RWKV_CHUNKS.
+    Returns (the serving run's launches, the measured paths)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
@@ -2862,13 +2906,17 @@ def rwkv_serve(torch, np):
         model_prefill_max_abs_logit_diff=float((logits[lo] - logits[hi]).abs().max()),
         **decode, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     say("[families] " + json.dumps(line, sort_keys=True))
-    return run["launches"]
+    return run["launches"], [
+        *(measured(cfg, "prefill", 1, RWKV_PREFILL_T, chunks[c]["ms"],
+                   f"CUDA events around one prefill at rwkv_chunk={c}", rwkv_chunk=c)
+          for c in RWKV_CHUNKS),
+        decode_measured(cfg, eng.states[0], RWKV_SERVE["max_len"], decode)]
 
 
 def hubert_run(torch, np):
     """HuBERT-XLarge's encoder at full depth and width (bf16, random
     weights): ``forward`` over HUBERT_CLIPS x HUBERT_FRAMES frame embeddings,
-    no kernel on the path."""
+    no kernel on the path. Returns its measured path."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.models import model as M
@@ -2898,6 +2946,8 @@ def hubert_run(torch, np):
                 frames_per_s=HUBERT_CLIPS * HUBERT_FRAMES / t * 1e3,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     say("[families] " + json.dumps(line, sort_keys=True))
+    return [measured(cfg, "prefill", HUBERT_CLIPS, HUBERT_FRAMES, t,
+                     "CUDA events around forward, median of 3 after a warm-up")]
 
 
 def families_phase(torch, np):
@@ -2906,7 +2956,8 @@ def families_phase(torch, np):
     at their prefill shapes; Llama-3.2-Vision (20 layers) prefills and
     decodes, Zamba2 and RWKV6 at full size served with a drain, HuBERT's
     encoder at full size. Returns (the main-path launches of the vision
-    run and the two serving runs, summed; the flash rows)."""
+    run and the two serving runs, summed; the flash rows; the measured
+    paths)."""
     import gc
 
     def free():
@@ -2918,16 +2969,56 @@ def families_phase(torch, np):
     families_small(torch, np)
     flash = families_flash(torch, np)
     free()
-    launches = vision_run(torch, np)
+    launches, paths = vision_run(torch, np)
     free()
     for run in (zamba_serve, rwkv_serve):
-        for k, v in run(torch, np).items():
+        got, more = run(torch, np)
+        for k, v in got.items():
             launches[k] += v
+        paths += more
         free()
-    hubert_run(torch, np)
+    paths += hubert_run(torch, np)
     free()
     say(f"[families] phase {time.perf_counter() - t0:.1f} s")
-    return launches, flash
+    return launches, flash, paths
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the measured paths against the H100's roofline
+# ---------------------------------------------------------------------------
+
+#: the most a share may read: above it the count or the clock is wrong
+ROOFLINE_MAX_SHARE = 1.05
+
+
+def roofline_phase(card, paths):
+    """Each measured path against the port's analytic model of its work
+    (``analysis.perfmodel.estimate`` at the path's own batch, length, kind
+    and depth; one card: chips = dp = tp = 1; f32 moments) on the H100's
+    roofline: mfu = model FLOPs / (ms x peak) and roofline_fraction =
+    max(compute, memory) / ms, each in (0, ROOFLINE_MAX_SHARE]."""
+    from repro_torch.analysis import perfmodel, roofline
+    from repro_torch.launch.dryrun import model_flops
+    from repro_torch.launch.shapes import ShapeSpec
+
+    chip = roofline.H100
+    say(f"[roofline] {chip.name}: {chip.peak_flops:.4g} FLOP/s bf16 dense, "
+        f"{chip.hbm_bw:.4g} B/s HBM; the card: {card}")
+    for p in paths:
+        cfg = p["cfg"]
+        shape = ShapeSpec(f"{p['kind']}_{p['batch']}x{p['seq_len']}", p["seq_len"], p["batch"],
+                          p["kind"])
+        est = perfmodel.estimate(cfg, shape, 1, 1, 1)
+        got = roofline.against(est, model_flops(cfg, shape), p["ms"] / 1e3, chip)
+        line = dict(model=cfg.name, n_layers=cfg.n_layers, kind=p["kind"], batch=p["batch"],
+                    seq_len=p["seq_len"], ms=p["ms"], ms_of=p["ms_of"], **got,
+                    **{k: v for k, v in p.items()
+                       if k not in ("cfg", "kind", "batch", "seq_len", "ms", "ms_of")})
+        say("[roofline] " + json.dumps(line, sort_keys=True))
+        for share in ("mfu", "roofline_fraction"):
+            check(0 < got[share] <= ROOFLINE_MAX_SHARE,
+                  f"[roofline] {cfg.name} {shape.name}: {share} {got[share]} is outside "
+                  f"(0, {ROOFLINE_MAX_SHARE}]: the count or the clock is wrong")
 
 
 def main() -> int:
@@ -2972,19 +3063,20 @@ def main() -> int:
         for name, sizes in main_path_sizes(torch, np, window_n, N_REQUESTS).items():
             results[name]["main_path"] = sizes
         small_serve(torch, np)
-        serve_launches = full_serve(torch, np)
+        serve_launches, paths = full_serve(torch, np)
         for k, v in controld_serve(torch, np).items():
             serve_launches[k] += v
         simnet_results, simnet_launches = simnet_phase(torch, np)
         results.update(simnet_results)
         controld_launches = controld_phase(torch, np)
         fabric_launches = fabric_phase(torch, np)
-        train_launches = train_phase(torch, np)
-        moe_launches, moe_plans, moe_flash = moe_phase(torch, np)
+        train_launches, train_paths = train_phase(torch, np)
+        moe_launches, moe_plans, moe_flash, moe_paths = moe_phase(torch, np)
         results["dispatch_plan"]["moe_shapes"] = moe_plans
         results["flash_attention"]["mixtral_prefill"] = moe_flash
-        family_launches, family_flash = families_phase(torch, np)
+        family_launches, family_flash, family_paths = families_phase(torch, np)
         results["flash_attention"].update(family_flash)
+        roofline_phase(card, paths + train_paths + moe_paths + family_paths)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1

@@ -6,7 +6,9 @@ Port of the Pallas kernel ``repro/kernels/dispatch.py::dispatch_plan``. For
 packet i with member m, pos_i = #packets j<i with member j == m (stable);
 pos = -1 for member < 0, and a member >= n_members gets pos 0 and is not
 counted. Returns (pos int32[N], counts int32[n_members]). A CUDA input
-launches the kernel; a CPU input takes ``ref.dispatch_plan_ref``.
+launches the kernel; a CPU input takes ``ref.dispatch_plan_ref``, and so
+does a meta input (shapes and dtypes only: the dry run's, nothing
+computes); any other device raises.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ MAX_MEMBERS = 65_535 * CHUNK_MEMBERS
 def dispatch_plan(member: torch.Tensor, *, n_members: int):
     if member.ndim != 1:
         raise ValueError(f"member must be 1-D, got {tuple(member.shape)}")
-    if member.device.type == "cpu":
+    if member.device.type in ("cpu", "meta"):
         return dispatch_plan_ref(member, n_members=n_members)
     if member.device.type != "cuda":
         raise ValueError(f"dispatch_plan: unsupported device {member.device}")

@@ -8,7 +8,8 @@ flash_attention``, in the JAX layout: q ``[B, T, Hq, d]``, k and v
 index. Key positions past T are always masked, causal or not (where the
 Pallas kernel lets its zero padding into a non-causal softmax). A CUDA input
 launches a kernel (fp32 or bf16, d in ``HEAD_DIMS``); a CPU input takes
-``ref.flash_attention_ref``.
+``ref.flash_attention_ref``, and so does a meta input (shapes and dtypes
+only: the dry run's, nothing computes); any other device raises.
 
 Two designs compute the same function, chosen by ``_design(dtype, d)``:
 ``"wgmma"`` (TMA ring, wgmma, warp-specialised; bf16 at d in
@@ -56,7 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError("flash_attention is forward only (no backward, as the Pallas "
                            "kernel): call it under torch.no_grad(), or attend through "
                            "models.layers.attention to train")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

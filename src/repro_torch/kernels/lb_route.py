@@ -11,7 +11,9 @@ Port of the Pallas kernel ``repro/kernels/lb_route.py::lb_route``. Headers
 are ``int32[N, 4]`` (the u32 wire words' bits, row-major); tables are one
 instance or the stacked virtual instances, in which case ``instance_id``
 (``int32[N]``) selects each packet's balancing context. A CUDA input
-launches the kernel; a CPU input takes ``ref.lb_route_ref``.
+launches the kernel; a CPU input takes ``ref.lb_route_ref``, and so does a
+meta input (shapes and dtypes only: the dry run's, nothing computes); any
+other device raises.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ def lb_route(headers: torch.Tensor, tables: DeviceTables, instance_id=None):
         raise ValueError("instance_id given but tables are single-instance")
     if headers.ndim != 2 or headers.shape[1] != 4:
         raise ValueError(f"headers must be [N, 4] words, got {tuple(headers.shape)}")
-    if headers.device.type == "cpu":
+    if headers.device.type in ("cpu", "meta"):
         return lb_route_ref(headers, tables, instance_id)
     if headers.device.type != "cuda":
         raise ValueError(f"lb_route: unsupported device {headers.device}")

@@ -49,6 +49,7 @@ class TrainConfig:
     grad_compress: bool = False
     q_chunk: int = 1024
     k_chunk: int = 1024
+    rwkv_chunk: int = 1
 
 
 def init_train_state(generator: torch.Generator, model_cfg: ModelConfig,
@@ -144,14 +145,17 @@ def make_train_step(
 
     def loss_fn(params, mb):
         return M.train_loss(params, mb, model_cfg, remat=train_cfg.remat,
-                            q_chunk=train_cfg.q_chunk, k_chunk=train_cfg.k_chunk)
+                            q_chunk=train_cfg.q_chunk, k_chunk=train_cfg.k_chunk,
+                            rwkv_chunk=train_cfg.rwkv_chunk)
 
     def value_and_grad(params, mb):
         ps = leaves(params)
         for p in ps:
             p.requires_grad_(True)
         loss, met = loss_fn(params, mb)
-        grads = iter(torch.autograd.grad(loss, ps))
+        # a leaf the loss does not reach (the token embedding of an encoder
+        # fed frame embeddings) gets a zero gradient, as jax.grad gives it
+        grads = iter(torch.autograd.grad(loss, ps, materialize_grads=True))
         return (loss.detach(), {k: v.detach() for k, v in met.items()},
                 tree_map(lambda p, stacked: next(grads), params))
 

@@ -885,3 +885,49 @@ def test_fused_engine_on_the_card_equals_the_host_engine():
     traces1 = fused.FUSED_TRACES
     again = Simulator(cfg("fused"), dataclasses.replace(scn)).run()
     assert fused.FUSED_TRACES == traces1 and again.bundles_completed == got.bundles_completed
+
+
+def test_a_prefill_on_the_card_reads_a_share_of_its_roofline():
+    """Yi-6B's width at 2 layers (bf16, random weights), a 1 x 2048-token
+    prefill timed with CUDA events after a warm-up, against the port's
+    analytic model on the H100: mfu and roofline_fraction in (0, 1.05]."""
+    from repro_torch.analysis import perfmodel, roofline
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import model_flops
+    from repro_torch.launch.shapes import ShapeSpec
+
+    cfg = get_config("yi_6b").with_(n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 2048), dtype=torch.int32, device="cuda")
+    ms = []
+    with torch.no_grad():
+        for _ in range(4):
+            state = M.init_decode_state(cfg, 1, 2048, "cuda")
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            M.prefill(params, {"tokens": toks}, state, cfg)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+    shape = ShapeSpec("prefill_2048", 2048, 1, "prefill")
+    got = roofline.against(perfmodel.estimate(cfg, shape, 1, 1, 1), model_flops(cfg, shape),
+                           min(ms[1:]) / 1e3)
+    assert 0 < got["mfu"] <= 1.05 and 0 < got["roofline_fraction"] <= 1.05, got
+
+
+def test_kernel_wrappers_launch_nothing_on_meta():
+    """A meta input takes the plain version (shapes only); a CUDA input
+    still launches the kernel."""
+    q = torch.empty((1, 256, 32, 128), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((1, 256, 4, 128), dtype=torch.bfloat16, device="meta")
+    member = torch.empty(4096, dtype=torch.int32, device="meta")
+    before = dict(_lib.LAUNCHES)
+    out = flash_attention(q, k, k)
+    pos, counts = dispatch_plan(member, n_members=16)
+    assert _lib.LAUNCHES == before
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
+    assert pos.shape == (4096,) and counts.shape == (16,) and pos.device.type == "meta"
+    flash_attention(*(torch.zeros(x.shape, dtype=x.dtype, device="cuda") for x in (q, k, k)))
+    dispatch_plan(torch.zeros(4096, dtype=torch.int32, device="cuda"), n_members=16)
+    assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert _lib.LAUNCHES["dispatch_plan"] == before["dispatch_plan"] + 1

@@ -174,7 +174,8 @@ def test_port_imports_without_jax_or_repro():
                 "train.optimizer", "train.train_step", "train.trainer",
                 "distributed.context", "distributed.sharding", "distributed.compression",
                 "checkpoint.ckpt", "launch.train", "tree", "models.moe",
-                "configs.mixtral_8x22b", "configs.arctic_480b"):
+                "configs.mixtral_8x22b", "configs.arctic_480b", "analysis.perfmodel",
+                "analysis.roofline", "launch.shapes", "launch.dryrun"):
         assert f"repro_torch.{mod}" in names, mod
 
 

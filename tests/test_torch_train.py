@@ -331,6 +331,37 @@ def test_grad_compress_steps_equal_reference():
     assert int(ts["step"]) == 2
 
 
+@pytest.mark.parametrize("arch,kw", [("hubert_xlarge", {}), ("rwkv6_7b", {"rwkv_chunk": 4})])
+def test_step_equals_reference_for_the_encoder_and_chunked_rwkv(arch, kw):
+    """Two steps of the encoder (frame embeddings: the token embedding gets
+    a zero gradient, so weight decay alone moves it, as in the reference)
+    and of RWKV6 at the reference's ``TrainConfig.rwkv_chunk``: loss and
+    params within rtol/atol 2e-4 of the reference's."""
+    cfg = get_smoke_config(arch)
+    common = dict(remat=True, lb_ingest=False, q_chunk=8, k_chunk=8, **kw)
+    jt = JTS.TrainConfig(adamw=JO.AdamWConfig(lr=1e-3), **common)
+    tt = TTS.TrainConfig(adamw=TO.AdamWConfig(lr=1e-3), **common)
+    js = JTS.init_train_state(jax.random.PRNGKey(0), cfg, jt)
+    ts = TTS.init_train_state(torch.Generator().manual_seed(0), cfg, tt, "cpu")
+    ts["params"] = _cross(js["params"], cfg)
+    ts["opt"] = TO.init(ts["params"], tt.adamw)
+    rng = np.random.default_rng(3)
+    batch = _batch(cfg)
+    if cfg.family == "audio":
+        batch = {"embeds": rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32),
+                 "labels": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)}
+    embed0 = ts["params"]["embed"].clone()
+    jstep, tstep = JTS.make_train_step(cfg, jt), TTS.make_train_step(cfg, tt)
+    for _ in range(2):
+        js, jm = jstep(js, jax.tree.map(jnp.asarray, batch), None)
+        ts, tm = tstep(ts, batch, None)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), **TOL)
+    _assert_tree_close(_stacked(ts["params"], cfg.n_layers),
+                       jax.tree.map(np.asarray, js["params"]), **TOL)
+    if cfg.family == "audio":
+        assert not torch.equal(ts["params"]["embed"], embed0)  # decayed
+
+
 def test_step_refuses_a_mesh_of_several_ranks():
     cfg = get_smoke_config("yi_6b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
