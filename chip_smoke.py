@@ -2182,11 +2182,11 @@ def _grad_check(torch, O):
 
     orig, seen = O.update, []
 
-    def update(grads, state, params, cfg):
+    def update(grads, state, params, cfg, **kw):
         flags = [torch.stack([torch.isfinite(g).all(), g.abs().amax() > 0])
                  for g in leaves(grads)]
         seen.append(torch.stack(flags).cpu())
-        return orig(grads, state, params, cfg)
+        return orig(grads, state, params, cfg, **kw)
 
     O.update = update
     return (lambda: setattr(O, "update", orig)), seen
@@ -2359,6 +2359,114 @@ def train_phase(torch, np):
     launches, paths = train_full(torch, np)
     say(f"[train] phase {time.perf_counter() - t0:.1f} s")
     return launches, paths
+
+
+def train_dp(torch, np, full_ms):
+    """The data-parallel step (``jit_train_step``) over a one-rank NCCL
+    process group (a FileStore under build/, no network) on
+    ``make_debug_mesh(1, 1)``: Yi-6B width at TRAIN_LAYERS, from the init
+    and the batches of [train]'s steps 4-6, under deterministic algorithms,
+    against the one-process step on the same: loss, metrics and params bit
+    for bit; lb_route and dispatch_plan launched once a step. Then 2 steps
+    timed as [train] times its own (``full_ms``, its median, beside them).
+    Returns the launches of the three deterministic steps."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import dp as DP
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config("yi-6b").with_(n_layers=TRAIN_LAYERS)
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-4, warmup_steps=2, decay_steps=100),
+                        remat=True, lb_ingest=True)
+    run = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    ck = _train_dir("dp_ckpt")  # holds no checkpoint: nothing is saved
+
+    def trainer(mesh):
+        tr = Trainer(cfg, tc, TrainerConfig(ckpt_dir=str(ck), device="cuda",
+                                            ckpt_every=1 << 30), mesh=mesh)
+        tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
+        tr.next_event = 3 * TRAIN_BATCH  # the events of [train]'s steps 4-6
+        return tr
+
+    torch.cuda.empty_cache()
+    tr = trainer(Mesh(("data",), (1,)))
+    plain = _deterministic(torch, lambda: tr.run(3, **run))
+    plain_params = [p.detach().cpu() for p in leaves(tr.state["params"])]
+    del tr
+    torch.cuda.empty_cache()
+
+    store_dir = ROOT / "build" / "train_dp"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_dir / "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        check(mesh.group is not None, "train_dp: make_debug_mesh(1, 1) bound no group")
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer(mesh)
+        check(tr.specs is not None, "train_dp: the trainer's step is not jit_train_step")
+        times, collectives = [], []
+        step = tr.step_fn
+
+        def counted(*a):
+            DP.reset_counts()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            collectives.append(dict(DP.COUNTS))
+            return out
+
+        tr.step_fn = counted
+        _lib.reset_launches()
+        dp_hist = _deterministic(torch, lambda: tr.run(3, **run))
+        launches = dict(_lib.LAUNCHES)
+        check(launches["lb_route"] == 3 and launches["dispatch_plan"] == 3,
+              f"train_dp: launches over 3 steps {launches} (lb_route and dispatch_plan once "
+              "a step)")
+        check(dp_hist == plain, f"train_dp: the metrics differ from the one-process step's:\n"
+                                f"{dp_hist}\n{plain}")
+        differ = sum(not torch.equal(p.detach().cpu(), q)
+                     for p, q in zip(leaves(tr.state["params"]), plain_params))
+        check(differ == 0, f"train_dp: {differ} of {len(plain_params)} param leaves differ "
+                           "from the one-process step's")
+        dp_hist = [dict(h) for h in dp_hist]
+        timed = tr.run(2, **run)[-2:]  # the trainer's history holds every step
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for h in timed:
+            check(np.isfinite(h["loss"]), f"train_dp: a step's loss is not finite: {h}")
+    finally:
+        dist.destroy_process_group()
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(store_dir, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "train", ignore_errors=True)
+    say("[train_dp] " + json.dumps(dict(
+        run=f"yi-6b width, {TRAIN_LAYERS} of 32 layers, bf16, remat, lb_ingest: jit_train_step "
+            "on make_debug_mesh(1, 1) over a one-rank NCCL group",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        equal_to_one_process="loss, grad_norm, lr, ce, z_loss, occupancy and every param "
+                             "bit for bit after 3 deterministic steps",
+        loss=[h["loss"] for h in dp_hist + timed],
+        step_ms_median=statistics.median(times[3:]) * 1e3, step_ms=[t * 1e3 for t in times[3:]],
+        step_ms_of="steps 4-5 (not deterministic), host clock around a step that ends on the card",
+        step_ms_deterministic=[t * 1e3 for t in times[:3]],
+        train_full_step_ms_median=full_ms,
+        peak_mem_gb=peak_gb, collectives_per_step=collectives[0],
+        launches_per_3_steps={k: v for k, v in launches.items() if v},
+        phase_s=time.perf_counter() - t_phase), sort_keys=True))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3071,6 +3179,7 @@ def main() -> int:
         controld_launches = controld_phase(torch, np)
         fabric_launches = fabric_phase(torch, np)
         train_launches, train_paths = train_phase(torch, np)
+        train_dp_launches = train_dp(torch, np, train_paths[0]["ms"])
         moe_launches, moe_plans, moe_flash, moe_paths = moe_phase(torch, np)
         results["dispatch_plan"]["moe_shapes"] = moe_plans
         results["flash_attention"]["mixtral_prefill"] = moe_flash
@@ -3086,6 +3195,7 @@ def main() -> int:
                     launches=(loop_launches[name] + serve_launches[name]
                               + simnet_launches.get(name, 0) + controld_launches[name]
                               + fabric_launches.get(name, 0) + train_launches.get(name, 0)
+                              + train_dp_launches.get(name, 0)
                               + moe_launches[name] + family_launches[name]),
                     **results[name])
                for name in REPLACES]
@@ -3094,6 +3204,8 @@ def main() -> int:
             row["launches_fabric"] = fabric_launches[row["name"]]
         if train_launches.get(row["name"]):  # of which in the training phase
             row["launches_train"] = train_launches[row["name"]]
+        if train_dp_launches.get(row["name"]):  # of which in the data-parallel step
+            row["launches_train_dp"] = train_dp_launches[row["name"]]
         if moe_launches[row["name"]]:  # of which in the MoE phase
             row["launches_moe"] = moe_launches[row["name"]]
         if family_launches[row["name"]]:  # of which in the families phase

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""The port's training step over the ranks of one host's CUDA cards (NCCL),
+one process per card, started by ``torch.distributed.run``:
+
+    python -m torch.distributed.run --nproc-per-node 4 scripts/train_dp_torch.py
+
+1. Agreement: Yi-6B's and Mixtral's smoke configs (float32, TF32 off, LB
+   ingest off), params and moments split across the ranks
+   (``param_sharding`` at ``min_fsdp_size`` 1024), 3 steps of the W-rank
+   ``make_train_step`` on each rank's rows of the batch against the
+   one-process ``make_train_step`` on the whole batch (every rank runs it
+   too, on its own card, from the same init): loss, grad norm
+   and every param within rtol/atol 2e-4 (float32 reassociation: the ranks'
+   gradients add in another order).
+2. Timing: Yi-6B at full width, ``--layers`` of its 32 layers (bf16, remat,
+   LB ingest), placed at the default FSDP threshold; the trainer's global
+   batch is ``--rows`` per rank x 2048 tokens; 2 warm-up steps, then
+   ``--steps`` timed. Rank 0 prints the median step ms, trained tokens/s,
+   its peak memory and the collectives a step.
+
+Rank 0 prints the card line and one JSON object; any rank's failed check
+exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SEQ = 2048
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def agreement(torch, np, arch, over, mesh, rank, world, device="cuda"):
+    """The largest share of TOL that the W-rank step's loss, grad norm and
+    params take from the one-process step's on the whole batch (a check
+    fails above 1)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import leaves
+
+    cfg = get_smoke_config(arch).with_(**over)
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-3), remat=True, lb_ingest=False,
+                        q_chunk=8, k_chunk=8)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (4 * world, 16)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks.copy()}
+    fresh = lambda: TS.init_train_state(torch.Generator(device=device).manual_seed(0), cfg, tc,
+                                        device)
+    plain, plain_step = fresh(), TS.make_train_step(cfg, tc)
+    shapes = TS.state_shapes(cfg, tc)
+    specs = {k: param_sharding(shapes[k], mesh, cfg, min_fsdp_size=1024) for k in ("params", "opt")}
+    step = TS.make_train_step(cfg, tc, mesh, len(toks), specs=specs)
+    mine = TS.shard_state(fresh(), specs, mesh)
+    rows = slice(rank * 4, (rank + 1) * 4)
+    share = lambda a, b: float(((a - b).abs() / (TOL["atol"] + TOL["rtol"] * b.abs())).max()
+                               .detach())
+    worst = 0.0
+    for _ in range(3):
+        plain, pm = plain_step(plain, batch, None)
+        mine, mm = step(mine, {k: v[rows] for k, v in batch.items()}, None)
+        for k in ("loss", "grad_norm"):
+            worst = max(worst, share(mm[k], pm[k]))
+    whole = TS.gather_state(mine, specs, mesh)
+    for a, b in zip(leaves(whole["params"]), leaves(plain["params"])):
+        worst = max(worst, share(a, b))
+    if worst > 1:
+        raise SystemExit(f"{arch}: the W-rank step is {worst:.3g}x TOL from the one-process step")
+    return worst
+
+
+def timing(torch, mesh, world, layers, rows, steps):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import dp as DP
+    from repro_torch.distributed.sharding import placed_dims
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    cfg = get_config("yi-6b").with_(n_layers=layers)
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-4, warmup_steps=2, decay_steps=100),
+                        remat=True, lb_ingest=True)
+    tr = Trainer(cfg, tc, TrainerConfig(ckpt_dir=str(ROOT / "build" / "train_dp_torch"),
+                                        device=f"cuda:{torch.cuda.current_device()}",
+                                        ckpt_every=1 << 30), mesh=mesh)
+    tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = [], []
+    inner = tr.step_fn
+
+    def counted(*a):
+        DP.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(dict(DP.COUNTS))
+        return out
+
+    tr.step_fn = counted
+    hist = tr.run(2 + steps, batch=rows * world, seq=SEQ)
+    med = statistics.median(times[2:])
+    occ = hist[-1]["ingest_occupancy"]
+    split = sum(d is not None for d in leaves(placed_dims(tr.state["params"],
+                                                         tr.specs["params"], mesh)))
+    return dict(model=f"yi-6b width, {layers} of 32 layers, bf16, remat, lb_ingest",
+                world=world, rows_per_rank=rows, seq=SEQ, step_ms_median=med * 1e3,
+                step_ms=[t * 1e3 for t in times[2:]],
+                trained_tokens_per_s=occ * rows * world * (SEQ - 1) / med,
+                occupancy=occ, peak_mem_gb_rank0=torch.cuda.max_memory_allocated() / 1e9,
+                collectives_per_step=counts[-1], param_leaves_split=split,
+                loss=[h["loss"] for h in hist])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--rows", type=int, default=4, help="rows of 2048 tokens per rank")
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available() or "WORLD_SIZE" not in os.environ:
+        print("FAIL: run on CUDA cards under torch.distributed.run", flush=True)
+        return 1
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl", device_id=torch.device("cuda", torch.cuda.current_device()))
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        mesh = make_debug_mesh(world, 1)
+        out = {"agreement_share_of_tol": {
+            arch: agreement(torch, np, arch, over, mesh, rank, world)
+            for arch, over in (("yi_6b", {}), ("mixtral_8x22b", {"capacity_factor": 0.5}))}}
+        out["timing"] = timing(torch, mesh, world, args.layers, args.rows, args.steps)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True)
+        print(card.stdout.strip(), flush=True)
+        print(json.dumps(out, sort_keys=True), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

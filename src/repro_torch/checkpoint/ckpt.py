@@ -14,6 +14,12 @@ scanned layers, and restored by splitting that dim. bfloat16 tensors are widened
 the host (npz has no bfloat16; lossless) and cast back per leaf on restore,
 which copies into the tensors of a tree in place (``restore_into``) from a
 map of the file.
+
+A state held as slices across data-parallel ranks (FSDP, ``specs`` and a
+``mesh`` as ``distributed.sharding.shard_tree`` takes them) is saved whole:
+every rank joins the gather and rank 0 writes. A restore copies each rank's
+slice of every array into its tensors, so a checkpoint of W ranks restores
+at any other W, one process included, and the other way round.
 """
 from __future__ import annotations
 
@@ -31,28 +37,31 @@ import zipfile
 import numpy as np
 import torch
 
-from repro_torch.tree import flat_paths, tree_map
+from repro_torch.distributed import sharding as shd
+from repro_torch.tree import flat_paths, stack, tree_map
 
 
-def _stack(leaf):
-    """A list of tensors as one stacked tensor on their own device (one host
-    copy of the stack, not one per item)."""
-    if not isinstance(leaf, list):
-        return leaf.detach()
-    return torch.stack([_stack(x) for x in leaf])
-
-
+@torch.no_grad()
 def _to_host(leaf) -> np.ndarray:
-    """A tensor (or a list of tensors, stacked) as an owned host array: the
-    saved copy must not alias a tensor that the next step updates in place."""
-    t = _stack(leaf).to("cpu", copy=True)
+    """A tensor (or a list of tensors, stacked on their own device: one host
+    copy of the stack, not one per item) as an owned host array: the saved
+    copy must not alias a tensor that the next step updates in place."""
+    t = stack(leaf).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:  # npz can't hold bf16: widen (lossless)
         t = t.float()
     return t.numpy()
 
 
-def host_arrays(tree) -> dict:
-    """``tree`` as the reference's flat ``path -> array`` dict, on the host."""
+def host_arrays(tree, specs=None, mesh=None):
+    """``tree`` as the reference's flat ``path -> array`` dict, on the host.
+    With ``specs`` (per top-level key of ``tree``) the placed subtrees are
+    gathered whole first (a collective: every rank calls it), and only rank
+    0 gets the arrays; the others get None."""
+    if specs is not None:
+        tree = {k: shd.gather_tree(v, specs[k], mesh) if k in specs else v
+                for k, v in tree.items()}
+        if shd.rank_of(mesh) != 0:
+            return None
     return {k: _to_host(v) for k, v in flat_paths(tree).items()}
 
 
@@ -76,9 +85,12 @@ def _write(directory: str, step: int, arrays: dict, metadata: dict | None) -> st
     return final
 
 
-def save(directory: str, step: int, tree, *, metadata: dict | None = None) -> str:
-    """Synchronous atomic save. Returns the final checkpoint path."""
-    return _write(directory, step, host_arrays(tree), metadata)
+def save(directory: str, step: int, tree, *, metadata: dict | None = None, specs=None,
+         mesh=None) -> str | None:
+    """Synchronous atomic save. Returns the final checkpoint path (None on
+    the ranks other than 0 of a placed tree, which only join the gather)."""
+    arrays = host_arrays(tree, specs, mesh)
+    return None if arrays is None else _write(directory, step, arrays, metadata)
 
 
 class AsyncSaver:
@@ -92,9 +104,13 @@ class AsyncSaver:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
-    def save(self, directory: str, step: int, tree, **kw) -> None:
-        arrays = host_arrays(tree)
+    def save(self, directory: str, step: int, tree, *, specs=None, mesh=None, **kw) -> None:
+        """A placed tree (``specs``, ``mesh``) is gathered on every rank
+        and written by rank 0."""
+        arrays = host_arrays(tree, specs, mesh)
         self.wait()
+        if arrays is None:
+            return
 
         def run():
             try:
@@ -183,23 +199,37 @@ def _copy_into(leaf, arr: np.ndarray, path: str) -> None:
         leaf.copy_(torch.from_numpy(arr))
 
 
-def restore_into(directory: str, tree, *, step: int | None = None) -> int:
+def restore_into(directory: str, tree, *, step: int | None = None, specs=None,
+                 mesh=None) -> int:
     """Copy the checkpoint of ``step`` (default: the latest) into the
     tensors of ``tree`` in place, each cast to its own dtype on its own
     device, one path at a time; its structure and shapes must match.
     Returns the step. A trainer restores into the state it allocated, with
-    no second copy of it on the device."""
+    no second copy of it on the device. With ``specs`` (per top-level key
+    of ``tree``) the placed subtrees hold this rank's slices, and each takes
+    its slice of the whole array."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     like = flat_paths(tree)
+    placed = {}
+    if specs is not None:
+        for k, v in specs.items():
+            placed.update({f"{k}/{p}": s for p, s in flat_paths(v).items()})
+    w = 1 if mesh is None else shd.data_extent(mesh)
     with _npz_arrays(os.path.join(directory, f"step_{step:08d}", "arrays.npz")) as arrays:
         missing = set(like) - set(arrays)
         if missing:
             raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]} ...")
         for k, leaf in like.items():
-            _copy_into(leaf, arrays[k], k)
+            arr = arrays[k]
+            d = shd.data_dim(placed[k], mesh, k) if k in placed and w > 1 else None
+            if d is not None:
+                n = arr.shape[d] // w
+                arr = np.take(arr, range(shd.rank_of(mesh) * n, (shd.rank_of(mesh) + 1) * n),
+                              axis=d)
+            _copy_into(leaf, arr, k)
     return step
 
 

@@ -1,18 +1,16 @@
-"""Gradient compression: int8 block-quantized all-reduce with error feedback.
+"""Gradient compression: int8 block quantization with error feedback.
 
 Port of the JAX package's ``repro/distributed/compression.py``. Gradients are
-quantized to int8 with per-block fp32 scales before the data-parallel
-all-reduce, cutting the collective's payload ~4x at the cost of
-quantization noise; an error-feedback accumulator keeps the bias bounded
-(the residual is carried to the next step). Used by
-``train/train_step.py`` (``TrainConfig.grad_compress``).
+quantized to int8 with per-block fp32 scales (the payload of a compressed
+all-reduce, ~4x smaller, at the cost of quantization noise); an
+error-feedback accumulator keeps the bias bounded (the residual is carried
+to the next step). ``train/train_step.py`` (``TrainConfig.grad_compress``)
+round-trips the summed gradient, as the reference's step does; the
+reference's ``psum_compressed`` has no caller there, and no port.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
-import torch.distributed as dist
 
 BLOCK = 256
 F32 = torch.float32
@@ -45,20 +43,3 @@ def compress_decompress(x):
     transform)."""
     q, s, n = quantize_int8(x)
     return dequantize_int8(q, s, n, x.shape)
-
-
-def psum_compressed(x, group: Optional[dist.ProcessGroup] = None):
-    """All-reduce (sum) of the int8 payload, with the error-feedback residual.
-
-    Returns (summed, residual): ``summed`` is the sum over the ranks of
-    ``group`` (the default group when None) of each rank's dequantised
-    payload; the caller adds ``residual`` to the next step's gradient before
-    compressing (error feedback). In a process with no process group it is
-    the one rank's dequantised payload.
-    """
-    q, s, n = quantize_int8(x)
-    deq = dequantize_int8(q, s, n, x.shape)
-    residual = x.to(F32) - deq
-    if dist.is_available() and dist.is_initialized():
-        dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
-    return deq, residual

@@ -6,8 +6,9 @@ reference annotates activations with *logical* axis names
 ``ShardingRules`` maps logical names to physical mesh axes. PyTorch has no
 GSPMD to take such a constraint: ``constrain`` is a no-op here, kept so the
 rules and their resolution to placement specs (``ShardingRules.spec``) carry
-over and are tested against the reference. Placing tensors by these specs
-is the sharded execution that ROADMAP.md queue 1 lists next.
+over and are tested against the reference. The training step places params
+and moments itself (``sharding.shard_tree``), and its activations are each
+rank's rows of the batch, which is the placement the "batch" rule names.
 """
 from __future__ import annotations
 

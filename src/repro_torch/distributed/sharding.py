@@ -14,9 +14,11 @@ Policy:
 ``Mesh`` stands where ``jax.sharding.Mesh`` stands: axis names and sizes,
 and the process group of the data-parallel ranks. The rules resolve to
 placement specs (a tuple per leaf: a mesh axis, a tuple of axes or None per
-dim), equal to the reference's ``PartitionSpec``s. Executing a step placed
-by them (FSDP or DTensor over a ``DeviceMesh``) is not in the port yet
-(ROADMAP.md queue 1).
+dim), equal to the reference's ``PartitionSpec``s. ``shard_tree`` carries a
+placement out on the data axes (FSDP: each rank keeps its slice of a leaf
+along the dim its spec names), and ``gather_tree`` undoes it; the training
+step (``train/train_step.py``) holds params and moments so. The "model"
+axis (tensor parallelism) is resolved to specs only.
 
 A list in a params tree (the port's per-layer list) is described as the
 reference stores it (``repro_torch.tree``): one leaf per path whose leading
@@ -29,8 +31,12 @@ import math
 import re
 from typing import Optional
 
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import dp
 from repro_torch.distributed.context import ShardingRules
-from repro_torch.tree import flat_paths, stacked_shape, unflatten_paths
+from repro_torch.tree import flat_paths, stacked_shape, tree_map, unflatten_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,3 +179,81 @@ def batch_sharding(mesh: Mesh, ndim: int, *, batch_dim: int = 0) -> tuple:
 
 def replicated(mesh: Mesh) -> tuple:
     return ()
+
+
+# -- carrying a placement out on the data axes --------------------------------
+
+def data_dim(spec, mesh: Mesh, path: str) -> Optional[int]:
+    """The dim of ``spec`` on the data axes (None: replicated over them).
+    A dim that also names another axis is refused."""
+    d_ax = set(data_axes(mesh))
+    for i, s in enumerate(spec):
+        axes = set(s) if isinstance(s, tuple) else {s}
+        if s is not None and axes & d_ax:
+            if axes - d_ax:
+                raise NotImplementedError(f"{path}: spec {spec} puts the data axes and "
+                                          f"{sorted(axes - d_ax)} on one dim")
+            return i
+    return None
+
+
+def placed_dims(tree, specs, mesh: Mesh):
+    """Per leaf of ``tree`` (the port's layout), the tensor dim that its spec
+    (``specs``: the reference's stacked layout) places on the data axes, or
+    None. A spec on a list dim (whole layers per rank) is refused: the
+    port's per-layer list holds the same keys on every layer."""
+    flat = flat_paths(specs)
+
+    def walk(x, path, depth):
+        if isinstance(x, dict):
+            return {k: walk(v, path + (str(k),), depth) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v, path, depth + 1) for v in x]
+        if x is None:
+            return None
+        key = "/".join(path)
+        d = data_dim(flat[key], mesh, key)
+        if d is not None and d < depth:
+            raise NotImplementedError(
+                f"{key}: spec {flat[key]} places list dim {d} (whole layers per rank) on the "
+                "data axes; the port shards tensor dims only")
+        return None if d is None else d - depth
+
+    return walk(tree, (), 0)
+
+
+def rank_of(mesh: Mesh) -> int:
+    """This process's rank along the data axes (0 with one rank)."""
+    return dist.get_rank(mesh.group) if data_extent(mesh) > 1 else 0
+
+
+def shard_tree(tree, specs, mesh: Mesh):
+    """This rank's part of every leaf: its slice (an owned copy) along the
+    dim that the leaf's spec places on the data axes; a replicated leaf, or
+    any leaf with one rank, is the leaf itself."""
+    w = data_extent(mesh)
+    dims = placed_dims(tree, specs, mesh)
+    if w == 1:
+        return tree
+    r = rank_of(mesh)
+
+    def take(x, d):
+        if d is None:
+            return x
+        n = x.shape[d] // w
+        return x.narrow(d, r * n, n).clone()
+
+    return tree_map(lambda x, d, stacked: take(x, d), tree, dims)
+
+
+def gather_tree(tree, specs, mesh: Mesh):
+    """The inverse of ``shard_tree``: every leaf whole on every rank (an
+    ``all_gather`` over the mesh's group per placed leaf)."""
+    dims = placed_dims(tree, specs, mesh)
+    if data_extent(mesh) == 1:
+        return tree
+
+    def gather(x, d):
+        return x if d is None else torch.cat(dp.all_gather(x, mesh.group), dim=d)
+
+    return tree_map(lambda x, d, stacked: gather(x, d), tree, dims)

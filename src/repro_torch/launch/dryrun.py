@@ -29,8 +29,9 @@ Usage:
 
 Variants: ``baseline`` and ``rwkvchunk`` (the same cells here: RWKV6
 prefills with the chunked WKV in both, see ``RWKV_CHUNK``). The
-reference's mesh variants and its 256/512-chip meshes need the sharded
-step, which the port does not have yet: the CLI refuses them.
+reference's mesh variants and its 256/512-chip meshes (``launch.mesh``)
+are not lowered yet: the CLI refuses them (the dry run on a fake process
+group is ROADMAP.md queue 1, item 1(b)).
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ CHUNKS = {"train_4k": (1024, 1024), "prefill_32k": (2048, 2048),
 # and ``rwkvchunk`` (the reference's name for it) is the baseline itself
 RWKV_CHUNK = 64
 VARIANTS = ("baseline", "rwkvchunk")
-#: what the sharded step (not ported yet) would take
+#: the reference's mesh variants, which the dry run does not lower yet
 SHARDED_ONLY = ("dponly", "tpN", "seqpar", "widetp", "moegroup")
 
 
@@ -198,8 +199,8 @@ def refuse_sharded(variant: str) -> None:
     if other:
         raise SystemExit(
             f"variant {'+'.join(other)}: only {VARIANTS} run on the one-card mesh; the "
-            f"mesh variants ({', '.join(SHARDED_ONLY)}) wait for the sharded training "
-            "step, which the port does not have yet (ROADMAP.md queue 1, item 1)")
+            f"mesh variants ({', '.join(SHARDED_ONLY)}) are not lowered yet: the sharded dry "
+            "run on the fake process group is ROADMAP.md queue 1, item 1(b)")
 
 
 def main(argv=None):
@@ -215,9 +216,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != MESH:
         raise SystemExit(
-            f"mesh {args.mesh!r}: the reference's 256/512-chip meshes wait for the sharded "
-            f"training step, which the port does not have yet (ROADMAP.md queue 1, item 1); "
-            f"run --mesh {MESH}")
+            f"mesh {args.mesh!r}: the reference's 256/512-chip meshes (launch.mesh) are not "
+            f"lowered yet: the sharded dry run on the fake process group is ROADMAP.md queue "
+            f"1, item 1(b); run --mesh {MESH}")
     refuse_sharded(args.variant)
 
     archs = ARCH_IDS if args.all or args.arch is None else [args.arch]

@@ -17,6 +17,16 @@ LB calendar (the ``lb_route`` kernel on the card) over a one-process
 
 A run resumes from the latest checkpoint under ``--ckpt-dir``; its default
 lies under ``tempfile.gettempdir()`` and is the port's own.
+
+Under ``torch.distributed.run`` (which sets ``RANK``/``WORLD_SIZE``) the
+launcher trains over W data-parallel ranks: a process group (gloo with
+``--device cpu``, NCCL with ``--device cuda``, one card per rank), the
+("data", "model") mesh (W, 1), params and moments placed by
+``param_sharding``, checkpoints written whole by rank 0; rank 0 prints.
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --demo --steps 12 --batch 4 --seq 16 \
+        --ckpt-dir build/train_dp --device cpu
 """
 from __future__ import annotations
 
@@ -25,10 +35,12 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import Mesh
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.train import optimizer as OPT
 from repro_torch.train import train_step as TS
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -57,6 +69,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    ranks = int(os.environ.get("WORLD_SIZE", "0"))
+    if ranks and not dist.is_initialized():  # started by torch.distributed.run
+        if str(args.device).startswith("cuda"):
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            args.device = f"cuda:{torch.cuda.current_device()}"
+        dist.init_process_group("nccl" if str(args.device).startswith("cuda") else "gloo")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.demo else get_config(args.arch)
     tcfg = TS.TrainConfig(
@@ -66,15 +84,22 @@ def main(argv=None):
         grad_compress=args.grad_compress,
         q_chunk=min(args.seq, 1024), k_chunk=min(args.seq, 1024),
     )
+    if dist.is_initialized():
+        mesh = make_debug_mesh(dist.get_world_size(), 1)
+    else:
+        mesh = Mesh(("data",), (1,)) if args.lb_ingest else None
+    say = print if not dist.is_initialized() or dist.get_rank() == 0 else (lambda *a: None)
     tr = Trainer(cfg, tcfg, TrainerConfig(n_members=4, ckpt_dir=args.ckpt_dir,
                                           use_controld=args.controld, device=str(dev)),
-                 mesh=Mesh(("data",), (1,)) if args.lb_ingest else None)
+                 mesh=mesh)
     start = tr.init_or_restore(torch.Generator(device=dev).manual_seed(0))
-    print(f"arch={cfg.name} params={cfg.param_count()[0]/1e6:.1f}M "
-          f"resume_step={start}")
+    say(f"arch={cfg.name} params={cfg.param_count()[0]/1e6:.1f}M "
+        f"resume_step={start}")
     hist = tr.run(args.steps, batch=args.batch, seq=args.seq)
     losses = [h["loss"] for h in hist]
-    print(f"steps={len(losses)} loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    say(f"steps={len(losses)} loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if ranks:
+        dist.destroy_process_group()
     return tr
 
 

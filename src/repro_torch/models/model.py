@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dp
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -321,7 +322,13 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     -1) for causal archs, per-frame CE with unshifted labels for the
     encoder (audio), plus z-loss 1e-4 and 0.01 x the aux loss (the moe
     layers' summed load-balance loss; zero for the other families), as the
-    reference computes them."""
+    reference computes them.
+
+    Under ``distributed.dp.use_slots`` (a training step over several
+    ranks) the CE and the z-loss divide by the label count of the whole
+    microbatch (a sum over its ranks), and the moe layers' aux loss is this
+    rank's share: each rank's loss, and its gradient, is its share of the
+    microbatch's, and the shares add up to it."""
     logits, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk,
                           k_chunk=k_chunk, rwkv_chunk=rwkv_chunk)
     labels = batch["labels"].long()
@@ -333,7 +340,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     logp = torch.log_softmax(logits_s, dim=-1)
     # a masked label reads any column: its term is multiplied by 0
     ll = logp.gather(-1, labels_s.clamp(min=0)[..., None])[..., 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(dp.slot_sum(mask.sum()), min=1.0)
     ce = -(ll * mask).sum() / denom
     # z-loss keeps the softmax normalizer tame (standard at scale).
     zl = 1e-4 * ((torch.logsumexp(logits_s, dim=-1) ** 2) * mask).sum() / denom

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dp
 from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.models import layers as L
 
@@ -100,6 +101,20 @@ def expert_products(params, buf, act: str) -> torch.Tensor:
     return torch.bmm(h, params["w_down"])
 
 
+def _stream_offsets(gate_idx: torch.Tensor, n_experts: int, slots) -> torch.Tensor:
+    """int64 [K, E]: for this rank's choice-j packets of expert x, the
+    packets of the microbatch's k-major stream before them that this rank
+    does not hold: every other rank's choices below j, and the earlier
+    ranks' choice j (one ``all_gather`` of the per-choice expert counts)."""
+    k = gate_idx.shape[1]
+    local = torch.zeros(k, n_experts, dtype=torch.int64, device=gate_idx.device)
+    local.scatter_add_(1, gate_idx.t().long(), torch.ones_like(gate_idx.t(), dtype=torch.int64))
+    parts = slots.parts(local)
+    mine = slots.members.index(slots.rank)
+    others = sum(parts) - local
+    return torch.cumsum(others, 0) - others + sum(parts[:mine], torch.zeros_like(local))
+
+
 def moe_ffn(params, x, cfg):
     """x: [B, T, d] -> ([B, T, d], {"aux_loss", "dropped"}): the Switch-style
     load-balance loss and the count of assignments past capacity."""
@@ -113,18 +128,34 @@ def moe_ffn(params, x, cfg):
     gate_vals, gate_idx = top_k(probs, k)  # [N, K]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
+    # the microbatch's tokens: this rank's n, times its ranks in a step
+    # over several (distributed.dp), whose token streams follow each other
+    # in rank order
+    slots = dp.current()
+    size = 1 if slots is None else slots.size
+    n_all = n * size
     g = max(int(getattr(cfg, "moe_dispatch_groups", 1) or 1), 1)
-    if n % g:
+    if n_all % g:
         g = 1
-    ng = n // g
+    ng = n_all // g
 
     # k-major flatten within each group: first-choice packets dispatch
     # before any second-choice ones (first choices win capacity contention).
     # The capacity floor of 8 keeps small serving batches drop-free; the
     # ng*k cap never allocates more slots than assignments.
     capacity = min(ng * k, max(int(cfg.capacity_factor * ng * k / e) + 1, 8))
+    if g > 1 and g % size:
+        raise NotImplementedError(
+            f"{cfg.name}: {g} dispatch groups over {size} ranks: a group would span ranks "
+            "(take a multiple of the ranks, or 1)")
+    spans = g == 1 and size > 1  # one group over the ranks' streams
+    g = max(g // size, 1)  # this rank's groups: whole groups, or its part of the one
+    ng = n // g
     member_g = gate_idx.reshape(g, ng, k).transpose(1, 2).reshape(g, k * ng)
     pos = pack_positions(member_g, e)
+    if spans:
+        pos = pos + _stream_offsets(gate_idx, e, slots)[
+            torch.arange(k, device=x.device).repeat_interleave(n), member_g[0]][None]
     keep = pos < capacity
 
     # Scatter into the [E, g*C, d] buffer; a dropped packet goes to a spill
@@ -151,10 +182,13 @@ def moe_ffn(params, x, cfg):
     if cfg.moe_dense_residual:
         y = y + L.mlp(params["dense"], x, cfg.act)
 
-    # Aux: Switch-style load-balance loss + drop accounting.
-    me = probs.mean(0)  # [E] mean router prob
-    ce = torch.zeros(e, dtype=F32, device=x.device).index_add_(
-        0, member_g.reshape(-1), keep.reshape(-1).to(F32)) / max(n * k, 1)
+    # Aux: Switch-style load-balance loss + drop accounting. Over several
+    # ranks, ``me`` is this rank's share of the mean router prob and ``ce``
+    # the microbatch's kept fraction, so the ranks' aux losses (and their
+    # gradients) add up to the microbatch's.
+    me = probs.sum(0) / n_all  # [E] mean router prob
+    ce = dp.slot_sum(torch.zeros(e, dtype=F32, device=x.device).index_add_(
+        0, member_g.reshape(-1), keep.reshape(-1).to(F32))) / max(n_all * k, 1)
     aux_loss = e * torch.sum(me * ce)
     dropped = torch.sum(~keep)  # every packet's expert is in [0, E)
     return y, {"aux_loss": aux_loss, "dropped": dropped}

@@ -12,14 +12,23 @@ A leaf of the layer list counts the list as a leading dim
 (``repro_torch.tree``), as the reference's stacked (scanned) layers do: the
 rule "decoupled weight decay on matrices only" (``ndim >= 2``) then decays
 the layers' norm scales and not ``ln_f``, as in the reference.
+
+Over several data-parallel ranks (``Shards``), each rank updates its slices
+of the params and moments (``distributed.sharding.shard_tree``) with the
+same numbers as the reference's one program: the clip's global norm sums
+the ranks' squares, and an 8-bit moment whose rows are split across ranks
+takes its row scale as the ``amax`` over them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import dp
 from repro_torch.tree import leaves, tree_map
 
 F32 = torch.float32
@@ -71,24 +80,86 @@ def init(params, cfg: AdamWConfig):
     return {"mu": tree_map(one, params), "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """Where this rank's slices lie: ``params`` holds, per param leaf, the
+    tensor dim split across the ``world`` ranks of ``group`` (None: the
+    whole leaf), and ``mu`` the same per moment leaf (``m``/``v``, or their
+    ``q``/``s`` when 8-bit)."""
+
+    group: object
+    rank: int
+    world: int
+    params: object
+    mu: object
+
+
+def _slice(x, d, sh: Shards):
+    n = x.shape[d] // sh.world
+    return x.narrow(d, sh.rank * n, n)
+
+
+def _whole(x, d, sh: Shards):
+    return x if d is None else torch.cat(dp.all_gather(x, sh.group), dim=d)
+
+
+def _deq_shard(st, pd, sd, sh: Optional[Shards]):
+    """An 8-bit moment's values on this rank's slice (param dim ``pd``),
+    its row scales held on dim ``sd``."""
+    if sh is None:
+        return _deq_state(st)
+    s = _whole(st["s"], sd, sh)
+    if pd is not None and pd != s.ndim - 1:
+        s = _slice(s, pd, sh)
+    return st["q"].to(F32) * s
+
+
+def _q_shard(x, pd, sd, sh: Optional[Shards]):
+    """``_q_state`` of a moment's slice; a row split across ranks (``pd``
+    the last dim) takes the ``amax`` over all of them."""
+    if sh is None:
+        return _q_state(x)
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    if pd == x.ndim - 1:
+        dp.all_reduce(amax, sh.group, op=dist.ReduceOp.MAX)
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    full = scale if pd is None or pd == x.ndim - 1 else _whole(scale, pd, sh)
+    return {"q": q, "s": full if sd is None else _slice(full, sd, sh).clone()}
+
+
+def global_norm(grads, sh: Optional[Shards] = None) -> torch.Tensor:
+    """The L2 norm of all gradients, summed leaf by leaf in tree order. Over
+    ranks (``grads`` this rank's slices): one ``all_reduce`` of the per-leaf
+    squares, a leaf that every rank holds whole counted from rank 0."""
+    sq = [torch.sum(g.to(F32) ** 2) for g in leaves(grads)]
+    if sh is not None:
+        dims = leaves(sh.params)
+        vec = torch.stack([s if d is not None or sh.rank == 0 else torch.zeros_like(s)
+                           for s, d in zip(sq, dims)])
+        sq = dp.all_reduce(vec, sh.group).unbind()
+    return torch.sqrt(sum(sq))
+
+
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig):
+def update(grads, state, params, cfg: AdamWConfig, shards: Optional[Shards] = None):
     """Returns (params, new_state, metrics); ``params`` are updated in
-    place. The arithmetic is the reference's, step for step, in float32."""
+    place. The arithmetic is the reference's, step for step, in float32.
+    With ``shards`` the three trees hold this rank's slices."""
     count = state["count"] + 1
     lr = schedule(cfg, count)
 
-    # global-norm clip
-    gnorm = torch.sqrt(sum(torch.sum(g.to(F32) ** 2) for g in leaves(grads)))
+    gnorm = global_norm(grads, shards)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1c = 1 - torch.pow(cfg.b1, count.to(F32))
     b2c = 1 - torch.pow(cfg.b2, count.to(F32))
 
-    def one(p, g, mu, stacked):
+    def one(p, g, mu, pd, md, stacked):
         gf = g.to(F32) * clip
         if cfg.eight_bit:
-            m, v = _deq_state(mu["m"]), _deq_state(mu["v"])
+            m = _deq_shard(mu["m"], pd, md["m"]["s"], shards)
+            v = _deq_shard(mu["v"], pd, md["v"]["s"], shards)
         else:
             m, v = mu["m"], mu["v"]
         m = cfg.b1 * m + (1 - cfg.b1) * gf
@@ -97,7 +168,18 @@ def update(grads, state, params, cfg: AdamWConfig):
         if p.ndim + stacked >= 2:  # decoupled weight decay on matrices only
             upd = upd + cfg.weight_decay * p.to(F32)
         p.copy_((p.to(F32) - lr * upd).to(p.dtype))
-        return {"m": _q_state(m), "v": _q_state(v)} if cfg.eight_bit else {"m": m, "v": v}
+        if cfg.eight_bit:
+            return {"m": _q_shard(m, pd, md["m"]["s"], shards),
+                    "v": _q_shard(v, pd, md["v"]["s"], shards)}
+        return {"m": m, "v": v}
 
-    new_mu = tree_map(one, params, grads, state["mu"])
+    dims, mdims = _whole_dims(params, cfg) if shards is None else (shards.params, shards.mu)
+    new_mu = tree_map(one, params, grads, state["mu"], dims, mdims)
     return params, {"mu": new_mu, "count": count}, {"grad_norm": gnorm, "lr": lr}
+
+
+def _whole_dims(params, cfg: AdamWConfig):
+    """``Shards.params`` and ``Shards.mu`` of leaves held whole."""
+    mu = {"q": None, "s": None} if cfg.eight_bit else None
+    return (tree_map(lambda p, stacked: None, params),
+            tree_map(lambda p, stacked: {"m": mu, "v": mu}, params))

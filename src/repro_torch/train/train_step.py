@@ -13,9 +13,17 @@ step (``TrainConfig.lb_ingest``):
   4. Forward/backward (+ microbatch accumulation), AdamW update in place.
 
 The step runs eagerly (no jit): ``make_train_step`` returns a plain
-function. A mesh with more than one data-parallel rank is taken by
-``_ingest`` alone; the sharded step (``jit_train_step`` in the reference)
-is not ported yet (ROADMAP.md queue 1).
+function. Over W data-parallel ranks (a mesh bound to a process group,
+``launch.mesh``) each process runs the step on its rows of the global
+batch, and the step equals the reference's one program over all of them:
+``jit_train_step`` places params and moments by ``param_sharding`` (FSDP:
+each rank keeps its slices, ``distributed.sharding.shard_tree``), gathers
+the params whole for the forward and backward, sums the gradients over the
+ranks (``all_reduce``) and updates its slices; the loss divides by the
+global label count (``distributed.dp``). ``make_train_step`` takes the
+placement as ``specs`` (needed over a process group), or holds every leaf
+whole in one process. A mesh with a model extent above 1 (tensor
+parallelism) is refused.
 """
 from __future__ import annotations
 
@@ -30,12 +38,13 @@ from repro_torch.core.dataplane import DataPlane
 from repro_torch.core.protocol import words_to_tensor
 from repro_torch.core.tables import DeviceTables
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dp as DP
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.compression import compress_decompress
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, map_stacked, tree_map
 
 F32 = torch.float32
 
@@ -77,14 +86,15 @@ def _ingest(batch, tables: DeviceTables, mesh, global_batch: Optional[int] = Non
     Each arrival-ordered event is routed through the calendar to its owning
     member (the node id of its route); its destination row is ``node * cap +
     position``, where position is the exclusive running count of the
-    node's events in global arrival order, and cap = B/W (the output batch
-    is the input's size; overflow events are dropped and accounted, the
-    paper's discard rule). Rank r holds arrival rows ``[r*B_r, (r+1)*B_r)``:
-    its running count starts at its exclusive offset (an ``all_gather`` of
-    every rank's per-member counts), and the rows travel to their owner by
-    ``all_to_all_single`` (``make_redistribute``), so rank r ends with the
-    rows that the reference's single-program scatter puts in shard r. With
-    one rank there is no collective.
+    node's events in global arrival order (``DataPlane.plan``), and cap =
+    B/W (the output batch is the input's size; overflow events are dropped
+    and accounted, the paper's discard rule). Rank r holds arrival rows
+    ``[r*B_r, (r+1)*B_r)``: its running count starts at its exclusive
+    offset (an ``all_gather`` of every rank's per-member counts), and the
+    rows travel to their owner by ``all_to_all_single``
+    (``make_redistribute``), so rank r ends with the rows that the
+    reference's single-program scatter puts in shard r. With one rank there
+    is no collective.
     """
     n_members = shd.data_extent(mesh)
     dev = tables.device
@@ -98,13 +108,11 @@ def _ingest(batch, tables: DeviceTables, mesh, global_batch: Optional[int] = Non
     cap = max((global_batch or b_local * n_members) // n_members, 1)
 
     node = r.node.to(torch.int64)
-    pos, _, counts = dp.member_positions(r.node, n_members, b_local)
+    pos, counts = dp.plan(r.node, n_members)  # the dispatch_plan kernel on the card
     offset = torch.zeros(n_members, dtype=torch.int64, device=dev)
     if n_members > 1:
         rank = dist.get_rank(mesh.group)
-        every = [torch.empty_like(counts) for _ in range(n_members)]
-        dist.all_gather(every, counts, group=mesh.group)
-        offset = torch.stack(every)[:rank].sum(0).to(torch.int64)
+        offset = torch.stack(DP.all_gather(counts, mesh.group))[:rank].sum(0).to(torch.int64)
     valid = (node >= 0) & (node < n_members)
     gpos = pos.to(torch.int64) + offset[node.clamp(0, n_members - 1)]
     keep = valid & (gpos < cap)
@@ -127,21 +135,58 @@ def _ingest(batch, tables: DeviceTables, mesh, global_batch: Optional[int] = Non
     return out, occ[:cap]
 
 
+def _microbatches(a: int, w: int, rank: int, rows: int) -> list:
+    """Per round of this rank's forward/backward passes: (its rows, the
+    slot of every rank). The reference slices the global batch (the ranks'
+    rows in rank order) into ``a`` microbatches; a microbatch spans whole
+    ranks (``a`` divides W) or lies within one (W divides ``a``), and the
+    ranks of a slot hold that microbatch."""
+    if a <= 1:
+        return [(slice(0, rows), (0,) * w)]
+    if w == 1:  # the reference's slices drop a remainder of rows
+        m = rows // a
+        return [(slice(j * m, (j + 1) * m), (j,)) for j in range(a)]
+    per = max(a // w, 1)
+    if (a % w and w % a) or rows % per:
+        raise NotImplementedError(
+            f"accum_steps={a} over {w} ranks of {rows} rows: a microbatch would split a "
+            "rank's rows unevenly")
+    m = rows // per
+    return [(slice(j * m, (j + 1) * m), tuple(r * a // w + j for r in range(w)))
+            for j in range(per)]
+
+
 def make_train_step(
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
     mesh=None,
     global_batch: Optional[int] = None,
+    *,
+    specs: Optional[dict] = None,
 ):
     """Returns step(state, batch, tables) -> (state, metrics). ``tables``
-    may be None when lb_ingest is off. The batch is numpy or tensors; it is
-    moved to the params' device. ``state`` is updated in place (params,
-    moments) and returned."""
-    if mesh is not None and shd.data_extent(mesh) > 1:
+    may be None when lb_ingest is off. The batch is numpy or tensors (this
+    rank's rows); it is moved to the params' device. ``state`` is updated
+    in place (params, moments) and returned.
+
+    With a mesh bound to a process group, the step reduces across its
+    ranks (also a group of one): the gradients, the loss's label count and
+    the metrics. It then needs ``specs`` ({"params", "opt"}:
+    ``param_sharding``'s specs, as ``jit_train_step`` makes them), which say
+    which leaves ``state`` holds as this rank's slices."""
+    if mesh is not None and shd.model_axis(mesh) and mesh.shape["model"] > 1:
         raise NotImplementedError(
-            "a training step over several data-parallel ranks (the reference's "
-            "jit_train_step) is not ported yet (ROADMAP.md queue 1); _ingest takes such "
-            "a mesh on its own")
+            f"mesh {mesh.shape}: a model extent above 1 (tensor parallelism) is not in the "
+            "port's training step (ROADMAP.md queue 1, item 1(b))")
+    w = shd.data_extent(mesh) if mesh is not None else 1
+    group = None if mesh is None else mesh.group
+    if w > 1 and group is None:
+        raise ValueError(f"a mesh of {w} data-parallel ranks needs its process group "
+                         "(launch.mesh binds it)")
+    if group is not None and specs is None:
+        raise ValueError("a mesh bound to a process group needs the placement specs of the "
+                         "params and moments (jit_train_step makes them)")
+    a = max(train_cfg.accum_steps, 1)
 
     def loss_fn(params, mb):
         return M.train_loss(params, mb, model_cfg, remat=train_cfg.remat,
@@ -159,15 +204,20 @@ def make_train_step(
         return (loss.detach(), {k: v.detach() for k, v in met.items()},
                 tree_map(lambda p, stacked: next(grads), params))
 
-    def grads_of(params, mb):
-        if train_cfg.accum_steps <= 1:
-            return value_and_grad(params, mb)
-        a = train_cfg.accum_steps
+    def grads_of(params, mb, rank):
+        """This rank's share of the loss and of the gradient (f32 sums of
+        the rounds' over ``a`` when accumulating)."""
+        def run(rows, slot_of):
+            sl = mb if a <= 1 else {k: v[rows] if v.ndim >= 1 else v for k, v in mb.items()}
+            with DP.use_slots(None if group is None else DP.Slots(group, rank, slot_of)):
+                return value_and_grad(params, sl)
+
+        rounds = _microbatches(a, w, rank, mb["labels"].shape[0])
+        if a <= 1:
+            return run(*rounds[0])
         gsum, lsum = None, 0.0
-        for i in range(a):
-            sl = {k: v[i * (v.shape[0] // a):(i + 1) * (v.shape[0] // a)] if v.ndim >= 1 else v
-                  for k, v in mb.items()}
-            loss, _met, g = value_and_grad(params, sl)
+        for rows, slot_of in rounds:
+            loss, _met, g = run(rows, slot_of)
             g32 = tree_map(lambda x, stacked: x.to(F32), g)
             gsum = g32 if gsum is None else tree_map(
                 lambda acc, x, stacked: acc.add_(x), gsum, g32)
@@ -176,35 +226,107 @@ def make_train_step(
 
     def step(state, batch, tables):
         dev = state["step"].device
+        rank = 0 if mesh is None else shd.rank_of(mesh)
+        params = state["params"]
         metrics = {}
         if train_cfg.lb_ingest:
             if mesh is None or tables is None:
                 raise ValueError("lb_ingest needs a mesh and the LB tables")
             mb, occ = _ingest(batch, tables, mesh, global_batch)
-            metrics["ingest_occupancy"] = occ.to(F32).mean()
         else:
             mb = {k: _as_tensor(v, dev) for k, v in batch.items() if k != "headers"}
 
-        loss, lmet, grads = grads_of(state["params"], mb)
+        whole = shd.gather_tree(params, specs["params"], mesh) if specs is not None else params
+        loss, lmet, grads = grads_of(whole, mb, rank)
+        del whole
+        stats = [loss] + list(lmet.values())
+        if train_cfg.lb_ingest:
+            stats.append(occ.sum().to(F32))
+        if group is not None:
+            # the sums over the ranks: the gradient, the loss's shares and
+            # the ingest's kept rows
+            for g in leaves(grads):
+                DP.all_reduce(g, group)
+            stats = DP.all_reduce(torch.stack(stats), group).unbind()
+        loss, lmet = stats[0], dict(zip(lmet, stats[1:]))
+        if train_cfg.lb_ingest:
+            metrics["ingest_occupancy"] = stats[-1] / (occ.numel() * w)
         metrics.update(lmet)
 
         if train_cfg.grad_compress:
-            # int8 round-trip + error feedback (the collective payload's
-            # transform; compression.psum_compressed is the all-reduce)
+            # int8 round-trip + error feedback on the summed gradient, whole
+            # on every rank: the int8 blocks run over the reference's
+            # flattened leaf, a per-layer list stacked (map_stacked); the
+            # residual is kept whole too
             efb = state["efb"]
             if efb is None:
                 efb = tree_map(lambda g, stacked: torch.zeros(g.shape, dtype=F32,
                                                                   device=g.device), grads)
             grads_fb = tree_map(lambda g, e, stacked: g.to(F32) + e, grads, efb)
-            deq = tree_map(lambda g, stacked: compress_decompress(g), grads_fb)
+            deq = map_stacked(compress_decompress, grads_fb)
             state = dict(state, efb=tree_map(lambda g, d, stacked: g - d, grads_fb, deq))
             grads = deq
 
-        new_params, new_opt, omet = opt.update(grads, state["opt"], state["params"],
-                                               train_cfg.adamw)
+        shards = None
+        if group is not None:
+            pdims = shd.placed_dims(params, specs["params"], mesh)
+            mdims = shd.placed_dims(state["opt"], specs["opt"], mesh)["mu"]
+            grads = tree_map(lambda g, d, stacked: g if d is None else g.narrow(
+                d, rank * (g.shape[d] // w), g.shape[d] // w), grads, pdims)
+            shards = opt.Shards(group=group, rank=rank, world=w, params=pdims, mu=mdims)
+        new_params, new_opt, omet = opt.update(grads, state["opt"], params,
+                                               train_cfg.adamw, shards=shards)
         metrics.update(omet)
         metrics["loss"] = loss
         return dict(state, params=new_params, opt=new_opt, step=state["step"] + 1), metrics
 
     return step
 
+
+def state_shapes(model_cfg: ModelConfig, train_cfg: TrainConfig) -> dict:
+    """The params and optimizer state on the meta device (shapes only), as
+    ``jit_train_step`` takes them."""
+    params = M.init_params(model_cfg, None, "meta")
+    return {"params": params, "opt": opt.init(params, train_cfg.adamw)}
+
+
+def jit_train_step(
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    mesh,
+    state_shapes,
+    *,
+    global_batch: Optional[int],
+    donate: bool = True,
+):
+    """The step with params and moments placed by the sharding rules
+    (``param_sharding`` over ``state_shapes["params"]`` and ``["opt"]``,
+    FSDP on the data axes). Its ``specs``
+    attribute holds them: ``shard_state`` places a whole state so, and
+    ``gather_state`` makes it whole again. ``donate=False`` leaves the
+    caller's state as it was (the step works on a copy); with ``donate``
+    the step updates it in place, as it always does."""
+    specs = {k: shd.param_sharding(state_shapes[k], mesh, model_cfg) for k in ("params", "opt")}
+    inner = make_train_step(model_cfg, train_cfg, mesh, global_batch, specs=specs)
+
+    def step(state, batch, tables):
+        if not donate:
+            copy = lambda x, stacked: x.detach().clone()
+            state = dict(state, params=tree_map(copy, state["params"]),
+                         opt=tree_map(copy, state["opt"]))
+        return inner(state, batch, tables)
+
+    step.specs = specs
+    return step
+
+
+def shard_state(state: dict, specs: dict, mesh) -> dict:
+    """A whole state (the same on every rank) as this rank's slices."""
+    return dict(state, params=shd.shard_tree(state["params"], specs["params"], mesh),
+                opt=shd.shard_tree(state["opt"], specs["opt"], mesh))
+
+
+def gather_state(state: dict, specs: dict, mesh) -> dict:
+    """The inverse of ``shard_state``, on every rank (collective)."""
+    return dict(state, params=shd.gather_tree(state["params"], specs["params"], mesh),
+                opt=shd.gather_tree(state["opt"], specs["opt"], mesh))

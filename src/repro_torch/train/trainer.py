@@ -14,6 +14,13 @@ control plane or the controld mode (the port's ``ControlDaemon`` over
 eager step of ``train_step.py``, on ``TrainerConfig.device``. A step's time
 is taken after the device finishes it (the reference times a jitted
 dispatch).
+
+With a mesh bound to a process group (``launch.mesh``), one trainer runs on
+each of its W data-parallel ranks: every rank draws the reference's global
+batch and keeps its arrival rows, the step is ``jit_train_step`` (params
+and moments placed by ``param_sharding``), the ranks agree on each step's
+time (the slowest rank's), so their control planes stay equal, and a
+checkpoint is saved whole by rank 0 and restored into each rank's slices.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.controld import ControlDaemon, ControldClient, ControldError, InProcTransport
@@ -33,6 +41,8 @@ from repro_torch.core.epoch import EpochManager
 from repro_torch.core.protocol import encode_headers
 from repro_torch.core.tables import MemberSpec
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dp
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.telemetry.metrics import TelemetryHub
 from repro_torch.train import train_step as TS
@@ -71,7 +81,14 @@ class Trainer:
         self.cfg = trainer_cfg
         self.device = resolve_device(trainer_cfg.device)
         self.mesh = mesh
-        self.step_fn = step_fn or TS.make_train_step(model_cfg, train_cfg, mesh)
+        self.group = None if mesh is None else mesh.group
+        if step_fn is None:
+            step_fn = (TS.make_train_step(model_cfg, train_cfg, mesh) if self.group is None
+                       else TS.jit_train_step(model_cfg, train_cfg, mesh,
+                                              TS.state_shapes(model_cfg, train_cfg),
+                                              global_batch=None))
+        self.step_fn = step_fn
+        self.specs = getattr(step_fn, "specs", None)
         self.hub = TelemetryHub()
         if trainer_cfg.use_controld:
             # the control plane as a service: DP workers are leased members
@@ -115,9 +132,12 @@ class Trainer:
         step resumed from."""
         self.state = TS.init_train_state(generator, self.model_cfg, self.train_cfg,
                                          self.device)
+        if self.specs is not None:
+            self.state = TS.shard_state(self.state, self.specs, self.mesh)
         if ckpt.latest_step(self.cfg.ckpt_dir) is None:
             return 0
-        return ckpt.restore_into(self.cfg.ckpt_dir, self._checkpointed())
+        return ckpt.restore_into(self.cfg.ckpt_dir, self._checkpointed(), specs=self.specs,
+                                 mesh=self.mesh)
 
     # -- control-plane integration ---------------------------------------------
     def handle_failure(self, member_ids) -> None:
@@ -185,6 +205,9 @@ class Trainer:
             if failure_at and s in failure_at:
                 self.handle_failure(failure_at[s])
             b = self.synthetic_batch(batch, seq, rng)
+            if self.group is not None:  # this rank's arrival rows
+                w, r = shd.data_extent(self.mesh), shd.rank_of(self.mesh)
+                b = {k: v[r * batch // w:(r + 1) * batch // w] for k, v in b.items()}
             tables = (self.manager.device_tables(self.device) if self.train_cfg.lb_ingest
                       else None)
             t0 = time.perf_counter()
@@ -192,11 +215,16 @@ class Trainer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
+            if self.group is not None:  # the slowest rank's time, on every rank
+                dt = float(dp.all_reduce(torch.tensor([dt], dtype=torch.float64,
+                                                      device=self.device),
+                                         self.group, op=dist.ReduceOp.MAX))
             for m in self.cp.members:
                 self.hub.report_step(m, dt * (1 + 0.01 * m))
             self.maybe_recalendar(s + 1)
             if (s + 1) % self.cfg.ckpt_every == 0:
-                self.saver.save(self.cfg.ckpt_dir, s + 1, self._checkpointed())
+                self.saver.save(self.cfg.ckpt_dir, s + 1, self._checkpointed(),
+                                specs=self.specs, mesh=self.mesh)
             self.history.append({k: float(v) for k, v in metrics.items() if v.ndim == 0})
         self.saver.wait()
         return self.history

@@ -4,8 +4,9 @@ scans).
 
 This module holds that layout rule, a list stands for a stacked leading
 dim, for the optimizer (``tree_map``'s ``stacked``: weight decay counts the
-dim), the checkpoint (``flat_paths``: a list is saved as its stack) and the
-sharding specs (``stacked_shape``: a spec has the layer dim first).
+dim), the checkpoint (``flat_paths``: a list is saved as its stack), the
+sharding specs (``stacked_shape``: a spec has the layer dim first) and the
+gradient compression (``map_stacked``: its int8 blocks run over the stack).
 """
 from __future__ import annotations
 
@@ -65,3 +66,29 @@ def unflatten_paths(flat: dict) -> dict:
             node = node.setdefault(k, {})
         node[name] = value
     return out
+
+
+def stack(leaf):
+    """A ``flat_paths`` value as one tensor: a list's items stacked on a
+    new leading dim (nested lists on several)."""
+    import torch
+
+    return torch.stack([stack(x) for x in leaf]) if isinstance(leaf, list) else leaf
+
+
+def map_stacked(fn, tree):
+    """``fn`` of each of the reference's leaves (a list's items stacked,
+    ``stack``), its result split back into ``tree``'s layout."""
+    done = {p: fn(stack(v)) for p, v in flat_paths(tree).items()}
+
+    def walk(x, path, idx):
+        if isinstance(x, dict):
+            return {k: walk(v, path + (str(k),), idx) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v, path, idx + (i,)) for i, v in enumerate(x)]
+        y = done["/".join(path)]
+        for i in idx:
+            y = y[i]
+        return y
+
+    return walk(tree, (), ())

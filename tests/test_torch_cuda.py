@@ -575,6 +575,64 @@ def test_smoke_trainer_with_lb_ingest_on_the_card_equals_the_cpu(tmp_path, _full
             np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("arch,over", [("yi_6b", {}), ("mixtral_8x22b", {"capacity_factor": 0.5})])
+def test_one_rank_nccl_step_equals_the_one_process_step(tmp_path, arch, over):
+    """``jit_train_step`` over a one-rank NCCL group (a FileStore under
+    tmp_path) against ``make_train_step`` with no group, from one init on
+    the card, 2 steps with LB ingest under deterministic algorithms: every
+    metric and every param bit for bit; lb_route and dispatch_plan launched
+    in the step (and the MoE pack's dispatch_plan per layer)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import leaves
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_smoke_config(arch).with_(**over)
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-3), remat=True, lb_ingest=True,
+                        q_chunk=8, k_chunk=8)
+    tables = program(tcore, n_members=4).device_tables("cuda")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (8, 16)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks.copy(),
+             "headers": encode_headers(rng.integers(0, 1 << 40, 8).astype(np.uint64),
+                                       rng.integers(0, 1 << 16, 8).astype(np.uint32))}
+
+    def two_steps(step, mesh_specs=None):
+        st = TS.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg, tc, "cuda")
+        if mesh_specs is not None:
+            st = TS.shard_state(st, *mesh_specs)
+        hist = []
+        for _ in range(2):
+            st, met = step(st, batch, tables)
+            hist.append({k: float(v) for k, v in met.items()})
+        return hist, [p.detach().cpu() for p in leaves(st["params"])]
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = two_steps(TS.make_train_step(cfg, tc, Mesh(("data",), (1,)), 8))
+        dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh(1, 1)
+            step = TS.jit_train_step(cfg, tc, mesh, TS.state_shapes(cfg, tc), global_batch=8)
+            before = dict(_lib.LAUNCHES)
+            got = two_steps(step, (step.specs, mesh))
+            assert _lib.LAUNCHES["lb_route"] - before["lb_route"] == 2
+            assert _lib.LAUNCHES["dispatch_plan"] - before["dispatch_plan"] >= 2
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got[0] == plain[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], plain[1]))
+
+
 # -- the MoE family: the expert pack through dispatch_plan ---------------------
 
 def _moe_members(n_tokens, n_experts, top_k, groups, seed):

@@ -5,8 +5,7 @@ needed) against the port's on the same shapes, in the port's list layout.
 Across processes (gloo, 2 and 4 ranks): ``_ingest`` on each rank's arrival
 shard against the reference's single-program ``_ingest`` on the whole batch,
 ``make_redistribute`` against the reference's per-source
-``router.dispatch`` transposed, ``psum_compressed`` against the sum of the
-per-rank ``compress_decompress``. The reference's own multi-device tests
+``router.dispatch`` transposed. The reference's own multi-device tests
 fail in this environment (``tests/test_distributed.py::TestMultiDevice``),
 so the single-program functions are the oracle. Integer outputs are exact.
 """
@@ -136,13 +135,6 @@ def test_quantize_and_compress_decompress_equal_reference(n):
                                   np.asarray(JC.compress_decompress(jnp.asarray(x))))
 
 
-def test_psum_compressed_on_one_process_is_its_payload():
-    x = torch.from_numpy(np.random.default_rng(3).normal(size=(40, 9)).astype(np.float32))
-    summed, residual = TC.psum_compressed(x)
-    torch.testing.assert_close(summed, TC.compress_decompress(x), rtol=0, atol=0)
-    torch.testing.assert_close(residual, x - summed, rtol=0, atol=0)
-
-
 # -- across processes (gloo) ------------------------------------------------------
 
 def _run_world(world, tmp_path):
@@ -203,14 +195,3 @@ def test_redistribute_equals_per_source_dispatch_transposed(world):
         np.testing.assert_array_equal(got["recv"], want)
         np.testing.assert_array_equal(got["rocc"], want_occ)
     assert any(int(np.asarray(counts).max()) > 3 for _, _, counts in packed)  # overflow
-
-
-def test_psum_compressed_equals_sum_of_compress_decompress(world):
-    """The sum over ranks in gloo's order: rtol 1e-6 (float32 reassociation);
-    each rank's residual exact."""
-    w, ranks = world
-    c = dist_case(w)
-    deq = [np.asarray(JC.compress_decompress(jnp.asarray(g))) for g in c["grads"]]
-    for r, got in enumerate(ranks):
-        np.testing.assert_allclose(got["summed"], np.sum(deq, axis=0), rtol=1e-6, atol=1e-6)
-        np.testing.assert_array_equal(got["residual"], c["grads"][r] - deq[r])

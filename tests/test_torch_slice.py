@@ -175,7 +175,8 @@ def test_port_imports_without_jax_or_repro():
                 "distributed.context", "distributed.sharding", "distributed.compression",
                 "checkpoint.ckpt", "launch.train", "tree", "models.moe",
                 "configs.mixtral_8x22b", "configs.arctic_480b", "analysis.perfmodel",
-                "analysis.roofline", "launch.shapes", "launch.dryrun"):
+                "analysis.roofline", "launch.shapes", "launch.dryrun", "launch.mesh",
+                "launch.shardspecs", "distributed.dp"):
         assert f"repro_torch.{mod}" in names, mod
 
 

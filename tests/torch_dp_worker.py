@@ -1,0 +1,142 @@
+"""One gloo rank of ``tests/test_torch_dp_step.py``: every case of the W-rank
+training step, then the checkpoint crossings; its results go to
+``<out>/rank<r>.npz``.
+
+    python tests/torch_dp_worker.py RANK WORLD INIT_FILE OUT_DIR
+
+``OUT_DIR/cases.pkl`` (written by the test) holds the cases: the arch, the
+step's options, the global numpy batch, the reference's initial params
+(numpy, stacked) and the LB members' weights. The step is
+``make_train_step`` with params and moments placed by ``param_sharding`` at
+``MIN_FSDP`` (small, so that the smoke configs' leaves are split); each rank
+feeds its rows of the batch. At W = 1 the same case also runs through the
+one-process ``make_train_step`` (no process group).
+"""
+from __future__ import annotations
+
+import pickle
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import repro_torch.core as tcore
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import get_smoke_config
+from repro_torch.distributed.sharding import Mesh, param_sharding, placed_dims
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import model as TM
+from repro_torch.train import optimizer as TO
+from repro_torch.train import train_step as TS
+from repro_torch.tree import flat_paths, leaves
+from torch_helpers import dist_program
+
+#: leaves of at least this many elements are split across the ranks
+MIN_FSDP = 1024
+STEPS = 2
+
+
+def train_config(opts: dict) -> TS.TrainConfig:
+    return TS.TrainConfig(
+        adamw=TO.AdamWConfig(lr=1e-3, eight_bit=opts.get("eight_bit", False)),
+        remat=True, lb_ingest=True, accum_steps=opts.get("accum_steps", 1),
+        grad_compress=opts.get("grad_compress", False), q_chunk=8, k_chunk=8)
+
+
+def case_config(case: dict):
+    return get_smoke_config(case["arch"]).with_(**case["cfg"])
+
+
+def fresh_state(case: dict, tc: TS.TrainConfig) -> dict:
+    cfg = case_config(case)
+    params = TM.params_from_numpy(case["params"], cfg, "cpu")
+    return {"params": params, "opt": TO.init(params, tc.adamw), "efb": None,
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def host(tree) -> dict:
+    """A whole state's params and moments (and the error-feedback residual
+    of ``grad_compress``, once there is one) as flat numpy arrays under the
+    reference's stacked paths, plus the step."""
+    parts = {k: tree[k] for k in ("params", "opt", "efb") if tree.get(k) is not None}
+    out = {k: ckpt._to_host(v) for k, v in flat_paths(parts).items()}
+    out["step"] = np.asarray(int(tree["step"]))
+    return out
+
+
+def placement(case: dict, mesh) -> dict:
+    """``param_sharding``'s specs of the params and moments at ``MIN_FSDP``."""
+    cfg = case_config(case)
+    shapes = TS.state_shapes(cfg, train_config(case["opts"]))
+    return {k: param_sharding(shapes[k], mesh, cfg, min_fsdp_size=MIN_FSDP)
+            for k in ("params", "opt")}
+
+
+def run_case(case: dict, mesh, rank: int, world: int, out: dict, tag: str, specs=None):
+    """Two steps of the case on this rank's rows: the W-rank step with its
+    state placed by ``specs``, or without them the one-process step."""
+    cfg = case_config(case)
+    tc = train_config(case["opts"])
+    gb = len(case["batch"]["labels"])
+    if specs is not None:
+        step = TS.make_train_step(cfg, tc, mesh, gb, specs=specs)
+        state = TS.shard_state(fresh_state(case, tc), specs, mesh)
+        dims = placed_dims(state["params"], specs["params"], mesh)
+        out[f"{tag}/n_split"] = np.asarray(sum(d is not None for d in leaves(dims)))
+    else:
+        step = TS.make_train_step(cfg, tc, Mesh(("data",), (1,)), gb)
+        state = fresh_state(case, tc)
+    tables = dist_program(tcore, case["weights"]).device_tables("cpu")
+    b = gb // world
+    rows = {k: v[rank * b:(rank + 1) * b] for k, v in case["batch"].items()}
+    for s in range(STEPS):
+        state, met = step(state, rows, tables)
+        for k, v in met.items():
+            out[f"{tag}/{s}/{k}"] = v.detach().numpy()
+        # the whole state after each step (``state<s>``)
+        whole = TS.gather_state(state, specs, mesh) if specs is not None else state
+        for k, v in host(whole).items():
+            out[f"{tag}/state{s}/{k}"] = v
+    return state
+
+
+def main(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        out_dir = Path(out_dir)
+        cases = pickle.loads((out_dir / "cases.pkl").read_bytes())
+        mesh = make_debug_mesh(world, 1)
+        out = {}
+        try:  # a mesh of another size than the world is refused
+            make_debug_mesh(world + 1, 1)
+        except ValueError as exc:
+            out["other_world_refused"] = np.asarray(str(exc))
+        for name, case in cases.items():
+            specs = placement(case, mesh)
+            state = run_case(case, mesh, rank, world, out, name, specs)
+            if world == 1:  # the one-process step on the same case
+                run_case(case, mesh, rank, world, out, f"{name}/plain")
+            if name == "yi_6b/default" and world == 2:
+                # a W = 2 save of the stepped state (whole, by rank 0), then a
+                # W = 2 restore of the one-process save the test wrote
+                ckpt.save(str(out_dir / "ckpt_w2"), STEPS, state_ckpt(state), specs=specs,
+                          mesh=mesh)
+                back = TS.shard_state(fresh_state(case, train_config(case["opts"])), specs, mesh)
+                ckpt.restore_into(str(out_dir / "ckpt_w1"), state_ckpt(back), specs=specs,
+                                  mesh=mesh)
+                for k, v in host(TS.gather_state(back, specs, mesh)).items():
+                    out[f"restored_w1/{k}"] = v
+        np.savez(out_dir / f"rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def state_ckpt(state: dict) -> dict:
+    return {"params": state["params"], "opt": state["opt"], "step": state["step"]}
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

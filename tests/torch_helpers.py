@@ -211,7 +211,6 @@ def dist_case(world: int) -> dict:
         headers=encode_headers(events, rng.integers(0, 1 << 16, b).astype(np.uint32)),
         payload=(np.arange(8 * world * 2, dtype=np.float32).reshape(-1, 2) * 10.0),
         member=member,
-        grads=rng.normal(size=(world, 1000)).astype(np.float32),
     )
 
 
@@ -224,14 +223,13 @@ def dist_program(pkg, weights):
 
 
 def dist_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
-    """One gloo rank: ``_ingest`` of its arrival shard, ``make_redistribute``
-    of its payload rows, ``psum_compressed`` of its gradient; the results go
-    to ``out_dir/rank<r>.npz``."""
+    """One gloo rank: ``_ingest`` of its arrival shard and
+    ``make_redistribute`` of its payload rows; the results go to
+    ``out_dir/rank<r>.npz``."""
     import torch.distributed as dist
 
     import repro_torch.core as tcore
     from repro_torch.core.router import make_redistribute
-    from repro_torch.distributed.compression import psum_compressed
     from repro_torch.distributed.sharding import Mesh
     from repro_torch.train.train_step import _ingest
 
@@ -248,9 +246,8 @@ def dist_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
         mine = slice(rank * per, (rank + 1) * per)
         recv, rocc = make_redistribute(mesh, ("data",), 3)(
             torch.from_numpy(c["payload"][mine]), torch.from_numpy(c["member"][mine]))
-        summed, residual = psum_compressed(torch.from_numpy(c["grads"][rank]))
         np.savez(f"{out_dir}/rank{rank}.npz", tokens=out["tokens"].numpy(),
                  labels=out["labels"].numpy(), occ=occ.numpy(), recv=recv.numpy(),
-                 rocc=rocc.numpy(), summed=summed.numpy(), residual=residual.numpy())
+                 rocc=rocc.numpy())
     finally:
         dist.destroy_process_group()
