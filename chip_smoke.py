@@ -176,7 +176,15 @@ result:
                 (repro_torch.analysis.perfmodel, chips = dp = tp = 1) on the
                 H100's roofline (analysis.roofline.H100): model FLOPs,
                 analytic FLOPs and bytes, the compute and memory terms, the
-                measured ms, mfu and roofline_fraction, each in (0, 1.05]
+                measured ms, mfu and roofline_fraction, each in (0, 1.05];
+                then one sharded line: the dry run's Yi-6B train_4k cell on
+                the reference's one-pod mesh (make_production_mesh(), 16 x
+                16, tensor-parallel on "model"), lowered on torch's fake
+                process group in a subprocess on the CPU (started at the
+                smoke's start, run beside the card's phases): its compute,
+                memory and collective terms (the link term: recorded wire
+                bytes / 450e9 B/s), which must hold recorded wire bytes
+                above 0 with all-gathers, all-reduces and all-to-alls
  13. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
@@ -3129,6 +3137,59 @@ def roofline_phase(card, paths):
                   f"(0, {ROOFLINE_MAX_SHARE}]: the count or the clock is wrong")
 
 
+#: the dry run's sharded cell: (arch, shape, mesh)
+SHARDED_CELL = ("yi_6b", "train_4k", "single")
+
+
+def start_sharded_dry_run():
+    """Start the sharded cell's dry run (``repro_torch.launch.dryrun`` on
+    torch's fake process group: meta tensors, the CPU only); returns the
+    process, its output directory and its start."""
+    import shutil
+
+    out = ROOT / "build" / "dryrun_sharded"
+    shutil.rmtree(out, ignore_errors=True)
+    arch, shape, mesh = SHARDED_CELL
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", mesh, "--out", str(out)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def roofline_sharded(run):
+    """The sharded cell's artifact on the H100's roofline (``analyze``):
+    the compute and memory terms from the analytic model at 256 chips, dp
+    16, tp 16, and the collective term from the recorded wire bytes a
+    device over the link's 450e9 B/s."""
+    from repro_torch.analysis import roofline
+
+    proc, out, t0 = run
+    log, _ = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"[roofline] the sharded dry run failed:\n{log[-3000:]}")
+    arch, shape, mesh = SHARDED_CELL
+    art = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+    col = art["collectives"]
+    kinds = {"all-gather", "all-reduce", "all-to-all"}
+    check(col["total_wire_bytes"] > 0 and kinds <= set(col["ops"]),
+          f"[roofline] the sharded cell's record lacks wire bytes or one of {sorted(kinds)}: "
+          f"{col['ops']}")
+    r = roofline.analyze(art, roofline.H100)
+    say("[roofline] " + json.dumps(dict(
+        model=art["arch"], shape=shape, mesh=f"{mesh}: make_production_mesh() on torch's fake "
+        "process group (rank 0 of 256), tensor-parallel on 'model'",
+        chips=art["chips"], dp=art["dp"], tp=art["tp"],
+        compute_ms=r.compute_s * 1e3, memory_ms=r.memory_s * 1e3,
+        collective_ms=r.collective_s * 1e3,
+        link_term="recorded wire bytes a device / 450e9 B/s (roofline.H100.link_bw)",
+        wire_bytes=col["total_wire_bytes"], ops=col["ops"], wire_bytes_by_kind=col["wire_bytes"],
+        bottleneck=r.bottleneck, counted_flops_rank0=art["cost"]["flops"],
+        argument_bytes_rank0=art["memory"]["argument_size_in_bytes"],
+        dry_run_cpu_s=art["lower_compile_s"], wall_s=time.perf_counter() - t0),
+        sort_keys=True))
+
+
 def main() -> int:
     try:
         import torch
@@ -3148,6 +3209,7 @@ def main() -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
 
+    sharded = start_sharded_dry_run()
     try:
         card = card_line()
         say(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3186,9 +3248,14 @@ def main() -> int:
         family_launches, family_flash, family_paths = families_phase(torch, np)
         results["flash_attention"].update(family_flash)
         roofline_phase(card, paths + train_paths + moe_paths + family_paths)
+        roofline_sharded(sharded)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
+    finally:
+        if sharded[0].poll() is None:
+            sharded[0].kill()
+            sharded[0].wait()
 
     # launches: the sum over the main-path runs (each checked on its own)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

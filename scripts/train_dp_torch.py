@@ -2,21 +2,26 @@
 """The port's training step over the ranks of one host's CUDA cards (NCCL),
 one process per card, started by ``torch.distributed.run``:
 
-    python -m torch.distributed.run --nproc-per-node 4 scripts/train_dp_torch.py
+    python -m torch.distributed.run --nproc-per-node 4 scripts/train_dp_torch.py [--model N]
+
+The mesh is ``make_debug_mesh(world / N, N)``: ``--model`` ranks of tensor
+parallelism on "model" (default 1), the rest data-parallel.
 
 1. Agreement: Yi-6B's and Mixtral's smoke configs (float32, TF32 off, LB
    ingest off), params and moments split across the ranks
-   (``param_sharding`` at ``min_fsdp_size`` 1024), 3 steps of the W-rank
-   ``make_train_step`` on each rank's rows of the batch against the
+   (``train_step.placement`` at ``min_fsdp_size`` 1024), 3 steps of the
+   step over the mesh on each data rank's rows of the batch against the
    one-process ``make_train_step`` on the whole batch (every rank runs it
    too, on its own card, from the same init): loss, grad norm
    and every param within rtol/atol 2e-4 (float32 reassociation: the ranks'
    gradients add in another order).
 2. Timing: Yi-6B at full width, ``--layers`` of its 32 layers (bf16, remat,
    LB ingest), placed at the default FSDP threshold; the trainer's global
-   batch is ``--rows`` per rank x 2048 tokens; 2 warm-up steps, then
+   batch is ``--rows`` per data rank x 2048 tokens; 2 warm-up steps, then
    ``--steps`` timed. Rank 0 prints the median step ms, trained tokens/s,
-   its peak memory and the collectives a step.
+   its peak memory and the collectives a step (``distributed.dp.COUNTS``),
+   and those of one more step (not timed) by kind with their bytes
+   (``analysis.collectives.CollectiveRecord``).
 
 Rank 0 prints the card line and one JSON object; any rank's failed check
 exits non-zero.
@@ -37,12 +42,12 @@ SEQ = 2048
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-def agreement(torch, np, arch, over, mesh, rank, world, device="cuda"):
+def agreement(torch, np, arch, over, mesh, device="cuda"):
     """The largest share of TOL that the W-rank step's loss, grad norm and
     params take from the one-process step's on the whole batch (a check
     fails above 1)."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.distributed.sharding import data_extent, rank_of
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as TS
     from repro_torch.tree import leaves
@@ -50,14 +55,14 @@ def agreement(torch, np, arch, over, mesh, rank, world, device="cuda"):
     cfg = get_smoke_config(arch).with_(**over)
     tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-3), remat=True, lb_ingest=False,
                         q_chunk=8, k_chunk=8)
+    w, rank = data_extent(mesh), rank_of(mesh)
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab, (4 * world, 16)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab, (4 * w, 16)).astype(np.int32)
     batch = {"tokens": toks, "labels": toks.copy()}
     fresh = lambda: TS.init_train_state(torch.Generator(device=device).manual_seed(0), cfg, tc,
                                         device)
     plain, plain_step = fresh(), TS.make_train_step(cfg, tc)
-    shapes = TS.state_shapes(cfg, tc)
-    specs = {k: param_sharding(shapes[k], mesh, cfg, min_fsdp_size=1024) for k in ("params", "opt")}
+    specs = TS.placement(cfg, tc, mesh, TS.state_shapes(cfg, tc)["params"], min_fsdp_size=1024)
     step = TS.make_train_step(cfg, tc, mesh, len(toks), specs=specs)
     mine = TS.shard_state(fresh(), specs, mesh)
     rows = slice(rank * 4, (rank + 1) * 4)
@@ -77,10 +82,11 @@ def agreement(torch, np, arch, over, mesh, rank, world, device="cuda"):
     return worst
 
 
-def timing(torch, mesh, world, layers, rows, steps):
+def timing(torch, mesh, layers, rows, steps):
+    from repro_torch.analysis.collectives import CollectiveRecord
     from repro_torch.configs import get_config
     from repro_torch.distributed import dp as DP
-    from repro_torch.distributed.sharding import placed_dims
+    from repro_torch.distributed.sharding import data_extent, model_extent, placed_dims
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as TS
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -89,7 +95,9 @@ def timing(torch, mesh, world, layers, rows, steps):
     cfg = get_config("yi-6b").with_(n_layers=layers)
     tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-4, warmup_steps=2, decay_steps=100),
                         remat=True, lb_ingest=True)
-    tr = Trainer(cfg, tc, TrainerConfig(ckpt_dir=str(ROOT / "build" / "train_dp_torch"),
+    w = data_extent(mesh)  # the LB members: the data ranks
+    tr = Trainer(cfg, tc, TrainerConfig(n_members=w,
+                                        ckpt_dir=str(ROOT / "build" / "train_dp_torch"),
                                         device=f"cuda:{torch.cuda.current_device()}",
                                         ckpt_every=1 << 30), mesh=mesh)
     tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
@@ -108,18 +116,22 @@ def timing(torch, mesh, world, layers, rows, steps):
         return out
 
     tr.step_fn = counted
-    hist = tr.run(2 + steps, batch=rows * world, seq=SEQ)
+    hist = tr.run(2 + steps, batch=rows * w, seq=SEQ)
     med = statistics.median(times[2:])
     occ = hist[-1]["ingest_occupancy"]
-    split = sum(d is not None for d in leaves(placed_dims(tr.state["params"],
-                                                         tr.specs["params"], mesh)))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tr.step_fn = inner
+    with CollectiveRecord() as rec:  # one more step, not timed
+        tr.run(1, batch=rows * w, seq=SEQ)
+    split = {axis: sum(d is not None for d in leaves(placed_dims(
+        tr.state["params"], tr.specs["params"], mesh, axis))) for axis in ("data", "model")}
     return dict(model=f"yi-6b width, {layers} of 32 layers, bf16, remat, lb_ingest",
-                world=world, rows_per_rank=rows, seq=SEQ, step_ms_median=med * 1e3,
-                step_ms=[t * 1e3 for t in times[2:]],
-                trained_tokens_per_s=occ * rows * world * (SEQ - 1) / med,
-                occupancy=occ, peak_mem_gb_rank0=torch.cuda.max_memory_allocated() / 1e9,
-                collectives_per_step=counts[-1], param_leaves_split=split,
-                loss=[h["loss"] for h in hist])
+                mesh=dict(data=w, model=model_extent(mesh)), rows_per_data_rank=rows, seq=SEQ,
+                step_ms_median=med * 1e3, step_ms=[t * 1e3 for t in times[2:]],
+                trained_tokens_per_s=occ * rows * w * (SEQ - 1) / med,
+                occupancy=occ, peak_mem_gb_rank0=peak,
+                collectives_per_step=counts[-1], collectives_recorded=rec.stats().to_json(),
+                param_leaves_split=split, loss=[h["loss"] for h in hist])
 
 
 def main() -> int:
@@ -127,6 +139,8 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--rows", type=int, default=4, help="rows of 2048 tokens per rank")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks of tensor parallelism on 'model' (the data extent is world / N)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -142,11 +156,11 @@ def main() -> int:
 
     rank, world = dist.get_rank(), dist.get_world_size()
     try:
-        mesh = make_debug_mesh(world, 1)
+        mesh = make_debug_mesh(world // args.model, args.model)
         out = {"agreement_share_of_tol": {
-            arch: agreement(torch, np, arch, over, mesh, rank, world)
+            arch: agreement(torch, np, arch, over, mesh)
             for arch, over in (("yi_6b", {}), ("mixtral_8x22b", {"capacity_factor": 0.5}))}}
-        out["timing"] = timing(torch, mesh, world, args.layers, args.rows, args.steps)
+        out["timing"] = timing(torch, mesh, args.layers, args.rows, args.steps)
     finally:
         dist.destroy_process_group()
     if rank == 0:

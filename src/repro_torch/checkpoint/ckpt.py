@@ -60,7 +60,7 @@ def host_arrays(tree, specs=None, mesh=None):
     if specs is not None:
         tree = {k: shd.gather_tree(v, specs[k], mesh) if k in specs else v
                 for k, v in tree.items()}
-        if shd.rank_of(mesh) != 0:
+        if not shd.is_first(mesh):
             return None
     return {k: _to_host(v) for k, v in flat_paths(tree).items()}
 
@@ -217,18 +217,20 @@ def restore_into(directory: str, tree, *, step: int | None = None, specs=None,
     if specs is not None:
         for k, v in specs.items():
             placed.update({f"{k}/{p}": s for p, s in flat_paths(v).items()})
-    w = 1 if mesh is None else shd.data_extent(mesh)
+    axes = [] if mesh is None else [
+        (shd.data_dim, shd.data_extent(mesh), shd.rank_of(mesh)),
+        (shd.model_dim, shd.model_extent(mesh), shd.model_rank(mesh))]
     with _npz_arrays(os.path.join(directory, f"step_{step:08d}", "arrays.npz")) as arrays:
         missing = set(like) - set(arrays)
         if missing:
             raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]} ...")
         for k, leaf in like.items():
             arr = arrays[k]
-            d = shd.data_dim(placed[k], mesh, k) if k in placed and w > 1 else None
-            if d is not None:
-                n = arr.shape[d] // w
-                arr = np.take(arr, range(shd.rank_of(mesh) * n, (shd.rank_of(mesh) + 1) * n),
-                              axis=d)
+            for dim_of, n_ranks, r in axes:
+                d = dim_of(placed[k], mesh, k) if k in placed and n_ranks > 1 else None
+                if d is not None:
+                    n = arr.shape[d] // n_ranks
+                    arr = np.take(arr, range(r * n, (r + 1) * n), axis=d)
             _copy_into(leaf, arr, k)
     return step
 

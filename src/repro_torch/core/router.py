@@ -20,6 +20,7 @@ import torch.distributed as dist
 
 from repro_torch.core.protocol import SLOT_MASK, validate
 from repro_torch.core.tables import DeviceTables
+from repro_torch.distributed import dp
 
 
 @dataclasses.dataclass
@@ -211,11 +212,6 @@ def make_redistribute(mesh, axis_names, capacity_per_src: int):
     axis = tuple(axis_names) if isinstance(axis_names, (tuple, list)) else (axis_names,)
     n_members = math.prod(mesh.shape[a] for a in axis)
 
-    def exchange(x):
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=mesh.group)
-        return out
-
     def redistribute(payload, member):
         buf, occ, _ = dispatch(payload, member, n_members, capacity_per_src)
         flat = buf.reshape((-1,) + tuple(payload.shape[1:]))
@@ -224,7 +220,7 @@ def make_redistribute(mesh, axis_names, capacity_per_src: int):
             if dist.get_world_size(mesh.group) != n_members:
                 raise ValueError(f"the process group has {dist.get_world_size(mesh.group)} ranks; "
                                  f"the mesh's {axis} axes have {n_members}")
-            flat, occ = exchange(flat), exchange(occ)
+            flat, occ = dp.all_to_all(flat, mesh.group), dp.all_to_all(occ, mesh.group)
         return flat, occ
 
     return redistribute

@@ -5,8 +5,10 @@ it); the port runs one process per rank, each with its rows of the batch.
 What the reference computes over the whole batch, the port sums across
 ranks here:
 
-  * the counted collectives (``all_reduce``, ``all_gather``), which every
-    collective of the step goes through (``COUNTS`` tallies them);
+  * the counted collectives (``all_reduce``, ``all_gather``,
+    ``reduce_scatter``, ``all_to_all``), which every collective of the step
+    goes through (``COUNTS`` tallies them). A collective over a group of
+    one rank moves nothing: it is not issued and not counted;
   * ``Slots``: the ranks whose rows make up this rank's microbatch. A
     microbatch of the reference (the batch, or one of ``accum_steps``
     slices of it) may span several ranks; the loss's label count and the
@@ -38,7 +40,12 @@ def reset_counts() -> None:
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``x`` reduced over ``group``, in place; returns ``x``."""
+    """``x`` reduced over ``group``, in place; returns ``x`` (contiguous: a
+    view's reduction would not reach it)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    if not x.is_contiguous():
+        raise ValueError("all_reduce in place needs a contiguous tensor")
     COUNTS["all_reduce"] += 1
     dist.all_reduce(x, op=op, group=group)
     return x
@@ -46,11 +53,39 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, group) -> list:
     """Every rank's ``x`` (equal shapes), in rank order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return [x]
     COUNTS["all_gather"] += 1
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return parts
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, cut into equal slices along
+    ``dim``: this rank's slice."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    COUNTS["reduce_scatter"] += 1
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    # ``reduce_scatter_single`` where torch has it (``_tensor`` is its old name)
+    getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s equal slices along dim 0, the i-th sent to rank i; returns
+    what every rank sent this one, in rank order (``all_to_all_single``)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    COUNTS["all_to_all"] += 1
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,13 +12,19 @@ Policy:
   * Activations: batch on ("pod", "data").
 
 ``Mesh`` stands where ``jax.sharding.Mesh`` stands: axis names and sizes,
-and the process group of the data-parallel ranks. The rules resolve to
-placement specs (a tuple per leaf: a mesh axis, a tuple of axes or None per
-dim), equal to the reference's ``PartitionSpec``s. ``shard_tree`` carries a
-placement out on the data axes (FSDP: each rank keeps its slice of a leaf
-along the dim its spec names), and ``gather_tree`` undoes it; the training
-step (``train/train_step.py``) holds params and moments so. The "model"
-axis (tensor parallelism) is resolved to specs only.
+the process group of the data-parallel ranks and that of the "model" axis.
+The rules resolve to placement specs (a tuple per leaf: a mesh axis, a
+tuple of axes or None per dim), equal to the reference's
+``PartitionSpec``s. ``shard_tree`` carries a placement out on both axes (a
+rank keeps its (data, model) block of each leaf: FSDP along the dim the spec
+puts on the data axes, tensor parallelism along the dim it puts on "model"),
+and ``gather_tree`` undoes it on the axes asked for; the training step
+(``train/train_step.py``) holds params and moments so, gathers the data
+axes for its forward and backward and keeps the model slices
+(``distributed/tp.py``). ``moment_sharding`` places an optimizer moment as
+its param (the reference's rules do not match the moments' paths, so
+GSPMD holds them whole over "model"; the port splits them with their
+params and updates each block where it lies).
 
 A list in a params tree (the port's per-layer list) is described as the
 reference stores it (``repro_torch.tree``): one leaf per path whose leading
@@ -42,12 +48,13 @@ from repro_torch.tree import flat_paths, stacked_shape, tree_map, unflatten_path
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Named mesh axes and their sizes; ``group`` is the process group of
-    the ranks along the data axes (None: the default group, or a single
-    process when the data axes have size 1)."""
+    the ranks along the data axes and ``model_group`` that of the ranks
+    along "model" (None: not bound to a process group)."""
 
     axis_names: tuple
     axis_sizes: tuple
     group: Optional[object] = None
+    model_group: Optional[object] = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -70,6 +77,11 @@ def model_axis(mesh: Mesh) -> Optional[str]:
 def data_extent(mesh: Mesh) -> int:
     """Ranks along the data axes: the data-parallel members."""
     return math.prod(mesh.shape[a] for a in data_axes(mesh))
+
+
+def model_extent(mesh: Mesh) -> int:
+    """Ranks along "model": the tensor-parallel degree."""
+    return mesh.shape.get("model", 1)
 
 
 def logical_rules(mesh: Mesh, *, seq_axis: Optional[str] = None) -> ShardingRules:
@@ -181,28 +193,57 @@ def replicated(mesh: Mesh) -> tuple:
     return ()
 
 
-# -- carrying a placement out on the data axes --------------------------------
+def moment_sharding(param_specs, eight_bit: bool) -> dict:
+    """Placement specs of the optimizer state (``optimizer.init``'s tree)
+    that put each moment where its param lies: ``m`` and ``v`` (or their
+    int8 values ``q``) take the param's spec, an 8-bit row scale ``s`` (last
+    dim 1) the same without its last dim. The moments' count is whole."""
+    out = {}
+    for path, spec in flat_paths(param_specs).items():
+        for mom in ("m", "v"):
+            if eight_bit:
+                out[f"mu/{path}/{mom}/q"] = spec
+                out[f"mu/{path}/{mom}/s"] = spec[:-1] + (None,) if spec else spec
+            else:
+                out[f"mu/{path}/{mom}"] = spec
+    out["count"] = ()
+    return unflatten_paths(out)
 
-def data_dim(spec, mesh: Mesh, path: str) -> Optional[int]:
-    """The dim of ``spec`` on the data axes (None: replicated over them).
-    A dim that also names another axis is refused."""
-    d_ax = set(data_axes(mesh))
+
+# -- carrying a placement out on the mesh ---------------------------------------
+
+def _dim_on(spec, axes: set, path: str) -> Optional[int]:
+    """The dim of ``spec`` that names any of ``axes`` (None: none does); a
+    dim that also names another axis is refused."""
     for i, s in enumerate(spec):
-        axes = set(s) if isinstance(s, tuple) else {s}
-        if s is not None and axes & d_ax:
-            if axes - d_ax:
-                raise NotImplementedError(f"{path}: spec {spec} puts the data axes and "
-                                          f"{sorted(axes - d_ax)} on one dim")
+        named = set(s) if isinstance(s, tuple) else {s}
+        if s is not None and named & axes:
+            if named - axes:
+                raise NotImplementedError(f"{path}: spec {spec} puts {sorted(named & axes)} "
+                                          f"and {sorted(named - axes)} on one dim")
             return i
     return None
 
 
-def placed_dims(tree, specs, mesh: Mesh):
+def data_dim(spec, mesh: Mesh, path: str) -> Optional[int]:
+    """The dim of ``spec`` on the data axes (None: replicated over them).
+    A dim that also names "model" (``wide_tp``) is refused."""
+    return _dim_on(spec, set(data_axes(mesh)), path)
+
+
+def model_dim(spec, mesh: Mesh, path: str) -> Optional[int]:
+    """The dim of ``spec`` on "model" (None: replicated over it)."""
+    return _dim_on(spec, {"model"}, path)
+
+
+def placed_dims(tree, specs, mesh: Mesh, axis: str = "data"):
     """Per leaf of ``tree`` (the port's layout), the tensor dim that its spec
-    (``specs``: the reference's stacked layout) places on the data axes, or
-    None. A spec on a list dim (whole layers per rank) is refused: the
-    port's per-layer list holds the same keys on every layer."""
+    (``specs``: the reference's stacked layout) places on the data axes
+    (``axis="data"``) or on "model" (``axis="model"``), or None. A spec on a
+    list dim (whole layers per rank) is refused: the port's per-layer list
+    holds the same keys on every layer."""
     flat = flat_paths(specs)
+    dim_of = data_dim if axis == "data" else model_dim
 
     def walk(x, path, depth):
         if isinstance(x, dict):
@@ -212,11 +253,11 @@ def placed_dims(tree, specs, mesh: Mesh):
         if x is None:
             return None
         key = "/".join(path)
-        d = data_dim(flat[key], mesh, key)
+        d = dim_of(flat[key], mesh, key)
         if d is not None and d < depth:
             raise NotImplementedError(
                 f"{key}: spec {flat[key]} places list dim {d} (whole layers per rank) on the "
-                "data axes; the port shards tensor dims only")
+                f"{axis} axes; the port shards tensor dims only")
         return None if d is None else d - depth
 
     return walk(tree, (), 0)
@@ -227,33 +268,58 @@ def rank_of(mesh: Mesh) -> int:
     return dist.get_rank(mesh.group) if data_extent(mesh) > 1 else 0
 
 
+def model_rank(mesh: Mesh) -> int:
+    """This process's rank along "model" (0 with one rank)."""
+    return dist.get_rank(mesh.model_group) if model_extent(mesh) > 1 else 0
+
+
+def is_first(mesh: Optional[Mesh]) -> bool:
+    """Whether this process is the mesh's first rank (rank 0 on both axes)."""
+    return mesh is None or (rank_of(mesh) == 0 and model_rank(mesh) == 0)
+
+
+def _axes(mesh: Mesh, axes) -> list:
+    """(axis, ranks, this rank, group) of each of ``axes`` with several
+    ranks."""
+    out = []
+    if "data" in axes and data_extent(mesh) > 1:
+        out.append(("data", data_extent(mesh), rank_of(mesh), mesh.group))
+    if "model" in axes and model_extent(mesh) > 1:
+        out.append(("model", model_extent(mesh), model_rank(mesh), mesh.model_group))
+    return out
+
+
 def shard_tree(tree, specs, mesh: Mesh):
-    """This rank's part of every leaf: its slice (an owned copy) along the
-    dim that the leaf's spec places on the data axes; a replicated leaf, or
-    any leaf with one rank, is the leaf itself."""
-    w = data_extent(mesh)
-    dims = placed_dims(tree, specs, mesh)
-    if w == 1:
-        return tree
-    r = rank_of(mesh)
+    """This rank's block of every leaf: its slice (an owned copy) along the
+    dim that the leaf's spec places on the data axes and along the one it
+    places on "model"; a replicated leaf, or any leaf with one rank, is the
+    leaf itself."""
+    placed_dims(tree, specs, mesh)  # a spec on a list dim is refused with one rank too
+    out = tree
+    for axis, n_ranks, r, _group in _axes(mesh, ("data", "model")):
+        dims = placed_dims(out, specs, mesh, axis)
 
-    def take(x, d):
-        if d is None:
-            return x
-        n = x.shape[d] // w
-        return x.narrow(d, r * n, n).clone()
+        def take(x, d, n_ranks=n_ranks, r=r):
+            if d is None:
+                return x
+            n = x.shape[d] // n_ranks
+            return x.narrow(d, r * n, n).clone()
 
-    return tree_map(lambda x, d, stacked: take(x, d), tree, dims)
+        out = tree_map(lambda x, d, stacked: take(x, d), out, dims)
+    return out
 
 
-def gather_tree(tree, specs, mesh: Mesh):
-    """The inverse of ``shard_tree``: every leaf whole on every rank (an
-    ``all_gather`` over the mesh's group per placed leaf)."""
-    dims = placed_dims(tree, specs, mesh)
-    if data_extent(mesh) == 1:
-        return tree
+def gather_tree(tree, specs, mesh: Mesh, axes=("data", "model")):
+    """The inverse of ``shard_tree`` on ``axes``: every leaf whole along
+    them on every rank (an ``all_gather`` over the axis's group per placed
+    leaf)."""
+    placed_dims(tree, specs, mesh)
+    out = tree
+    for axis, _n, _r, group in _axes(mesh, axes):
+        dims = placed_dims(out, specs, mesh, axis)
 
-    def gather(x, d):
-        return x if d is None else torch.cat(dp.all_gather(x, mesh.group), dim=d)
+        def gather(x, d, group=group):
+            return x if d is None else torch.cat(dp.all_gather(x, group), dim=d)
 
-    return tree_map(lambda x, d, stacked: gather(x, d), tree, dims)
+        out = tree_map(lambda x, d, stacked: gather(x, d), out, dims)
+    return out

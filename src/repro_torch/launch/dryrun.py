@@ -1,6 +1,7 @@
-"""Dry run of every (arch x shape) cell on the meta device, on the one-card
-mesh: the counterpart of the JAX package's ``repro/launch/dryrun.py`` for one
-H100 (``mesh="h100"``, chips = dp = tp = 1).
+"""Dry run of every (arch x shape) cell on the meta device: the counterpart
+of the JAX package's ``repro/launch/dryrun.py``, on one H100 (``mesh="h100"``,
+chips = dp = tp = 1) and, for the training cells, on the reference's 256-
+and 512-chip meshes (``"single"``, ``"multi"``).
 
 For each cell, at the published config, the params and the optimizer state
 (train) or the decode state (prefill, decode) are built on
@@ -9,33 +10,51 @@ lowers then runs under ``torch.utils.flop_counter.FlopCounterMode``:
 
 - train: the LB ingest, ``train_loss`` forward and backward with remat, and
   the AdamW update (8-bit moments for ``EIGHT_BIT``), through
-  ``train_step.make_train_step``;
+  ``train_step.make_train_step`` (one card) or ``jit_train_step`` (a
+  sharded mesh);
 - prefill: ``model.prefill`` (``model.forward`` for the encoder);
 - decode: ``model.decode_step``.
 
+A sharded mesh runs in one process as rank 0 of torch's fake process group
+(``fake_world``: 256 or 512 ranks on a ``FakeStore``, whose collectives
+move nothing): ``launch.mesh``'s factories bind the mesh
+(``make_production_mesh``, ``make_dp_mesh`` for ``dponly``,
+``make_hybrid_mesh`` for ``tpN``), the state is placed by
+``jit_train_step``'s specs and rank 0 keeps its blocks, and its step runs
+tensor-parallel on "model" (``distributed/tp.py``) on its rows of the batch
+inside ``analysis.collectives.CollectiveRecord``, which records each
+collective with its bytes and its group's size.
+
 The kernel wrappers take their plain versions on meta tensors, so nothing
 computes; an operation whose result lies off the meta device fails the cell.
-The JSON artifact has the reference's keys: ``cost.flops`` (the counted
-FLOPs: matmul-like ops only, every product the plain path computes),
-``memory.argument_size_in_bytes`` (params, optimizer state, batch, tables
-and decode state; temporaries are not counted), ``collectives`` (none on one
-card), ``analytic`` (``analysis/perfmodel.py``), ``model_flops`` and
-``lower_compile_s`` (the cell's seconds). ``analysis/roofline.py`` of either
-package reads it.
+The JSON artifact has the reference's keys: ``chips``, ``dp``, ``tp``,
+``cost.flops`` (the counted FLOPs of rank 0: matmul-like ops only, every
+product the plain path computes), ``memory.argument_size_in_bytes``
+(rank 0's params, optimizer state, batch, tables and decode state;
+temporaries are not counted), ``collectives`` (the record's
+``CollectiveStats``; none on one card), ``analytic``
+(``analysis/perfmodel.py`` at the mesh's chips, dp and tp),
+``collectives_by_shape`` (the record's largest calls by tensor),
+``model_flops`` and ``lower_compile_s`` (the cell's seconds).
+``analysis/roofline.py`` of either package reads it.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi_6b --shape prefill_32k --out DIR
+    python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --all --out DIR
+    python -m repro_torch.launch.dryrun --all --mesh both    # the train_4k cells
 
 Variants: ``baseline`` and ``rwkvchunk`` (the same cells here: RWKV6
-prefills with the chunked WKV in both, see ``RWKV_CHUNK``). The
-reference's mesh variants and its 256/512-chip meshes (``launch.mesh``)
-are not lowered yet: the CLI refuses them (the dry run on a fake process
-group is ROADMAP.md queue 1, item 1(b)).
+prefills with the chunked WKV in both, see ``RWKV_CHUNK``); on the sharded
+meshes ``dponly`` and ``tpN``. Not lowered yet, and refused by name
+(ROADMAP.md queue 1, item 1(c), serving under the placement): prefill and
+decode cells on a sharded mesh, and the variants ``seqpar``, ``widetp`` and
+``moegroup``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -48,16 +67,22 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.analysis import perfmodel
+from repro_torch.analysis.collectives import CollectiveRecord
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.epoch import EpochManager
 from repro_torch.core.tables import MemberSpec
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import Mesh
+from repro_torch.launch import mesh as LM
 from repro_torch.launch import shapes as SH
 from repro_torch.models import model as M
 from repro_torch.train import optimizer as OPT
 from repro_torch.train import train_step as TS
+from repro_torch.tree import leaves
 
 MESH = "h100"
+#: the reference's meshes: one pod of 256 chips, two of 512
+SHARDED = {"single": 256, "multi": 512}
 META = SH.META
 # Per-arch training knobs (memory-critical archs get 8-bit Adam).
 EIGHT_BIT = {"arctic_480b", "llama_3_2_vision_90b", "mixtral_8x22b"}
@@ -70,8 +95,12 @@ CHUNKS = {"train_4k": (1024, 1024), "prefill_32k": (2048, 2048),
 # and ``rwkvchunk`` (the reference's name for it) is the baseline itself
 RWKV_CHUNK = 64
 VARIANTS = ("baseline", "rwkvchunk")
-#: the reference's mesh variants, which the dry run does not lower yet
-SHARDED_ONLY = ("dponly", "tpN", "seqpar", "widetp", "moegroup")
+#: the reference's mesh variants that the sharded meshes lower ("tpN": any N)
+MESH_VARIANTS = ("dponly", "tpN")
+#: the reference's variants that the dry run does not lower yet
+NOT_LOWERED = ("seqpar", "widetp", "moegroup")
+ITEM_1C = ("not lowered yet: serving under the placement is ROADMAP.md queue 1, item 1(c); "
+           "the sharded meshes lower the train_4k cells")
 
 
 def _arch_id(arch: str) -> str:
@@ -98,12 +127,14 @@ def model_flops(cfg, shape) -> float:
 
 
 class MetaOnly(TorchDispatchMode):
-    """Fails on any operation whose result lies off the meta device."""
+    """Fails on any operation whose result lies off the meta device and
+    holds data (an empty tensor holds none: ``torch.utils.checkpoint``
+    makes one on the CPU for its hooks in some torch versions)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         for t in tree_leaves(out):
-            if isinstance(t, torch.Tensor) and t.device.type != "meta":
+            if isinstance(t, torch.Tensor) and t.device.type != "meta" and t.numel():
                 raise RuntimeError(f"{func} gave a tensor on {t.device} in a meta dry run")
         return out
 
@@ -136,29 +167,91 @@ def _counted(fn) -> tuple[float, dict]:
     return float(fc.get_total_flops()), by_op
 
 
-def lower_cell(arch: str, shape_name: str, variant: str = "baseline") -> dict:
-    """The cell's artifact (or ``{"skipped": reason}``), on one card."""
-    refuse_sharded(variant)
-    cfg = get_config(arch)
+@contextlib.contextmanager
+def fake_world(n_ranks: int):
+    """This process as rank 0 of torch's fake process group of
+    ``n_ranks`` (a ``FakeStore``: no other process, no network; its
+    collectives move nothing), for the block."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n_ranks)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _tokens(variant: str) -> set:
+    return set(variant.split("+")) if variant else {"baseline"}
+
+
+def _tp_of(toks: set):
+    tok = next((t for t in toks if t.startswith("tp") and t[2:].isdigit()), None)
+    return None if tok is None else int(tok[2:])
+
+
+def sharded_mesh(mesh_kind: str, variant: str) -> Mesh:
+    """The reference's mesh of ``mesh_kind`` ("single", "multi") for the
+    variant, bound to the process group (``fake_world``)."""
+    toks = _tokens(variant)
+    multi = mesh_kind == "multi"
+    if "dponly" in toks:
+        return LM.make_dp_mesh(multi_pod=multi)
+    if _tp_of(toks):
+        return LM.make_hybrid_mesh(_tp_of(toks), multi_pod=multi)
+    return LM.make_production_mesh(multi_pod=multi)
+
+
+def lower_cell(arch: str, shape_name: str, variant: str = "baseline", *, mesh: str = MESH,
+               cfg=None) -> dict:
+    """The cell's artifact (or ``{"skipped": reason}``) on the one card
+    (``mesh="h100"``) or, for a training cell, on the reference's mesh
+    ``"single"`` or ``"multi"`` (inside ``fake_world`` of its size).
+    ``cfg`` stands in for the arch's published config (a smoke config)."""
+    refuse(variant, mesh, shape_name)
+    cfg = get_config(arch) if cfg is None else cfg
     reason = SH.skip_reason(cfg, shape_name)
     if reason:
-        return {"arch": arch, "shape": shape_name, "mesh": MESH, "skipped": reason}
+        return {"arch": arch, "shape": shape_name, "mesh": mesh, "skipped": reason}
     spec = SH.SHAPES[shape_name]
     qc, kc = CHUNKS[shape_name]
     eight_bit = _arch_id(arch) in EIGHT_BIT
     rwkv_chunk = RWKV_CHUNK if cfg.family == "ssm" else 1
     batch = SH.batch_specs(cfg, shape_name)
     extra = {"rwkv_chunk": rwkv_chunk} if cfg.family == "ssm" else {}
+    chips = dp = tp = 1
+    rec = CollectiveRecord()
     if spec.kind == "train":
         tcfg = TS.TrainConfig(adamw=OPT.AdamWConfig(eight_bit=eight_bit), remat=True,
                               lb_ingest=True, q_chunk=qc, k_chunk=kc,
                               rwkv_chunk=rwkv_chunk)
         state = TS.init_train_state(None, cfg, tcfg, device=META)
-        mesh = Mesh(("data",), (1,))
-        tables = build_tables(1)
-        step = TS.make_train_step(cfg, tcfg, mesh, global_batch=spec.global_batch)
+        if mesh == MESH:
+            tables = build_tables(1)
+            step = TS.make_train_step(cfg, tcfg, Mesh(("data",), (1,)),
+                                      global_batch=spec.global_batch)
+        else:
+            m = sharded_mesh(mesh, variant)
+            chips, tp = SHARDED[mesh], shd.model_extent(m)
+            dp = chips // tp
+            w = shd.data_extent(m)
+            if spec.global_batch % w:
+                raise SystemExit(f"{mesh} {variant}: a global batch of {spec.global_batch} "
+                                 f"rows does not split over {w} data ranks")
+            step = TS.jit_train_step(cfg, tcfg, m, {"params": state["params"]},
+                                     global_batch=spec.global_batch)
+            state = TS.shard_state(state, step.specs, m)
+            rows = spec.global_batch // w
+            batch = {k: v[:rows] for k, v in batch.items()}  # data rank 0's rows
+            tables = build_tables(w)
+            extra["param_leaves_split"] = {
+                axis: sum(d is not None for d in leaves(shd.placed_dims(
+                    state["params"], step.specs["params"], m, axis)))
+                for axis in ("data", "model")}
         arg_bytes = _nbytes(state["params"], state["opt"], batch, tables)
-        flops, by_op = _counted(lambda: step(state, batch, tables))
+        with rec:
+            flops, by_op = _counted(lambda: step(state, batch, tables))
         extra.update(lb_ingest=True, eight_bit_opt=eight_bit)
     else:
         params = M.init_params(cfg, None, device=META)
@@ -179,28 +272,37 @@ def lower_cell(arch: str, shape_name: str, variant: str = "baseline") -> dict:
                                        k_chunk=kc)
         with torch.no_grad():
             flops, by_op = _counted(fn)
-    est = perfmodel.estimate(cfg, shape_name, 1, 1, 1, eight_bit_opt=eight_bit)
+    est = perfmodel.estimate(cfg, shape_name, chips, dp, tp, eight_bit_opt=eight_bit)
     return {
-        "arch": arch, "shape": shape_name, "mesh": MESH, "variant": variant,
-        "chips": 1, "dp": 1, "tp": 1, **extra,
+        "arch": arch, "shape": shape_name, "mesh": mesh, "variant": variant,
+        "chips": chips, "dp": dp, "tp": tp, **extra,
         "cost": {"flops": flops},
         "flops_by_op": by_op,
         "memory": {"argument_size_in_bytes": arg_bytes},
-        "collectives": {"ops": {}, "dynamic_ops": {}, "payload_bytes": {}, "wire_bytes": {},
-                        "total_payload_bytes": 0.0, "total_wire_bytes": 0.0},
+        "collectives": rec.stats().to_json(),
+        "collectives_by_shape": rec.by_shape(),
         "analytic": est.to_json(),
         "model_flops": model_flops(cfg, shape_name),
     }
 
 
-def refuse_sharded(variant: str) -> None:
-    toks = set(variant.split("+"))
-    other = sorted(toks - set(VARIANTS))
+def refuse(variant: str, mesh: str = MESH, shape_name: str = None) -> None:
+    """Stops (``SystemExit``) on a cell that the dry run does not lower."""
+    toks = _tokens(variant)
+    waiting = sorted(toks & set(NOT_LOWERED))
+    if waiting:
+        raise SystemExit(f"variant {'+'.join(waiting)} on the sharded meshes: {ITEM_1C}")
+    mesh_toks = {t for t in toks if t == "dponly" or _tp_of({t})}
+    other = sorted(toks - set(VARIANTS) - mesh_toks)
     if other:
-        raise SystemExit(
-            f"variant {'+'.join(other)}: only {VARIANTS} run on the one-card mesh; the "
-            f"mesh variants ({', '.join(SHARDED_ONLY)}) are not lowered yet: the sharded dry "
-            "run on the fake process group is ROADMAP.md queue 1, item 1(b)")
+        raise SystemExit(f"variant {'+'.join(other)}: the dry run knows {VARIANTS} and, on "
+                         f"the sharded meshes, {MESH_VARIANTS}")
+    if mesh == MESH and mesh_toks:
+        raise SystemExit(f"variant {'+'.join(sorted(mesh_toks))} places the reference's "
+                         f"sharded meshes: run it with --mesh single|multi|both")
+    if mesh != MESH and shape_name is not None and SH.SHAPES[shape_name].kind != "train":
+        raise SystemExit(f"{shape_name} ({SH.SHAPES[shape_name].kind}) on the sharded mesh "
+                         f"{mesh!r}: {ITEM_1C}")
 
 
 def main(argv=None):
@@ -208,52 +310,62 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SH.SHAPES))
     ap.add_argument("--mesh", default=MESH, choices=[MESH, "single", "multi", "both"],
-                    help="only the one-card mesh 'h100' runs; the reference's 256/512-chip "
-                         "meshes are refused")
+                    help="the one card 'h100', or the reference's 256/512-chip meshes "
+                         "(train cells) on torch's fake process group")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     args = ap.parse_args(argv)
-    if args.mesh != MESH:
-        raise SystemExit(
-            f"mesh {args.mesh!r}: the reference's 256/512-chip meshes (launch.mesh) are not "
-            f"lowered yet: the sharded dry run on the fake process group is ROADMAP.md queue "
-            f"1, item 1(b); run --mesh {MESH}")
-    refuse_sharded(args.variant)
-
     archs = ARCH_IDS if args.all or args.arch is None else [args.arch]
-    shapes = list(SH.SHAPES) if args.all or args.shape is None else [args.shape]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    # every shape by default; on the sharded meshes every training shape
+    shapes = [args.shape] if args.shape else [
+        k for k, s in SH.SHAPES.items() if args.mesh == MESH or s.kind == "train"]
+    for mesh in meshes:
+        for shape in shapes:
+            refuse(args.variant, mesh, shape)
+
     os.makedirs(args.out, exist_ok=True)
     failures = []
     t_all = time.perf_counter()
-    for arch in archs:
-        for shape in shapes:
-            tag = f"{_arch_id(arch)}__{shape}__{MESH}"
-            if args.variant != "baseline":
-                tag += f"__{args.variant}"
-            t0 = time.perf_counter()
-            try:
-                art = lower_cell(arch, shape, args.variant)
-            except Exception as e:  # one cell's failure is reported, the sweep goes on
-                failures.append((tag, str(e)))
-                print(f"[{tag}] FAIL: {e}", flush=True)
-                traceback.print_exc()
-                continue
-            art["lower_compile_s"] = time.perf_counter() - t0
-            with open(os.path.join(args.out, tag + ".json"), "w") as f:
-                json.dump(art, f, indent=1)
-            extra = ""
-            if "cost" in art:
-                extra = (f" flops={art['cost']['flops']:.3e} "
-                         f"useful={art['model_flops'] / art['cost']['flops']:.3f}"
-                         if art["cost"]["flops"] else " flops=0")
-            print(f"[{tag}] {art.get('skipped', 'ok')} ({art['lower_compile_s']:.2f}s){extra}",
-                  flush=True)
-    print(f"\n{len(archs) * len(shapes)} cells in {time.perf_counter() - t_all:.1f} s")
+    for mesh in meshes:
+        world = contextlib.nullcontext() if mesh == MESH else fake_world(SHARDED[mesh])
+        with world:
+            for arch in archs:
+                for shape in shapes:
+                    _one(arch, shape, mesh, args, failures)
+    n = len(archs) * len(shapes) * len(meshes)
+    print(f"\n{n} cells in {time.perf_counter() - t_all:.1f} s")
     if failures:
         print(f"{len(failures)} FAILURES")
         raise SystemExit(1)
     print("all cells ok")
+
+
+def _one(arch: str, shape: str, mesh: str, args, failures: list) -> None:
+    """Lower one cell, write its artifact and print its line."""
+    tag = f"{_arch_id(arch)}__{shape}__{mesh}"
+    if args.variant != "baseline":
+        tag += f"__{args.variant}"
+    t0 = time.perf_counter()
+    try:
+        art = lower_cell(arch, shape, args.variant, mesh=mesh)
+    except Exception as e:  # one cell's failure is reported, the sweep goes on
+        failures.append((tag, str(e)))
+        print(f"[{tag}] FAIL: {e}", flush=True)
+        traceback.print_exc()
+        return
+    art["lower_compile_s"] = time.perf_counter() - t0
+    with open(os.path.join(args.out, tag + ".json"), "w") as f:
+        json.dump(art, f, indent=1)
+    extra = ""
+    if "cost" in art:
+        flops = art["cost"]["flops"]  # rank 0's
+        extra = (f" flops={flops:.3e} useful={art['model_flops'] / (flops * art['chips']):.3f}"
+                 if flops else " flops=0")
+        extra += f" wire={art['collectives']['total_wire_bytes']:.3e}"
+    print(f"[{tag}] {art.get('skipped', 'ok')} ({art['lower_compile_s']:.2f}s){extra}",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,10 @@ Port of the JAX package's ``repro/launch/mesh.py``: each factory returns the
 port's ``Mesh`` (``distributed/sharding.py``) with the reference's axis
 names and sizes. Where a process group is up, a factory binds the mesh to
 it: the world must have exactly as many ranks as the mesh has places
-(another size is refused), and the group of the data axes comes from
-``torch.distributed.device_mesh.init_device_mesh`` over the mesh's axes, on
-the device type of the group's backend (NCCL: "cuda"; gloo: "cpu").
+(another size is refused), and the groups of the data axes and of "model"
+come from ``torch.distributed.device_mesh.init_device_mesh`` over the mesh's
+axes, on the device type of the group's backend (NCCL: "cuda"; gloo and
+torch's fake process group: "cpu").
 Without a process group the mesh carries names and sizes only, which is all
 the placement specs (``param_sharding``, ``shardspecs``) read.
 """
@@ -35,7 +36,8 @@ def _bind(axis_sizes: tuple, axis_names: tuple) -> Mesh:
     dm = init_device_mesh(device_type, sizes, mesh_dim_names=names)
     d_ax = data_axes(Mesh(names, sizes))
     sub = dm[d_ax[0]] if len(d_ax) == 1 else dm[d_ax]._flatten()
-    return Mesh(names, sizes, group=sub.get_group())
+    model = dm["model"].get_group() if "model" in names else None
+    return Mesh(names, sizes, group=sub.get_group(), model_group=model)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

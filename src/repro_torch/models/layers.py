@@ -11,6 +11,13 @@ fresh sequence of no more tokens than the sliding window, if any). The
 kernel is forward only, so training never asks for it. The port writes KV
 caches in place (the JAX package returns new arrays), so a decode step does
 not copy the cache; a caller that needs the old cache clones it first.
+
+Under tensor parallelism (a ``distributed.tp.TP`` current: the training
+step on a mesh whose "model" axis has several ranks) the MLP is column- then
+row-parallel on ``d_ff``, and attention runs this rank's q heads
+(``_project``): whole-head KV slices stay local, KV split within a head is
+gathered and the rank takes the heads its q heads read, and where the q
+heads do not split evenly the block runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp as _tp
 from repro_torch.kernels import flash_attention as _flash
 
 F32 = torch.float32
@@ -98,11 +106,15 @@ def mlp_init(generator, d_model: int, d_ff: int, act: str, n_layers: int, dtype,
 
 
 def mlp(params, x, act: str):
+    par = _tp.current()
+    split = par is not None and par.dim(params["w_up"]) is not None
+    if split:  # column-parallel in, row-parallel out
+        x = par.to_parallel(x)
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")  # jax.nn.gelu's default
-    return h @ params["w_down"]
+    return par.from_parallel(h @ params["w_down"]) if split else h @ params["w_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +219,51 @@ def init_kv_cache(batch, size, n_kv, hd, dtype, device="cuda") -> KVCache:
     )
 
 
+def _kv_heads(lo: int, hi: int, group: int) -> list:
+    """The KV heads that q heads [lo, hi) read (``group`` q heads a KV
+    head), each once where the q heads split evenly over them, else one per
+    q head."""
+    idx = [h // group for h in range(lo, hi)]
+    uniq = sorted(set(idx))
+    per = (hi - lo) // len(uniq)
+    return uniq if idx == [u for u in uniq for _ in range(per)] else idx
+
+
+def _project(params, x, src, cfg):
+    """q ``[B, T, H, hd]`` from ``x``, k and v ``[B, Nk, Hk, hd]`` from
+    ``src`` and the output projection ``o [B, T, H * hd] -> [B, T, d]``, as
+    this rank runs them: every head with no tensor parallelism; under it
+    (``distributed.tp``) the rank's q heads and the KV heads they read
+    (``_kv_heads``), the output summed over the ranks. Where the q heads do
+    not split over the ranks, the block runs whole on every rank."""
+    b, t, _ = x.shape
+    nk = src.shape[1]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    par = _tp.current()
+    if par is None or par.dim(params["wq"]) is None or hq % par.size:
+        w = {n: params[n] if par is None else par.whole(params[n])
+             for n in ("wq", "wk", "wv", "wo")}
+        q = (x @ w["wq"]).reshape(b, t, hq, hd)
+        k = (src @ w["wk"]).reshape(b, nk, hkv, hd)
+        v = (src @ w["wv"]).reshape(b, nk, hkv, hd)
+        return q, k, v, lambda o: o @ w["wo"]
+    lo, hi = par.span(hq)
+    xp = par.to_parallel(x)
+    sp = xp if src is x else par.to_parallel(src)
+    q = (xp @ params["wq"]).reshape(b, t, hi - lo, hd)
+
+    def kv(name):
+        w = params[name]
+        if par.dim(w) is not None and hkv % par.size == 0:  # whole heads: local
+            return (sp @ w).reshape(b, nk, hkv // par.size, hd)
+        heads = _kv_heads(lo, hi, hq // hkv)
+        w = par.gather_to_parallel(w)
+        w = torch.cat([w[:, h * hd:(h + 1) * hd] for h in heads], dim=-1)
+        return (sp @ w).reshape(b, nk, len(heads), hd)
+
+    return q, kv("wk"), kv("wv"), lambda o: par.from_parallel(o @ params["wo"])
+
+
 def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] = None,
                          q_chunk: int = 1024, k_chunk: int = 1024, flash: bool = False):
     """x: [B, T, d]. Returns (out [B, T, d], new_cache); ``cache`` is
@@ -223,10 +280,7 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
     Pallas kernel has none).
     """
     b, t, d = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ params["wq"]).reshape(b, t, hq, hd)
-    k = (x @ params["wk"]).reshape(b, t, hkv, hd)
-    v = (x @ params["wv"]).reshape(b, t, hkv, hd)
+    q, k, v, out = _project(params, x, x, cfg)
     q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
     k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
 
@@ -266,7 +320,7 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
         o = attention(q, kk, vv, qpos=positions, kpos=kpos, kvalid=kvalid,
                       causal=cfg.causal, window=cfg.swa_window,
                       q_chunk=q_chunk, k_chunk=k_chunk)
-    return o.reshape(b, t, hq * hd) @ params["wo"], new_cache
+    return out(o.reshape(b, t, -1)), new_cache
 
 
 def cross_attention_block(params, x, kv_src, cfg, *, q_chunk=1024, k_chunk=1024):
@@ -276,13 +330,10 @@ def cross_attention_block(params, x, kv_src, cfg, *, q_chunk=1024, k_chunk=1024)
     queries and keys; here they are T and Nv)."""
     b, t, d = x.shape
     nv = kv_src.shape[1]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     src = rms_norm(kv_src, params["kv_norm"], cfg.norm_eps)
-    q = (x @ params["wq"]).reshape(b, t, hq, hd)
-    k = (src @ params["wk"]).reshape(b, nv, hkv, hd)
-    v = (src @ params["wv"]).reshape(b, nv, hkv, hd)
+    q, k, v, out = _project(params, x, src, cfg)
     zeros_q = torch.zeros((b, t), dtype=torch.int32, device=x.device)
     zeros_k = torch.zeros((b, nv), dtype=torch.int32, device=x.device)
     o = attention(q, k, v, qpos=zeros_q, kpos=zeros_k, causal=False,
                   q_chunk=q_chunk, k_chunk=k_chunk)
-    return o.reshape(b, t, hq * hd) @ params["wo"]
+    return out(o.reshape(b, t, -1))

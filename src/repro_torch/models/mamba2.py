@@ -18,6 +18,11 @@ the state) is computed for all chunks at once, and only the recurrence
 the same products on the same operands, in fewer launches. A sequence of T
 tokens runs in chunks of ``min(chunk, T)`` (the reference pads a decode
 token to a whole chunk; its padded rows add exact zeros).
+
+Under tensor parallelism (``distributed.tp``) the block runs whole on every
+rank: ``w_in`` and ``w_out`` are gathered over "model" (``tp.whole``). The
+reference splits ``w_in`` on its output dim, where z, x, B, C and dt lie
+side by side, so no rank's slice is a block of its own.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp
 from repro_torch.models.layers import dense_init, rms_norm
 
 F32 = torch.float32
@@ -107,7 +113,7 @@ def mamba2_block(params, x, cfg, *, state=None, chunk: int = 128):
     """
     b, t, d = x.shape
     di, n, h_heads, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x @ params["w_in"]
+    proj = x @ tp.whole(params["w_in"])
     z, xbc, dt_raw = _split_proj(cfg, proj)
     conv_state = None if state is None else state["conv"]
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"], conv_state)
@@ -140,5 +146,5 @@ def mamba2_block(params, x, cfg, *, state=None, chunk: int = 128):
     y = y.reshape(b, t, di).to(x.dtype)
     y = y * F.silu(z)
     y = rms_norm(y, params["ssm_norm"], cfg.norm_eps)
-    out = y @ params["w_out"]
+    out = y @ tp.whole(params["w_out"])
     return out, {"h": h_final.to(F32), "conv": new_conv}

@@ -30,6 +30,12 @@ length). A moe layer's FFN is ``moe.moe_ffn`` (one ``dispatch_plan`` launch
 per layer call on the card); ``forward`` sums its aux loss over the layers,
 the cached path drops it, as the reference does. The audio family has no
 decode path, as in the reference.
+
+Under tensor parallelism (``distributed.tp``, the training step only) a
+vocab-split ``embed`` is a masked lookup plus one ``all_reduce``, a
+vocab-split ``head`` gives this rank's columns of the logits, and
+``train_loss`` takes the cross-entropy and z-loss from the shards'
+``[B, T]`` statistics (``TP.vocab_stats``).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import dp
+from repro_torch.distributed import tp
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -253,11 +260,23 @@ def _embed(params, batch, cfg):
     or 'embeds' [B,T,d] (audio frames / any precomputed stream)."""
     if "embeds" in batch:
         return batch["embeds"].to(_dtype(cfg))
+    par = tp.current()
+    if par is not None and par.dim(params["embed"]) is not None:
+        return par.embed(params["embed"], batch["tokens"])
     return params["embed"][batch["tokens"].long()]
 
 
+def _vocab_split(params) -> bool:
+    par = tp.current()
+    return par is not None and par.dim(params["head"]) is not None
+
+
 def _head_logits(params, x, cfg):
+    """The logits in f32: this rank's vocab columns when ``head`` is split
+    over "model"."""
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if _vocab_split(params):
+        x = tp.current().to_parallel(x)
     # The JAX package takes f32 logits from bf16 operands
     # (preferred_element_type=f32): each bf16 x bf16 product is exact in f32
     # and the sum is kept in f32. Upcasting both operands to f32 exactly and
@@ -324,8 +343,10 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     layers' summed load-balance loss; zero for the other families), as the
     reference computes them.
 
-    Under ``distributed.dp.use_slots`` (a training step over several
-    ranks) the CE and the z-loss divide by the label count of the whole
+    Under tensor parallelism with ``head`` split on the vocab, ``logits``
+    are this rank's columns and the CE and z-loss come from the shards'
+    statistics. Under ``distributed.dp.use_slots`` (a training step over
+    several ranks) the CE and the z-loss divide by the label count of the whole
     microbatch (a sum over its ranks), and the moe layers' aux loss is this
     rank's share: each rank's loss, and its gradient, is its share of the
     microbatch's, and the shares add up to it."""
@@ -337,13 +358,17 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     else:
         logits_s, labels_s = logits, labels
     mask = (labels_s >= 0).to(F32)
-    logp = torch.log_softmax(logits_s, dim=-1)
     # a masked label reads any column: its term is multiplied by 0
-    ll = logp.gather(-1, labels_s.clamp(min=0)[..., None])[..., 0]
+    if _vocab_split(params):
+        ll, lse = tp.current().vocab_stats(logits_s, labels_s.clamp(min=0))
+    else:
+        logp = torch.log_softmax(logits_s, dim=-1)
+        ll = logp.gather(-1, labels_s.clamp(min=0)[..., None])[..., 0]
+        lse = torch.logsumexp(logits_s, dim=-1)
     denom = torch.clamp(dp.slot_sum(mask.sum()), min=1.0)
     ce = -(ll * mask).sum() / denom
     # z-loss keeps the softmax normalizer tame (standard at scale).
-    zl = 1e-4 * ((torch.logsumexp(logits_s, dim=-1) ** 2) * mask).sum() / denom
+    zl = 1e-4 * ((lse ** 2) * mask).sum() / denom
     loss = ce + zl + 0.01 * aux
     return loss, {"ce": ce, "z_loss": zl, "moe_aux": aux}
 

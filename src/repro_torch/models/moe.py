@@ -23,6 +23,11 @@ so the products need no transpose.
 
 arctic-480b additionally runs a dense residual FFN in parallel with the MoE
 output (``cfg.moe_dense_residual``).
+
+Under tensor parallelism (``distributed.tp``) the router, top-k and the
+pack run on every rank of the model group on the same (replicated) tokens;
+the expert products are split on ``ff``, and their shares are added (one
+``all_reduce``) on the rows gathered back to the tokens.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import dp
+from repro_torch.distributed import tp
 from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.models import layers as L
 
@@ -93,7 +99,9 @@ def pack_positions(member_g: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 def expert_products(params, buf, act: str) -> torch.Tensor:
     """Each expert's FFN over its rows: ``buf`` ``[E, R, d]`` -> ``[E, R, d]``
-    (batched matrix products over the experts, the reference's einsums)."""
+    (batched matrix products over the experts, the reference's einsums).
+    With the experts' ``ff`` split over "model" the result is this rank's
+    share of the sum over ``ff`` (``moe_ffn`` adds the shares)."""
     if act == "swiglu":
         h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
     else:
@@ -163,7 +171,15 @@ def moe_ffn(params, x, cfg):
     group = torch.arange(g, device=x.device)[:, None]
     slot = (member_g * g + group) * capacity + pos  # [g, K*ng]
     spill = e * g * capacity
-    src = xt.reshape(g, ng, d).repeat(1, k, 1).reshape(g * k * ng, d)
+    # tensor parallelism with ``ff`` split: the buffer's rows enter through
+    # ``to_parallel`` as tokens (the router reads them whole), and the
+    # ranks' shares of the products are added once gathered back to the
+    # tokens' k slots, before the gates: far fewer rows than the buffer's
+    # capacity, and the gates' gradient sees the whole output
+    par = tp.current()
+    split = par is not None and par.dim(params["w_up"]) is not None
+    src = (par.to_parallel(xt) if split else xt).reshape(g, ng, d).repeat(1, k, 1).reshape(
+        g * k * ng, d)
     buf = x.new_zeros(spill + 1, d).index_copy(
         0, torch.where(keep, slot, spill).reshape(-1), src)
     buf = buf[:spill].view(e, g * capacity, d)
@@ -172,6 +188,8 @@ def moe_ffn(params, x, cfg):
 
     # Gather back and combine with the gates; dropped assignments give 0.
     got = out_buf.index_select(0, torch.where(keep, slot, 0).reshape(-1))
+    if split:
+        got = par.from_parallel(got)
     got = torch.where(keep.reshape(-1, 1), got, torch.zeros((), dtype=got.dtype,
                                                             device=got.device))
     gates_g = gate_vals.reshape(g, ng, k).transpose(1, 2).reshape(g, k * ng)

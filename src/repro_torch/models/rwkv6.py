@@ -12,6 +12,13 @@ a state S in R^{P x P}:
 tokens, as the reference's ``lax.scan``); ``chunk_size > 1`` the chunked
 WKV (exp-rescaled products per chunk), which matches the scan to float32
 tolerance.
+
+Under tensor parallelism (``distributed.tp``) the channel-mix is column-
+then row-parallel on ``d_ff`` (``ck``, ``cv``); the time-mix runs whole on
+every rank, its ``wr``/``wk``/``wv``/``wg``/``wo`` gathered over "model"
+(``tp.whole``): the reference splits ``wo`` on its output dim, which no
+local product of the rank's heads can use, and the ``ln_x`` norm spans
+every head.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp
 from repro_torch.models.layers import dense_init, rms_norm
 
 F32 = torch.float32
@@ -76,10 +84,10 @@ def rwkv6_time_mix(params, x, cfg, *, state=None, chunk_size: int = 1):
     xs = _token_shift(x, prev)
     mu = params["mu"]
     xr, xk, xv, xg, xw = (_lerp(x, xs, mu[i]) for i in range(5))
-    r = (xr @ params["wr"]).reshape(b, t, h, p).to(F32)
-    k = (xk @ params["wk"]).reshape(b, t, h, p).to(F32)
-    v = (xv @ params["wv"]).reshape(b, t, h, p).to(F32)
-    g = xg @ params["wg"]
+    r = (xr @ tp.whole(params["wr"])).reshape(b, t, h, p).to(F32)
+    k = (xk @ tp.whole(params["wk"])).reshape(b, t, h, p).to(F32)
+    v = (xv @ tp.whole(params["wv"])).reshape(b, t, h, p).to(F32)
+    g = xg @ tp.whole(params["wg"])
     lora = torch.tanh(xw.to(F32) @ params["w_lora_a"]) @ params["w_lora_b"]
     w = torch.exp(-torch.exp(params["w0"] + lora))  # [B, T, d] in (0, 1)
     w = w.reshape(b, t, h, p)
@@ -94,7 +102,7 @@ def rwkv6_time_mix(params, x, cfg, *, state=None, chunk_size: int = 1):
 
     o = o.reshape(b, t, d).to(x.dtype)
     o = rms_norm(o, params["ln_x"], cfg.norm_eps)
-    o = (o * F.silu(g)) @ params["wo"]
+    o = (o * F.silu(g)) @ tp.whole(params["wo"])
     return o, {"shift": x[:, -1, :].to(F32), "wkv": s_fin}
 
 
@@ -158,6 +166,12 @@ def rwkv6_channel_mix(params, x, cfg, *, state=None):
     mu = params["mu_c"]
     xk = _lerp(x, xs, mu[0])
     xr = _lerp(x, xs, mu[1])
-    kk = torch.square(torch.relu(xk @ params["ck"]))
-    out = torch.sigmoid(xr @ params["cr"]) * (kk @ params["cv"])
+    par = tp.current()
+    if par is not None and par.dim(params["ck"]) is not None:
+        kk = torch.square(torch.relu(par.to_parallel(xk) @ params["ck"]))
+        kv = par.from_parallel(kk @ params["cv"])
+    else:
+        kk = torch.square(torch.relu(xk @ params["ck"]))
+        kv = kk @ params["cv"]
+    out = torch.sigmoid(xr @ params["cr"]) * kv
     return out, x[:, -1, :].to(F32)

@@ -13,11 +13,12 @@ A leaf of the layer list counts the list as a leading dim
 rule "decoupled weight decay on matrices only" (``ndim >= 2``) then decays
 the layers' norm scales and not ``ln_f``, as in the reference.
 
-Over several data-parallel ranks (``Shards``), each rank updates its slices
-of the params and moments (``distributed.sharding.shard_tree``) with the
+Over several ranks (``Shards``: data-parallel, and tensor-parallel on
+"model"), each rank updates its blocks of the params and moments
+(``distributed.sharding.shard_tree``; a moment lies as its param) with the
 same numbers as the reference's one program: the clip's global norm sums
-the ranks' squares, and an 8-bit moment whose rows are split across ranks
-takes its row scale as the ``amax`` over them.
+the ranks' squares over both axes, and an 8-bit moment whose rows are split
+across ranks takes its row scale as the ``amax`` over them.
 """
 from __future__ import annotations
 
@@ -82,62 +83,53 @@ def init(params, cfg: AdamWConfig):
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """Where this rank's slices lie: ``params`` holds, per param leaf, the
-    tensor dim split across the ``world`` ranks of ``group`` (None: the
-    whole leaf), and ``mu`` the same per moment leaf (``m``/``v``, or their
-    ``q``/``s`` when 8-bit)."""
+    """Where this rank's blocks lie: ``params`` holds, per param leaf, the
+    tensor dim split across the ``world`` ranks of ``group`` (the data
+    axes; None: whole along them), and ``model`` the dim split across the
+    ``model_size`` ranks of ``model_group``. A moment lies as its param
+    (``sharding.moment_sharding``)."""
 
     group: object
     rank: int
     world: int
     params: object
-    mu: object
+    model_group: object
+    model_rank: int
+    model_size: int
+    model: object
 
 
-def _slice(x, d, sh: Shards):
-    n = x.shape[d] // sh.world
-    return x.narrow(d, sh.rank * n, n)
-
-
-def _whole(x, d, sh: Shards):
-    return x if d is None else torch.cat(dp.all_gather(x, sh.group), dim=d)
-
-
-def _deq_shard(st, pd, sd, sh: Optional[Shards]):
-    """An 8-bit moment's values on this rank's slice (param dim ``pd``),
-    its row scales held on dim ``sd``."""
-    if sh is None:
-        return _deq_state(st)
-    s = _whole(st["s"], sd, sh)
-    if pd is not None and pd != s.ndim - 1:
-        s = _slice(s, pd, sh)
-    return st["q"].to(F32) * s
-
-
-def _q_shard(x, pd, sd, sh: Optional[Shards]):
-    """``_q_state`` of a moment's slice; a row split across ranks (``pd``
-    the last dim) takes the ``amax`` over all of them."""
+def _q_shard(x, pd, pm, sh: Optional[Shards]):
+    """``_q_state`` of a moment's block; a row split across ranks (the last
+    dim split on the data axes, ``pd``, or on "model", ``pm``) takes the
+    ``amax`` over all of them."""
     if sh is None:
         return _q_state(x)
     amax = x.abs().amax(dim=-1, keepdim=True)
     if pd == x.ndim - 1:
         dp.all_reduce(amax, sh.group, op=dist.ReduceOp.MAX)
+    if pm == x.ndim - 1:
+        dp.all_reduce(amax, sh.model_group, op=dist.ReduceOp.MAX)
     scale = torch.clamp(amax / 127.0, min=1e-12)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    full = scale if pd is None or pd == x.ndim - 1 else _whole(scale, pd, sh)
-    return {"q": q, "s": full if sd is None else _slice(full, sd, sh).clone()}
+    return {"q": q, "s": scale}
 
 
 def global_norm(grads, sh: Optional[Shards] = None) -> torch.Tensor:
     """The L2 norm of all gradients, summed leaf by leaf in tree order. Over
-    ranks (``grads`` this rank's slices): one ``all_reduce`` of the per-leaf
-    squares, a leaf that every rank holds whole counted from rank 0."""
+    ranks (``grads`` this rank's blocks): the per-leaf squares summed over
+    the data ranks, then over the model ranks (one ``all_reduce`` each), a
+    leaf that the ranks of an axis hold whole counted from that axis's
+    rank 0."""
     sq = [torch.sum(g.to(F32) ** 2) for g in leaves(grads)]
     if sh is not None:
-        dims = leaves(sh.params)
-        vec = torch.stack([s if d is not None or sh.rank == 0 else torch.zeros_like(s)
-                           for s, d in zip(sq, dims)])
-        sq = dp.all_reduce(vec, sh.group).unbind()
+        counted = [(d is not None or sh.rank == 0) and (m is not None or sh.model_rank == 0)
+                   for d, m in zip(leaves(sh.params), leaves(sh.model))]
+        vec = torch.stack([s if c else torch.zeros_like(s) for s, c in zip(sq, counted)])
+        vec = dp.all_reduce(vec, sh.group)
+        if sh.model_size > 1:
+            vec = dp.all_reduce(vec, sh.model_group)
+        sq = vec.unbind()
     return torch.sqrt(sum(sq))
 
 
@@ -155,11 +147,10 @@ def update(grads, state, params, cfg: AdamWConfig, shards: Optional[Shards] = No
     b1c = 1 - torch.pow(cfg.b1, count.to(F32))
     b2c = 1 - torch.pow(cfg.b2, count.to(F32))
 
-    def one(p, g, mu, pd, md, stacked):
+    def one(p, g, mu, pd, pm, stacked):
         gf = g.to(F32) * clip
         if cfg.eight_bit:
-            m = _deq_shard(mu["m"], pd, md["m"]["s"], shards)
-            v = _deq_shard(mu["v"], pd, md["v"]["s"], shards)
+            m, v = _deq_state(mu["m"]), _deq_state(mu["v"])
         else:
             m, v = mu["m"], mu["v"]
         m = cfg.b1 * m + (1 - cfg.b1) * gf
@@ -169,17 +160,11 @@ def update(grads, state, params, cfg: AdamWConfig, shards: Optional[Shards] = No
             upd = upd + cfg.weight_decay * p.to(F32)
         p.copy_((p.to(F32) - lr * upd).to(p.dtype))
         if cfg.eight_bit:
-            return {"m": _q_shard(m, pd, md["m"]["s"], shards),
-                    "v": _q_shard(v, pd, md["v"]["s"], shards)}
+            return {"m": _q_shard(m, pd, pm, shards), "v": _q_shard(v, pd, pm, shards)}
         return {"m": m, "v": v}
 
-    dims, mdims = _whole_dims(params, cfg) if shards is None else (shards.params, shards.mu)
+    none = tree_map(lambda p, stacked: None, params)
+    dims = none if shards is None else shards.params
+    mdims = none if shards is None else shards.model
     new_mu = tree_map(one, params, grads, state["mu"], dims, mdims)
     return params, {"mu": new_mu, "count": count}, {"grad_norm": gnorm, "lr": lr}
-
-
-def _whole_dims(params, cfg: AdamWConfig):
-    """``Shards.params`` and ``Shards.mu`` of leaves held whole."""
-    mu = {"q": None, "s": None} if cfg.eight_bit else None
-    return (tree_map(lambda p, stacked: None, params),
-            tree_map(lambda p, stacked: {"m": mu, "v": mu}, params))

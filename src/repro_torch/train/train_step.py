@@ -13,17 +13,20 @@ step (``TrainConfig.lb_ingest``):
   4. Forward/backward (+ microbatch accumulation), AdamW update in place.
 
 The step runs eagerly (no jit): ``make_train_step`` returns a plain
-function. Over W data-parallel ranks (a mesh bound to a process group,
-``launch.mesh``) each process runs the step on its rows of the global
-batch, and the step equals the reference's one program over all of them:
-``jit_train_step`` places params and moments by ``param_sharding`` (FSDP:
-each rank keeps its slices, ``distributed.sharding.shard_tree``), gathers
-the params whole for the forward and backward, sums the gradients over the
-ranks (``all_reduce``) and updates its slices; the loss divides by the
-global label count (``distributed.dp``). ``make_train_step`` takes the
-placement as ``specs`` (needed over a process group), or holds every leaf
-whole in one process. A mesh with a model extent above 1 (tensor
-parallelism) is refused.
+function. Over the ranks of a mesh bound to a process group
+(``launch.mesh``: W data ranks x T model ranks) each process runs the step
+on its data rank's rows of the global batch (the T model ranks of one data
+rank hold the same rows), and the step equals the reference's one program
+over all of them: ``jit_train_step`` places params by ``param_sharding``
+and each moment as its param (``sharding.moment_sharding``); each rank
+keeps its (data, model) block (``distributed.sharding.shard_tree``),
+gathers the params over the data axes for the forward and backward (FSDP),
+keeps the model slices and runs the model tensor-parallel on them
+(``distributed.tp``), sums the gradients over the data ranks
+(``all_reduce``) and updates its blocks; the loss divides by the global
+label count (``distributed.dp``). ``make_train_step`` takes the placement
+as ``specs`` (needed over a process group), or holds every leaf whole in
+one process.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.core.tables import DeviceTables
 from repro_torch.device import resolve_device
 from repro_torch.distributed import dp as DP
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tp as TP
 from repro_torch.distributed.compression import compress_decompress
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -171,18 +175,19 @@ def make_train_step(
 
     With a mesh bound to a process group, the step reduces across its
     ranks (also a group of one): the gradients, the loss's label count and
-    the metrics. It then needs ``specs`` ({"params", "opt"}:
-    ``param_sharding``'s specs, as ``jit_train_step`` makes them), which say
-    which leaves ``state`` holds as this rank's slices."""
-    if mesh is not None and shd.model_axis(mesh) and mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: a model extent above 1 (tensor parallelism) is not in the "
-            "port's training step (ROADMAP.md queue 1, item 1(b))")
+    the metrics over the data ranks, the tensor-parallel products over the
+    model ranks. It then needs ``specs`` ({"params", "opt"}, as
+    ``placement`` makes them), which say which leaves ``state`` holds as
+    this rank's blocks."""
     w = shd.data_extent(mesh) if mesh is not None else 1
+    t_size = shd.model_extent(mesh) if mesh is not None else 1
     group = None if mesh is None else mesh.group
     if w > 1 and group is None:
         raise ValueError(f"a mesh of {w} data-parallel ranks needs its process group "
                          "(launch.mesh binds it)")
+    if t_size > 1 and (mesh.model_group is None or group is None):
+        raise ValueError(f"a mesh of {t_size} model ranks needs its process groups "
+                         "(launch.mesh binds them)")
     if group is not None and specs is None:
         raise ValueError("a mesh bound to a process group needs the placement specs of the "
                          "params and moments (jit_train_step makes them)")
@@ -236,8 +241,18 @@ def make_train_step(
         else:
             mb = {k: _as_tensor(v, dev) for k, v in batch.items() if k != "headers"}
 
-        whole = shd.gather_tree(params, specs["params"], mesh) if specs is not None else params
-        loss, lmet, grads = grads_of(whole, mb, rank)
+        par = None
+        if specs is not None:
+            whole = shd.gather_tree(params, specs["params"], mesh, axes=("data",))
+            if t_size > 1:
+                mdims = shd.placed_dims(params, specs["params"], mesh, "model")
+                par = TP.TP(group=mesh.model_group, rank=shd.model_rank(mesh), size=t_size,
+                            dims={id(x): d for x, d in zip(leaves(whole), leaves(mdims))
+                                  if d is not None})
+        else:
+            whole = params
+        with TP.use_tp(par):
+            loss, lmet, grads = grads_of(whole, mb, rank)
         del whole
         stats = [loss] + list(lmet.values())
         if train_cfg.lb_ingest:
@@ -255,9 +270,11 @@ def make_train_step(
 
         if train_cfg.grad_compress:
             # int8 round-trip + error feedback on the summed gradient, whole
-            # on every rank: the int8 blocks run over the reference's
-            # flattened leaf, a per-layer list stacked (map_stacked); the
-            # residual is kept whole too
+            # on every rank (gathered over "model"): the int8 blocks run over
+            # the reference's flattened leaf, a per-layer list stacked
+            # (map_stacked); the residual is kept whole too
+            if t_size > 1:
+                grads = shd.gather_tree(grads, specs["params"], mesh, axes=("model",))
             efb = state["efb"]
             if efb is None:
                 efb = tree_map(lambda g, stacked: torch.zeros(g.shape, dtype=F32,
@@ -270,10 +287,16 @@ def make_train_step(
         shards = None
         if group is not None:
             pdims = shd.placed_dims(params, specs["params"], mesh)
-            mdims = shd.placed_dims(state["opt"], specs["opt"], mesh)["mu"]
-            grads = tree_map(lambda g, d, stacked: g if d is None else g.narrow(
-                d, rank * (g.shape[d] // w), g.shape[d] // w), grads, pdims)
-            shards = opt.Shards(group=group, rank=rank, world=w, params=pdims, mu=mdims)
+            mdims = shd.placed_dims(params, specs["params"], mesh, "model")
+            mrank = shd.model_rank(mesh)
+            cut = lambda g, d, r, n: g if d is None else g.narrow(d, r * (g.shape[d] // n),
+                                                                    g.shape[d] // n)
+            if train_cfg.grad_compress and t_size > 1:
+                grads = tree_map(lambda g, d, stacked: cut(g, d, mrank, t_size), grads, mdims)
+            grads = tree_map(lambda g, d, stacked: cut(g, d, rank, w), grads, pdims)
+            shards = opt.Shards(group=group, rank=rank, world=w, params=pdims,
+                                model_group=mesh.model_group, model_rank=mrank,
+                                model_size=t_size, model=mdims)
         new_params, new_opt, omet = opt.update(grads, state["opt"], params,
                                                train_cfg.adamw, shards=shards)
         metrics.update(omet)
@@ -290,6 +313,14 @@ def state_shapes(model_cfg: ModelConfig, train_cfg: TrainConfig) -> dict:
     return {"params": params, "opt": opt.init(params, train_cfg.adamw)}
 
 
+def placement(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh, params, **kw) -> dict:
+    """The specs of the params (``param_sharding`` over ``params``, with
+    its keywords ``kw``: FSDP on the data axes, tensor parallelism on
+    "model") and of the optimizer state (each moment as its param)."""
+    pspecs = shd.param_sharding(params, mesh, model_cfg, **kw)
+    return {"params": pspecs, "opt": shd.moment_sharding(pspecs, train_cfg.adamw.eight_bit)}
+
+
 def jit_train_step(
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
@@ -300,13 +331,12 @@ def jit_train_step(
     donate: bool = True,
 ):
     """The step with params and moments placed by the sharding rules
-    (``param_sharding`` over ``state_shapes["params"]`` and ``["opt"]``,
-    FSDP on the data axes). Its ``specs``
+    (``placement`` over ``state_shapes["params"]``). Its ``specs``
     attribute holds them: ``shard_state`` places a whole state so, and
     ``gather_state`` makes it whole again. ``donate=False`` leaves the
     caller's state as it was (the step works on a copy); with ``donate``
     the step updates it in place, as it always does."""
-    specs = {k: shd.param_sharding(state_shapes[k], mesh, model_cfg) for k in ("params", "opt")}
+    specs = placement(model_cfg, train_cfg, mesh, state_shapes["params"])
     inner = make_train_step(model_cfg, train_cfg, mesh, global_batch, specs=specs)
 
     def step(state, batch, tables):
@@ -321,7 +351,7 @@ def jit_train_step(
 
 
 def shard_state(state: dict, specs: dict, mesh) -> dict:
-    """A whole state (the same on every rank) as this rank's slices."""
+    """A whole state (the same on every rank) as this rank's blocks."""
     return dict(state, params=shd.shard_tree(state["params"], specs["params"], mesh),
                 opt=shd.shard_tree(state["opt"], specs["opt"], mesh))
 

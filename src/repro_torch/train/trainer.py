@@ -15,12 +15,15 @@ eager step of ``train_step.py``, on ``TrainerConfig.device``. A step's time
 is taken after the device finishes it (the reference times a jitted
 dispatch).
 
-With a mesh bound to a process group (``launch.mesh``), one trainer runs on
-each of its W data-parallel ranks: every rank draws the reference's global
-batch and keeps its arrival rows, the step is ``jit_train_step`` (params
-and moments placed by ``param_sharding``), the ranks agree on each step's
-time (the slowest rank's), so their control planes stay equal, and a
-checkpoint is saved whole by rank 0 and restored into each rank's slices.
+With a mesh bound to a process group (``launch.mesh``: W data ranks x T
+model ranks), one trainer runs on each of its ranks: every rank draws the
+reference's global batch and keeps the arrival rows of its data rank (the
+LB members are the data ranks; the T model ranks of one hold the same
+rows), the step is ``jit_train_step`` (params and moments placed by
+``param_sharding``), the ranks agree on each step's time (the slowest
+rank's, over both axes), so their control planes stay equal, and a
+checkpoint is saved whole by the first rank and restored into each rank's
+blocks.
 """
 from __future__ import annotations
 
@@ -216,9 +219,11 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             if self.group is not None:  # the slowest rank's time, on every rank
-                dt = float(dp.all_reduce(torch.tensor([dt], dtype=torch.float64,
-                                                      device=self.device),
-                                         self.group, op=dist.ReduceOp.MAX))
+                slow = torch.tensor([dt], dtype=torch.float64, device=self.device)
+                for g in (self.group, self.mesh.model_group):
+                    if g is not None:
+                        dp.all_reduce(slow, g, op=dist.ReduceOp.MAX)
+                dt = float(slow)
             for m in self.cp.members:
                 self.hub.report_step(m, dt * (1 + 0.01 * m))
             self.maybe_recalendar(s + 1)

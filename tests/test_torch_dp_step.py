@@ -358,10 +358,13 @@ def test_checkpoint_of_two_ranks_restores_in_one_process_and_back(runs):
 
 
 def test_model_extent_above_one_is_refused():
+    """A model extent above 1 runs tensor-parallel over the mesh's model
+    group (``tests/test_torch_tp_step.py``): a mesh not bound to its
+    process groups is refused."""
     cfg = get_smoke_config("yi_6b")
     tc = TS.TrainConfig()
     for mesh in (Mesh(("data", "model"), (1, 2)), Mesh(("data", "model"), (2, 2))):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        with pytest.raises(ValueError, match="process group"):
             TS.jit_train_step(cfg, tc, mesh, TS.state_shapes(cfg, tc), global_batch=8)
 
 

@@ -364,11 +364,11 @@ def test_step_equals_reference_for_the_encoder_and_chunked_rwkv(arch, kw):
 
 def test_step_refuses_a_mesh_of_several_ranks():
     """Several data ranks need the mesh bound to their process group
-    (``launch.mesh``); a model extent above 1 is refused outright."""
+    (``launch.mesh``), and several model ranks their groups too."""
     cfg = get_smoke_config("yi_6b")
     with pytest.raises(ValueError, match="process group"):
         TTS.make_train_step(cfg, TTS.TrainConfig(), Mesh(("data",), (2,)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="process groups"):
         TTS.make_train_step(cfg, TTS.TrainConfig(), Mesh(("data", "model"), (1, 2)))
 
 

@@ -1,16 +1,21 @@
-"""One gloo rank of ``tests/test_torch_dp_step.py``: every case of the W-rank
-training step, then the checkpoint crossings; its results go to
+"""One gloo rank of ``tests/test_torch_dp_step.py`` and
+``tests/test_torch_tp_step.py``: every case of the training step over the
+ranks, then (W-rank worlds) the checkpoint crossings; its results go to
 ``<out>/rank<r>.npz``.
 
     python tests/torch_dp_worker.py RANK WORLD INIT_FILE OUT_DIR
 
 ``OUT_DIR/cases.pkl`` (written by the test) holds the cases: the arch, the
 step's options, the global numpy batch, the reference's initial params
-(numpy, stacked) and the LB members' weights. The step is
-``make_train_step`` with params and moments placed by ``param_sharding`` at
-``MIN_FSDP`` (small, so that the smoke configs' leaves are split); each rank
-feeds its rows of the batch. At W = 1 the same case also runs through the
-one-process ``make_train_step`` (no process group).
+(numpy, stacked), the LB members' weights and, for tensor parallelism, the
+meshes ``(data, model)`` to run the case on (by default ``(W, 1)``). The
+step is ``make_train_step`` with params and moments placed by
+``train_step.placement`` at ``MIN_FSDP`` (small, so that the smoke configs'
+leaves are split); each rank feeds its data rank's rows of the batch. At
+W = 1 the same case also runs through the one-process ``make_train_step``
+(no process group). On a mesh given by the case, each step runs under
+``analysis.collectives.CollectiveRecord``, and the record's counts are kept
+beside ``distributed.dp.COUNTS``.
 """
 from __future__ import annotations
 
@@ -24,8 +29,10 @@ import torch.distributed as dist
 
 import repro_torch.core as tcore
 from repro_torch.checkpoint import ckpt
+from repro_torch.analysis.collectives import CollectiveRecord
 from repro_torch.configs import get_smoke_config
-from repro_torch.distributed.sharding import Mesh, param_sharding, placed_dims
+from repro_torch.distributed import dp as DP
+from repro_torch.distributed.sharding import Mesh, data_extent, placed_dims, rank_of
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import model as TM
 from repro_torch.train import optimizer as TO
@@ -67,16 +74,20 @@ def host(tree) -> dict:
 
 
 def placement(case: dict, mesh) -> dict:
-    """``param_sharding``'s specs of the params and moments at ``MIN_FSDP``."""
+    """``train_step.placement``'s specs of the params and moments at
+    ``MIN_FSDP``."""
     cfg = case_config(case)
-    shapes = TS.state_shapes(cfg, train_config(case["opts"]))
-    return {k: param_sharding(shapes[k], mesh, cfg, min_fsdp_size=MIN_FSDP)
-            for k in ("params", "opt")}
+    tc = train_config(case["opts"])
+    return TS.placement(cfg, tc, mesh, TS.state_shapes(cfg, tc)["params"],
+                        min_fsdp_size=MIN_FSDP)
 
 
-def run_case(case: dict, mesh, rank: int, world: int, out: dict, tag: str, specs=None):
-    """Two steps of the case on this rank's rows: the W-rank step with its
-    state placed by ``specs``, or without them the one-process step."""
+def run_case(case: dict, mesh, rank: int, world: int, out: dict, tag: str, specs=None,
+             record: bool = False):
+    """Two steps of the case on this rank's rows: the step over the mesh's
+    ranks with its state placed by ``specs``, or without them the
+    one-process step. ``record``: the collectives of each step
+    (``collectives<s>/record/<kind>`` and ``collectives<s>/counts/<kind>``)."""
     cfg = case_config(case)
     tc = train_config(case["opts"])
     gb = len(case["batch"]["labels"])
@@ -89,10 +100,21 @@ def run_case(case: dict, mesh, rank: int, world: int, out: dict, tag: str, specs
         step = TS.make_train_step(cfg, tc, Mesh(("data",), (1,)), gb)
         state = fresh_state(case, tc)
     tables = dist_program(tcore, case["weights"]).device_tables("cpu")
-    b = gb // world
-    rows = {k: v[rank * b:(rank + 1) * b] for k, v in case["batch"].items()}
+    w = data_extent(mesh) if specs is not None else world
+    r = rank_of(mesh) if specs is not None else rank
+    b = gb // w
+    rows = {k: v[r * b:(r + 1) * b] for k, v in case["batch"].items()}
     for s in range(STEPS):
-        state, met = step(state, rows, tables)
+        DP.reset_counts()
+        if record:
+            with CollectiveRecord() as rec:
+                state, met = step(state, rows, tables)
+            for k, v in rec.stats().ops.items():
+                out[f"{tag}/collectives{s}/record/{k}"] = np.asarray(v)
+            for k, v in DP.COUNTS.items():
+                out[f"{tag}/collectives{s}/counts/{k.replace('_', '-')}"] = np.asarray(v)
+        else:
+            state, met = step(state, rows, tables)
         for k, v in met.items():
             out[f"{tag}/{s}/{k}"] = v.detach().numpy()
         # the whole state after each step (``state<s>``)
@@ -114,7 +136,29 @@ def main(rank: int, world: int, init_file: str, out_dir: str) -> None:
             make_debug_mesh(world + 1, 1)
         except ValueError as exc:
             out["other_world_refused"] = np.asarray(str(exc))
+        meshes = {}
         for name, case in cases.items():
+            for dm in case.get("meshes", ()):  # made in one order on every rank
+                if dm not in meshes:
+                    meshes[dm] = make_debug_mesh(*dm)
+            for dm in case.get("meshes", ()):
+                tag = f"{name}@{dm[0]}x{dm[1]}"
+                specs = placement(case, meshes[dm])
+                state = run_case(case, meshes[dm], rank, world, out, tag, specs, record=True)
+                if case.get("ckpt") == dm:
+                    # a save of the stepped blocks (whole, by the first rank), then a
+                    # restore into fresh blocks on the same mesh
+                    ckpt.save(str(out_dir / "ckpt_tp"), STEPS, state_ckpt(state), specs=specs,
+                              mesh=meshes[dm])
+                    dist.barrier()  # written before any rank reads it
+                    back = TS.shard_state(fresh_state(case, train_config(case["opts"])), specs,
+                                          meshes[dm])
+                    ckpt.restore_into(str(out_dir / "ckpt_tp"), state_ckpt(back), specs=specs,
+                                      mesh=meshes[dm])
+                    for k, v in host(TS.gather_state(back, specs, meshes[dm])).items():
+                        out[f"{tag}/restored/{k}"] = v
+            if "meshes" in case:
+                continue
             specs = placement(case, mesh)
             state = run_case(case, mesh, rank, world, out, name, specs)
             if world == 1:  # the one-process step on the same case
