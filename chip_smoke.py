@@ -129,6 +129,14 @@ result:
                 never; median step ms (steps 1-3, 8-9), trained tokens/s,
                 peak memory against the state's reckoning, the checkpoint's
                 save and restore seconds
+ 9b. serve_tp   serving under the placement (launch/serve_step.py) over a
+                one-rank NCCL group on make_debug_mesh(1, 1): Yi-6B width,
+                8 of 32 layers (bf16, random weights), a prefill of 4 x
+                2048 tokens and 8 decode steps; the logits of every step
+                and every decode-state leaf bit for bit the one-process
+                prefill/decode_step's, flash_attention once a layer in the
+                prefill on wgmma; prefill ms, decode step ms, peak memory,
+                collectives by kind
  10. moe        the MoE family, after the earlier phases' tensors are
                 freed: the Mixtral smoke config served card == CPU;
                 dispatch_plan at the pack's shapes (a 4000-token prefill's
@@ -2478,6 +2486,136 @@ def train_dp(torch, np, full_ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 9b: serving under the placement
+# ---------------------------------------------------------------------------
+
+# Yi-6B at published width, 8 of its 32 layers (bf16, random weights): a
+# prefill of 4 x 2048 tokens, then 8 decode steps
+SERVE_TP_LAYERS, SERVE_TP_BATCH, SERVE_TP_SEQ, SERVE_TP_STEPS = 8, 4, 2048, 8
+
+
+def serve_tp(torch, np):
+    """The placed serving step (``launch/serve_step.py``) over a one-rank
+    NCCL process group (a FileStore under build/, no network) on
+    ``make_debug_mesh(1, 1)``: Yi-6B width at SERVE_TP_LAYERS, params and
+    decode state placed by ``serve_step.placement``, against the one-process
+    ``prefill``/``decode_step`` on the same weights and tokens: the logits
+    of every step and every cache leaf bit for bit; ``flash_attention``
+    launched once a layer in the prefill, on ``wgmma``. Prints the prefill
+    ms, the median decode step ms (each path after a warm-up run), the peak
+    memory and the collectives by kind (``dp.COUNTS``, and the record of
+    one more untimed run). Returns the launches of the compared placed
+    run."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis.collectives import CollectiveRecord
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import dp as DP
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve_step as SS
+    from repro_torch.launch import shardspecs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.tree import flat_paths, stack
+
+    t_phase = time.perf_counter()
+    cfg = get_config("yi-6b").with_(n_layers=SERVE_TP_LAYERS)
+    b, t, steps = SERVE_TP_BATCH, SERVE_TP_SEQ, SERVE_TP_STEPS
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (b, t), generator=g, device="cuda", dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab, (steps, b), generator=g, device="cuda",
+                         dtype=torch.int32)
+    fresh = lambda: M.init_decode_state(cfg, b, t + steps, "cuda")
+
+    def run(prefill, decode, state):
+        """The logits of the prefill and of each decode step, the final
+        state, the prefill's ms and each decode step's."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = prefill(state)
+        torch.cuda.synchronize()
+        ms, out = [(time.perf_counter() - t0) * 1e3], [logits]
+        for i in range(steps):
+            t0 = time.perf_counter()
+            logits, state = decode(toks[i], state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+        return out, state, ms
+
+    with torch.no_grad():
+        one_process = (lambda st: M.prefill(params, {"tokens": prompt}, st, cfg),
+                       lambda tk, st: M.decode_step(params, tk, st, cfg))
+        run(*one_process, fresh())  # warm-up
+        plain, plain_state, plain_ms = run(*one_process, fresh())
+    flat = lambda st: {k: stack(v) for k, v in flat_paths(shardspecs._as_tree(st)).items()}
+
+    store_dir = ROOT / "build" / "serve_tp"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_dir / "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        check(mesh.group is not None, "serve_tp: make_debug_mesh(1, 1) bound no group")
+        specs = SS.placement(cfg, mesh, params, fresh())
+        mine = shd.shard_tree(params, specs["params"], mesh)
+        step = SS.ServeStep(cfg, mesh, specs, global_batch=b)
+        placed = (lambda st: step.prefill(mine, {"tokens": prompt}, st),
+                  lambda tk, st: step.decode(mine, tk, st))
+        placed_state = lambda: shardspecs.shard_state(fresh(), specs["state"], mesh)
+        run(*placed, placed_state())  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        DP.reset_counts()
+        got, state, ms = run(*placed, placed_state())
+        launches = dict(_lib.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        collectives = dict(DP.COUNTS)
+        whole = shardspecs.gather_state(state, specs["state"], mesh)
+        with CollectiveRecord() as rec:  # one more run, not timed
+            run(*placed, placed_state())
+        recorded = rec.stats().to_json()
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
+    differ = [i for i, (a, p) in enumerate(zip(got, plain)) if not torch.equal(a, p)]
+    check(not differ, f"serve_tp: the logits of steps {differ} differ from the one-process "
+                      "step's")
+    want = flat(plain_state)
+    leaves_differ = [k for k, v in flat(whole).items() if not torch.equal(v, want[k])]
+    check(not leaves_differ, f"serve_tp: decode-state leaves {leaves_differ} differ from the "
+                             "one-process step's")
+    check(launches.get("flash_attention") == cfg.n_layers
+          and launches.get("flash_attention_wgmma") == cfg.n_layers,
+          f"serve_tp: flash launches {launches} (once a layer in the prefill, on wgmma)")
+    check(all(bool(torch.isfinite(x).all()) for x in got), "serve_tp: logits not finite")
+    del params, mine, plain_state, state, whole
+    torch.cuda.empty_cache()
+    say("[serve_tp] " + json.dumps(dict(
+        run=f"yi-6b width, {cfg.n_layers} of 32 layers, bf16, random weights: "
+            "serve_step on make_debug_mesh(1, 1) over a one-rank NCCL group",
+        batch=b, seq=t, decode_steps=steps,
+        equal_to_one_process="the logits of the prefill and of every decode step and every "
+                             "decode-state leaf bit for bit",
+        prefill_ms=ms[0], decode_step_ms_median=statistics.median(ms[1:]),
+        decode_step_ms=ms[1:], one_process_prefill_ms=plain_ms[0],
+        one_process_decode_step_ms_median=statistics.median(plain_ms[1:]),
+        ms_of="host clock around a step that ends on the card, after one warm-up run of "
+              "each path",
+        peak_mem_gb=peak_gb, collectives_by_kind=collectives,
+        collectives_recorded=recorded["ops"],
+        launches={k: v for k, v in launches.items() if v},
+        phase_s=time.perf_counter() - t_phase), sort_keys=True))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the MoE family
 # ---------------------------------------------------------------------------
 
@@ -3242,6 +3380,7 @@ def main() -> int:
         fabric_launches = fabric_phase(torch, np)
         train_launches, train_paths = train_phase(torch, np)
         train_dp_launches = train_dp(torch, np, train_paths[0]["ms"])
+        serve_tp_launches = serve_tp(torch, np)
         moe_launches, moe_plans, moe_flash, moe_paths = moe_phase(torch, np)
         results["dispatch_plan"]["moe_shapes"] = moe_plans
         results["flash_attention"]["mixtral_prefill"] = moe_flash
@@ -3263,6 +3402,7 @@ def main() -> int:
                               + simnet_launches.get(name, 0) + controld_launches[name]
                               + fabric_launches.get(name, 0) + train_launches.get(name, 0)
                               + train_dp_launches.get(name, 0)
+                              + serve_tp_launches.get(name, 0)
                               + moe_launches[name] + family_launches[name]),
                     **results[name])
                for name in REPLACES]
@@ -3273,6 +3413,8 @@ def main() -> int:
             row["launches_train"] = train_launches[row["name"]]
         if train_dp_launches.get(row["name"]):  # of which in the data-parallel step
             row["launches_train_dp"] = train_dp_launches[row["name"]]
+        if serve_tp_launches.get(row["name"]):  # of which in the placed serving step
+            row["launches_serve_tp"] = serve_tp_launches[row["name"]]
         if moe_launches[row["name"]]:  # of which in the MoE phase
             row["launches_moe"] = moe_launches[row["name"]]
         if family_launches[row["name"]]:  # of which in the families phase
@@ -3280,6 +3422,7 @@ def main() -> int:
         if row["name"] == "flash_attention":  # of which through the wgmma design
             row["launches_wgmma"] = (loop_launches["flash_attention_wgmma"]
                                      + serve_launches["flash_attention_wgmma"]
+                                     + serve_tp_launches.get("flash_attention_wgmma", 0)
                                      + moe_launches["flash_attention_wgmma"]
                                      + family_launches["flash_attention_wgmma"])
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,11 @@ same ``to_json()`` keys) with the reference's ring factors per device:
     reduce-scatter:     F = s*g (s: the shard);       wire = F*(g-1)/g
     all-to-all:         F = the buffer;               wire = F*(g-1)/g
 
-(the port issues no collective-permute, whose wire is F). A group of one
+(the port issues no collective-permute, whose wire is F). The serving
+step's collectives are the same calls: ``seqpar``'s reduce-scatters of the
+residual stream, ``widetp``'s all-reduces over every rank, and the merge of
+a sequence-split decode (an all-reduce of the max, then one of the rescaled
+sums) each count as their kind. A group of one
 rank moves nothing and is skipped, as in the reference. Each call counts
 once (an eager step has no loop to weight), so ``dynamic_ops``
 equals ``ops``. It records on any device, the meta device of a dry run on

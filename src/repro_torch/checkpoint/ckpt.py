@@ -227,7 +227,7 @@ def restore_into(directory: str, tree, *, step: int | None = None, specs=None,
         for k, leaf in like.items():
             arr = arrays[k]
             for dim_of, n_ranks, r in axes:
-                d = dim_of(placed[k], mesh, k) if k in placed and n_ranks > 1 else None
+                d = dim_of(placed[k], mesh) if k in placed and n_ranks > 1 else None
                 if d is not None:
                     n = arr.shape[d] // n_ranks
                     arr = np.take(arr, range(r * n, (r + 1) * n), axis=d)

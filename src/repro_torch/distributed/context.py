@@ -6,7 +6,9 @@ reference annotates activations with *logical* axis names
 ``ShardingRules`` maps logical names to physical mesh axes. PyTorch has no
 GSPMD to take such a constraint: ``constrain`` is a no-op here, kept so the
 rules and their resolution to placement specs (``ShardingRules.spec``) carry
-over and are tested against the reference. The training step places params
+over and are tested against the reference. The sequence-parallel layout that
+``logical_rules(seq_axis="model")`` names is carried out by the model code
+itself under the placed serving step (``distributed/tp.py``'s ``seq``). The training step places params
 and moments itself (``sharding.shard_tree``), and its activations are each
 rank's rows of the batch, which is the placement the "batch" rule names.
 """

@@ -18,7 +18,9 @@ tuple of axes or None per dim), equal to the reference's
 ``PartitionSpec``s. ``shard_tree`` carries a placement out on both axes (a
 rank keeps its (data, model) block of each leaf: FSDP along the dim the spec
 puts on the data axes, tensor parallelism along the dim it puts on "model"),
-and ``gather_tree`` undoes it on the axes asked for; the training step
+and ``gather_tree`` undoes it on the axes asked for (a ``wide_tp`` dim,
+on the data axes and "model" at once, is cut data-major: block
+``data_rank * model_ranks + model_rank``); the training step
 (``train/train_step.py``) holds params and moments so, gathers the data
 axes for its forward and backward and keeps the model slices
 (``distributed/tp.py``). ``moment_sharding`` places an optimizer moment as
@@ -42,7 +44,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed import dp
 from repro_torch.distributed.context import ShardingRules
-from repro_torch.tree import flat_paths, stacked_shape, tree_map, unflatten_paths
+from repro_torch.tree import flat_paths, leaves, stacked_shape, tree_map, unflatten_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,38 +214,46 @@ def moment_sharding(param_specs, eight_bit: bool) -> dict:
 
 # -- carrying a placement out on the mesh ---------------------------------------
 
-def _dim_on(spec, axes: set, path: str) -> Optional[int]:
-    """The dim of ``spec`` that names any of ``axes`` (None: none does); a
-    dim that also names another axis is refused."""
+def _dim_on(spec, axes: set) -> Optional[int]:
+    """The dim of ``spec`` that names any of ``axes`` (None: none does)."""
     for i, s in enumerate(spec):
         named = set(s) if isinstance(s, tuple) else {s}
         if s is not None and named & axes:
-            if named - axes:
-                raise NotImplementedError(f"{path}: spec {spec} puts {sorted(named & axes)} "
-                                          f"and {sorted(named - axes)} on one dim")
             return i
     return None
 
 
-def data_dim(spec, mesh: Mesh, path: str) -> Optional[int]:
-    """The dim of ``spec`` on the data axes (None: replicated over them).
-    A dim that also names "model" (``wide_tp``) is refused."""
-    return _dim_on(spec, set(data_axes(mesh)), path)
+def data_dim(spec, mesh: Mesh) -> Optional[int]:
+    """The dim of ``spec`` on the data axes (None: replicated over them),
+    a dim that also names "model" (``wide_tp``) included."""
+    return _dim_on(spec, set(data_axes(mesh)))
 
 
-def model_dim(spec, mesh: Mesh, path: str) -> Optional[int]:
-    """The dim of ``spec`` on "model" (None: replicated over it)."""
-    return _dim_on(spec, {"model"}, path)
+def model_dim(spec, mesh: Mesh) -> Optional[int]:
+    """The dim of ``spec`` on "model" (None: replicated over it), a dim
+    that also names the data axes (``wide_tp``) included."""
+    return _dim_on(spec, {"model"})
+
+
+def wide_dim(spec, mesh: Mesh) -> Optional[int]:
+    """The dim of ``spec`` that names both the data axes and "model"
+    (``wide_tp``: split over every rank of the mesh, data-major), or None."""
+    d = data_dim(spec, mesh)
+    return d if d is not None and d == model_dim(spec, mesh) else None
+
+
+_DIM_OF = {"data": data_dim, "model": model_dim, "wide": wide_dim}
 
 
 def placed_dims(tree, specs, mesh: Mesh, axis: str = "data"):
     """Per leaf of ``tree`` (the port's layout), the tensor dim that its spec
     (``specs``: the reference's stacked layout) places on the data axes
-    (``axis="data"``) or on "model" (``axis="model"``), or None. A spec on a
-    list dim (whole layers per rank) is refused: the port's per-layer list
-    holds the same keys on every layer."""
+    (``axis="data"``), on "model" (``axis="model"``) or on both at once
+    (``axis="wide"``), or None; a wide dim counts for "data" and "model"
+    too. A spec on a list dim (whole layers per rank) is refused: the
+    port's per-layer list holds the same keys on every layer."""
     flat = flat_paths(specs)
-    dim_of = data_dim if axis == "data" else model_dim
+    dim_of = _DIM_OF[axis]
 
     def walk(x, path, depth):
         if isinstance(x, dict):
@@ -253,7 +263,7 @@ def placed_dims(tree, specs, mesh: Mesh, axis: str = "data"):
         if x is None:
             return None
         key = "/".join(path)
-        d = dim_of(flat[key], mesh, key)
+        d = dim_of(flat[key], mesh)
         if d is not None and d < depth:
             raise NotImplementedError(
                 f"{key}: spec {flat[key]} places list dim {d} (whole layers per rank) on the "
@@ -293,7 +303,9 @@ def shard_tree(tree, specs, mesh: Mesh):
     """This rank's block of every leaf: its slice (an owned copy) along the
     dim that the leaf's spec places on the data axes and along the one it
     places on "model"; a replicated leaf, or any leaf with one rank, is the
-    leaf itself."""
+    leaf itself. A dim on both (``wide_tp``) is cut over the data ranks,
+    then each piece over the model ranks: block ``data_rank * model_ranks
+    + model_rank``, the order of the spec's axes."""
     placed_dims(tree, specs, mesh)  # a spec on a list dim is refused with one rank too
     out = tree
     for axis, n_ranks, r, _group in _axes(mesh, ("data", "model")):
@@ -312,10 +324,16 @@ def shard_tree(tree, specs, mesh: Mesh):
 def gather_tree(tree, specs, mesh: Mesh, axes=("data", "model")):
     """The inverse of ``shard_tree`` on ``axes``: every leaf whole along
     them on every rank (an ``all_gather`` over the axis's group per placed
-    leaf)."""
+    leaf; "model" first, so that a wide leaf's pieces join in
+    ``shard_tree``'s order). A wide leaf is gathered on both axes or on
+    none: ``axes=("data",)`` refuses it."""
     placed_dims(tree, specs, mesh)
+    if set(axes) != {"data", "model"} and any(
+            d is not None for d in leaves(placed_dims(tree, specs, mesh, "wide"))):
+        raise NotImplementedError(f"a wide leaf (data and model on one dim) gathers on both "
+                                  f"axes, not on {tuple(axes)} alone")
     out = tree
-    for axis, _n, _r, group in _axes(mesh, axes):
+    for axis, _n, _r, group in reversed(_axes(mesh, axes)):
         dims = placed_dims(out, specs, mesh, axis)
 
         def gather(x, d, group=group):

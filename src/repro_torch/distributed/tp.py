@@ -1,12 +1,13 @@
-"""Tensor parallelism on the mesh's "model" axis in the training step.
+"""Tensor parallelism on the mesh's "model" axis: the training step and
+the placed serving step.
 
 The reference's step is one program with its params placed on ("data",
 "model"), and GSPMD partitions every product. The port runs one process
-per rank: the step (``train/train_step.py``) gathers each param over the
-data axes and keeps its slice on "model" (``sharding.placed_dims(...,
-"model")``), and the model code reads from the current ``TP`` which leaves
-are so split and issues the collectives that the split needs, Megatron's
-way:
+per rank: the step (``train/train_step.py``, ``launch/serve_step.py``)
+gathers each param over the data axes and keeps its slice on "model"
+(``sharding.placed_dims(..., "model")``), and the model code reads from the
+current ``TP`` which leaves are so split and issues the collectives that
+the split needs, Megatron's way:
 
   * a column-parallel product (a leaf split on its output dim: q heads,
     ``d_ff``, an expert's ``ff``) takes a replicated input through
@@ -30,7 +31,26 @@ rank of a model group holds the same rows and computes the same residual
 stream, so the gradient of a replicated tensor is whole on every rank.
 Every collective goes through ``distributed.dp``'s counted functions.
 
-With no ``TP`` current (one process, serving, a model extent of 1) the
+Serving (under ``torch.no_grad``) adds three layouts, each a field of the
+``TP``:
+
+  * ``wide`` (``wide_tp``): leaves split over every rank of the mesh
+    (data-major). A product on such a leaf gathers the batch's rows over
+    the data ranks (``rows_all``), and its partial sums are added over all
+    ranks (one ``all_reduce``) before each rank keeps its rows
+    (``rows_mine``): the activations move, not the weights;
+  * ``seq`` (``seqpar``, Megatron's sequence parallelism): the residual
+    stream holds this rank's ``T / size`` tokens between blocks. A block
+    gathers them (``full``: one ``all_gather``) before its column
+    products, and its row products end in a ``reduce_scatter`` over the
+    tokens (``exit``) where they would all-reduce; a block that runs whole
+    keeps its rank's part of the output (``part``);
+  * ``kv_seq``: the KV caches' sequence split over the data ranks (a batch
+    that does not split over them, ``long_500k``). Each data rank attends
+    over its slots and the ranks merge their partial softmaxes
+    (``layers.attention``'s ``merge``).
+
+With no ``TP`` current (one process, a model extent of 1 in training) the
 model code runs as it did. The current ``TP`` is a module global, as
 ``dp.Slots`` is: a CUDA backward runs in autograd's own thread, and a
 checkpointed block recomputed there must see it too.
@@ -83,18 +103,55 @@ class _Gather(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
+class Group:
+    """``size`` ranks of a process group (None: the default group) and this
+    one's ``rank`` among them."""
+
+    group: object
+    rank: int
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Wide:
+    """The leaves split over every rank of the mesh (``wide_tp``):
+    ``dims``, ``id(leaf) -> dim``; ``ranks``: all of them, this rank's
+    block being ``data_rank * model_ranks + model_rank``."""
+
+    dims: dict
+    ranks: Group
+
+
+@dataclasses.dataclass(frozen=True)
 class TP:
     """The model group of this step: its ``size`` ranks, this one's
     ``rank``, and ``dims``: ``id(leaf) -> dim`` of every param leaf that the
-    step holds as its slice on "model" (a leaf not in it is whole)."""
+    step holds as its slice on "model" (a leaf not in it is whole, or
+    ``wide``). Serving's layouts (module docstring): ``wide``; ``rows``,
+    the data ranks over which the batch's rows split (None: every rank
+    holds every row); ``seq``; ``kv_seq``, the data ranks over which the KV
+    caches' sequence splits."""
 
     group: object
     rank: int
     size: int
     dims: dict
+    wide: Optional[Wide] = None
+    rows: Optional[Group] = None
+    seq: bool = False
+    kv_seq: Optional[Group] = None
 
     def dim(self, leaf: torch.Tensor) -> Optional[int]:
         return self.dims.get(id(leaf))
+
+    def kind(self, leaf: torch.Tensor) -> Optional[str]:
+        """"model" (split over the model group), "wide" (over every rank)
+        or None (whole)."""
+        if id(leaf) in self.dims:
+            return "model"
+        if self.wide is not None and id(leaf) in self.wide.dims:
+            return "wide"
+        return None
 
     def span(self, n: int) -> tuple:
         """This rank's [lo, hi) of ``n`` items split evenly over the ranks."""
@@ -117,19 +174,72 @@ class TP:
 
     def whole(self, leaf):
         """A leaf whole, for a use that every rank runs alike."""
+        if self.kind(leaf) == "wide":  # serving: no gradient
+            return torch.cat(dp.all_gather(leaf, self.wide.ranks.group),
+                             dim=self.wide.dims[id(leaf)])
         d = self.dim(leaf)
         return leaf if d is None else _Gather.apply(leaf, self.group, d, self.rank, False)
 
+    # -- serving's layouts -----------------------------------------------------
+
+    def full(self, x):
+        """A residual-stream tensor ``[B, T', ...]`` with all its tokens:
+        under ``seq`` the model ranks' parts joined (one ``all_gather``)."""
+        return torch.cat(dp.all_gather(x, self.group), dim=1) if self.seq else x
+
+    def part(self, x):
+        """This rank's tokens of a whole ``[B, T, ...]`` under ``seq``."""
+        if not self.seq:
+            return x
+        n = x.shape[1] // self.size
+        return x.narrow(1, self.rank * n, n)
+
+    def last(self, x):
+        """The stream's last token ``[B, 1, ...]``: under ``seq`` the last
+        model rank's (one ``all_gather`` of each rank's last)."""
+        return dp.all_gather(x[:, -1:], self.group)[-1] if self.seq else x[:, -1:]
+
+    def rows_all(self, x):
+        """Every data rank's rows of ``x`` (dim 0), in rank order."""
+        if self.rows is None:
+            return x
+        return torch.cat(dp.all_gather(x, self.rows.group), dim=0)
+
+    def rows_mine(self, x):
+        """This data rank's rows of a ``rows_all`` tensor."""
+        if self.rows is None:
+            return x
+        n = x.shape[0] // self.rows.size
+        return x.narrow(0, self.rows.rank * n, n)
+
+    def enter(self, leaf, x):
+        """The input of a column product on a split ``leaf``."""
+        return self.to_parallel(x) if self.kind(leaf) == "model" else self.rows_all(x)
+
+    def exit(self, leaf, y):
+        """The ranks' partial outputs of the row product that pairs with a
+        split ``leaf`` added: over the model group (a ``reduce_scatter`` of
+        the tokens under ``seq``), or for a wide leaf over every rank, this
+        rank's rows (and tokens) kept."""
+        if self.kind(leaf) == "model":
+            return dp.reduce_scatter(y, self.group, 1) if self.seq else self.from_parallel(y)
+        y = dp.all_reduce(y.contiguous(), self.wide.ranks.group)
+        return self.part(self.rows_mine(y))
+
     def embed(self, table, tokens):
         """Rows of a vocab-split table: each rank looks up the tokens in
-        its rows (zeros elsewhere), and one ``all_reduce`` adds them."""
-        lo, n = self.rank * table.shape[0], table.shape[0]
+        its rows (zeros elsewhere), and the ranks add them (``exit``; a
+        wide table looks up every data rank's tokens)."""
+        wide = self.kind(table) == "wide"
+        tokens = self.rows_all(tokens) if wide else tokens
+        n = table.shape[0]
+        lo = (self.wide.ranks.rank if wide else self.rank) * n
         local = tokens.long() - lo
         ok = (local >= 0) & (local < n)
         rows = table[local.clamp(0, n - 1)]
         rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                             device=rows.device))
-        return self.from_parallel(rows)
+        return self.exit(table, rows)
 
     def vocab_stats(self, logits, labels):
         """From vocab-split logits ``[..., V / size]`` (f32) and labels
@@ -148,6 +258,12 @@ class TP:
         lse = m + torch.log(se)
         return lab - lse, lse
 
+    def vocab_whole(self, leaf, logits):
+        """Logits whole on the vocab from a product on a vocab-split head
+        (the input's rows gathered first for a wide one: ``enter``)."""
+        if self.kind(leaf) == "model":
+            return torch.cat(dp.all_gather(logits, self.group), dim=-1)
+        return self.rows_mine(torch.cat(dp.all_gather(logits, self.wide.ranks.group), dim=-1))
 
 _current: Optional[TP] = None
 
@@ -170,3 +286,4 @@ def whole(leaf):
     """``leaf`` whole on every rank (``TP.whole``); the leaf itself with
     no ``TP`` current."""
     return leaf if _current is None else _current.whole(leaf)
+

@@ -19,11 +19,21 @@ A sharded mesh runs in one process as rank 0 of torch's fake process group
 (``fake_world``: 256 or 512 ranks on a ``FakeStore``, whose collectives
 move nothing): ``launch.mesh``'s factories bind the mesh
 (``make_production_mesh``, ``make_dp_mesh`` for ``dponly``,
-``make_hybrid_mesh`` for ``tpN``), the state is placed by
-``jit_train_step``'s specs and rank 0 keeps its blocks, and its step runs
-tensor-parallel on "model" (``distributed/tp.py``) on its rows of the batch
+``make_hybrid_mesh`` for ``tpN``) and the cell runs on rank 0's blocks
 inside ``analysis.collectives.CollectiveRecord``, which records each
-collective with its bytes and its group's size.
+collective with its bytes and its group's size:
+
+- train: the state placed by ``jit_train_step``'s specs, the step
+  tensor-parallel on "model" (``distributed/tp.py``) on data rank 0's rows;
+- prefill, decode: the placed serving step (``launch/serve_step.py``):
+  params by ``param_sharding(min_fsdp_size=2**24)``, the decode state by
+  ``shardspecs.placed_state_shardings`` (``long_500k``'s batch of one puts
+  the cache's sequence on the data axes), data rank 0's rows.
+
+The serving variants, as the reference's: ``widetp`` (TP dims over every
+axis, no FSDP), ``seqpar`` (the residual stream split over "model" in the
+prefill), ``moegroup`` (``moe_dispatch_groups`` = the data extent). Each
+token of a variant joins with ``+``.
 
 The kernel wrappers take their plain versions on meta tensors, so nothing
 computes; an operation whose result lies off the meta device fails the cell.
@@ -41,15 +51,17 @@ temporaries are not counted), ``collectives`` (the record's
 Usage:
     python -m repro_torch.launch.dryrun --arch yi_6b --shape prefill_32k --out DIR
     python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k --mesh single
+    python -m repro_torch.launch.dryrun --arch yi_6b --shape long_500k --mesh single \
+        --variant seqpar
     python -m repro_torch.launch.dryrun --all --out DIR
-    python -m repro_torch.launch.dryrun --all --mesh both    # the train_4k cells
+    python -m repro_torch.launch.dryrun --all --mesh both
 
 Variants: ``baseline`` and ``rwkvchunk`` (the same cells here: RWKV6
 prefills with the chunked WKV in both, see ``RWKV_CHUNK``); on the sharded
-meshes ``dponly`` and ``tpN``. Not lowered yet, and refused by name
-(ROADMAP.md queue 1, item 1(c), serving under the placement): prefill and
-decode cells on a sharded mesh, and the variants ``seqpar``, ``widetp`` and
-``moegroup``.
+meshes ``dponly``, ``tpN``, ``seqpar``, ``widetp`` and ``moegroup``.
+``seqpar`` is refused in a train cell: the port's sequence parallelism
+runs under ``torch.no_grad`` (serving); ``widetp`` places serving's params
+only, as the reference's does.
 """
 from __future__ import annotations
 
@@ -74,7 +86,9 @@ from repro_torch.core.tables import MemberSpec
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.launch import mesh as LM
+from repro_torch.launch import serve_step as SS
 from repro_torch.launch import shapes as SH
+from repro_torch.launch import shardspecs
 from repro_torch.models import model as M
 from repro_torch.train import optimizer as OPT
 from repro_torch.train import train_step as TS
@@ -95,12 +109,8 @@ CHUNKS = {"train_4k": (1024, 1024), "prefill_32k": (2048, 2048),
 # and ``rwkvchunk`` (the reference's name for it) is the baseline itself
 RWKV_CHUNK = 64
 VARIANTS = ("baseline", "rwkvchunk")
-#: the reference's mesh variants that the sharded meshes lower ("tpN": any N)
-MESH_VARIANTS = ("dponly", "tpN")
-#: the reference's variants that the dry run does not lower yet
-NOT_LOWERED = ("seqpar", "widetp", "moegroup")
-ITEM_1C = ("not lowered yet: serving under the placement is ROADMAP.md queue 1, item 1(c); "
-           "the sharded meshes lower the train_4k cells")
+#: the reference's variants that the sharded meshes lower ("tpN": any N)
+MESH_VARIANTS = ("dponly", "tpN", "seqpar", "widetp", "moegroup")
 
 
 def _arch_id(arch: str) -> str:
@@ -206,9 +216,9 @@ def sharded_mesh(mesh_kind: str, variant: str) -> Mesh:
 def lower_cell(arch: str, shape_name: str, variant: str = "baseline", *, mesh: str = MESH,
                cfg=None) -> dict:
     """The cell's artifact (or ``{"skipped": reason}``) on the one card
-    (``mesh="h100"``) or, for a training cell, on the reference's mesh
-    ``"single"`` or ``"multi"`` (inside ``fake_world`` of its size).
-    ``cfg`` stands in for the arch's published config (a smoke config)."""
+    (``mesh="h100"``) or on the reference's mesh ``"single"`` or
+    ``"multi"`` (inside ``fake_world`` of its size). ``cfg`` stands in for
+    the arch's published config (a smoke config)."""
     refuse(variant, mesh, shape_name)
     cfg = get_config(arch) if cfg is None else cfg
     reason = SH.skip_reason(cfg, shape_name)
@@ -218,23 +228,27 @@ def lower_cell(arch: str, shape_name: str, variant: str = "baseline", *, mesh: s
     qc, kc = CHUNKS[shape_name]
     eight_bit = _arch_id(arch) in EIGHT_BIT
     rwkv_chunk = RWKV_CHUNK if cfg.family == "ssm" else 1
+    toks = _tokens(variant)
+    m = None if mesh == MESH else sharded_mesh(mesh, variant)
+    if m is not None and "moegroup" in toks and cfg.family == "moe":
+        cfg = cfg.with_(moe_dispatch_groups=shd.data_extent(m))
     batch = SH.batch_specs(cfg, shape_name)
     extra = {"rwkv_chunk": rwkv_chunk} if cfg.family == "ssm" else {}
     chips = dp = tp = 1
+    if m is not None:
+        chips, tp = SHARDED[mesh], shd.model_extent(m)
+        dp = chips // tp
     rec = CollectiveRecord()
     if spec.kind == "train":
         tcfg = TS.TrainConfig(adamw=OPT.AdamWConfig(eight_bit=eight_bit), remat=True,
                               lb_ingest=True, q_chunk=qc, k_chunk=kc,
                               rwkv_chunk=rwkv_chunk)
         state = TS.init_train_state(None, cfg, tcfg, device=META)
-        if mesh == MESH:
+        if m is None:
             tables = build_tables(1)
             step = TS.make_train_step(cfg, tcfg, Mesh(("data",), (1,)),
                                       global_batch=spec.global_batch)
         else:
-            m = sharded_mesh(mesh, variant)
-            chips, tp = SHARDED[mesh], shd.model_extent(m)
-            dp = chips // tp
             w = shd.data_extent(m)
             if spec.global_batch % w:
                 raise SystemExit(f"{mesh} {variant}: a global batch of {spec.global_batch} "
@@ -245,33 +259,51 @@ def lower_cell(arch: str, shape_name: str, variant: str = "baseline", *, mesh: s
             rows = spec.global_batch // w
             batch = {k: v[:rows] for k, v in batch.items()}  # data rank 0's rows
             tables = build_tables(w)
-            extra["param_leaves_split"] = {
-                axis: sum(d is not None for d in leaves(shd.placed_dims(
-                    state["params"], step.specs["params"], m, axis)))
-                for axis in ("data", "model")}
+            extra["param_leaves_split"] = _split_leaves(state["params"], step.specs["params"], m)
         arg_bytes = _nbytes(state["params"], state["opt"], batch, tables)
         with rec:
             flops, by_op = _counted(lambda: step(state, batch, tables))
         extra.update(lb_ingest=True, eight_bit_opt=eight_bit)
     else:
         params = M.init_params(cfg, None, device=META)
-        if spec.kind == "prefill" and cfg.encoder_only:
-            arg_bytes = _nbytes(params, batch)
-            fn = lambda: M.forward(params, batch, cfg, remat=False, q_chunk=qc, k_chunk=kc)
-        elif spec.kind == "prefill":
+        state = None
+        if not cfg.encoder_only:
             state = SH.decode_state_specs(cfg, shape_name)
-            if cfg.family == "vlm":
+            if spec.kind == "prefill" and cfg.family == "vlm":
                 state["vision"] = None  # provided via batch at prefill
+        if m is None:
             arg_bytes = _nbytes(params, batch, state)
-            fn = lambda: M.prefill(params, batch, state, cfg, q_chunk=qc, k_chunk=kc,
-                                   rwkv_chunk=rwkv_chunk)
+            if cfg.encoder_only:
+                fn = lambda: M.forward(params, batch, cfg, remat=False, q_chunk=qc, k_chunk=kc)
+            elif spec.kind == "prefill":
+                fn = lambda: M.prefill(params, batch, state, cfg, q_chunk=qc, k_chunk=kc,
+                                       rwkv_chunk=rwkv_chunk)
+            else:
+                fn = lambda: M.decode_step(params, batch["tokens"], state, cfg, q_chunk=qc,
+                                           k_chunk=kc)
+            with torch.no_grad():
+                flops, by_op = _counted(fn)
         else:
-            state = SH.decode_state_specs(cfg, shape_name)
+            specs = {"params": SS.param_specs(cfg, m, params, wide="widetp" in toks)}
+            params = shd.shard_tree(params, specs["params"], m)
+            if state is not None:
+                specs["state"] = shardspecs.placed_state_shardings(cfg, m, state)
+                state = shardspecs.shard_state(state, specs["state"], m)
+            step = SS.ServeStep(cfg, m, specs, global_batch=spec.global_batch,
+                                      seqpar="seqpar" in toks, q_chunk=qc, k_chunk=kc,
+                                      rwkv_chunk=rwkv_chunk)
+            batch = SS.batch_rows(batch, m, spec.global_batch)  # data rank 0's rows
             arg_bytes = _nbytes(params, batch, state)
-            fn = lambda: M.decode_step(params, batch["tokens"], state, cfg, q_chunk=qc,
-                                       k_chunk=kc)
-        with torch.no_grad():
-            flops, by_op = _counted(fn)
+            if cfg.encoder_only:
+                fn = lambda: step.forward(params, batch)
+            elif spec.kind == "prefill":
+                fn = lambda: step.prefill(params, batch, state)
+            else:
+                fn = lambda: step.decode(params, batch["tokens"], state)
+            extra["param_leaves_split"] = _split_leaves(params, specs["params"], m)
+            extra["rows_split"] = SS.rows_split(m, spec.global_batch)
+            with rec:
+                flops, by_op = _counted(fn)
     est = perfmodel.estimate(cfg, shape_name, chips, dp, tp, eight_bit_opt=eight_bit)
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh, "variant": variant,
@@ -286,13 +318,16 @@ def lower_cell(arch: str, shape_name: str, variant: str = "baseline", *, mesh: s
     }
 
 
+def _split_leaves(params, specs, mesh) -> dict:
+    """The count of param leaves placed on each axis ("wide": on both)."""
+    return {axis: sum(d is not None for d in leaves(shd.placed_dims(params, specs, mesh, axis)))
+            for axis in ("data", "model", "wide")}
+
+
 def refuse(variant: str, mesh: str = MESH, shape_name: str = None) -> None:
     """Stops (``SystemExit``) on a cell that the dry run does not lower."""
     toks = _tokens(variant)
-    waiting = sorted(toks & set(NOT_LOWERED))
-    if waiting:
-        raise SystemExit(f"variant {'+'.join(waiting)} on the sharded meshes: {ITEM_1C}")
-    mesh_toks = {t for t in toks if t == "dponly" or _tp_of({t})}
+    mesh_toks = {t for t in toks if t in MESH_VARIANTS or _tp_of({t})}
     other = sorted(toks - set(VARIANTS) - mesh_toks)
     if other:
         raise SystemExit(f"variant {'+'.join(other)}: the dry run knows {VARIANTS} and, on "
@@ -300,9 +335,10 @@ def refuse(variant: str, mesh: str = MESH, shape_name: str = None) -> None:
     if mesh == MESH and mesh_toks:
         raise SystemExit(f"variant {'+'.join(sorted(mesh_toks))} places the reference's "
                          f"sharded meshes: run it with --mesh single|multi|both")
-    if mesh != MESH and shape_name is not None and SH.SHAPES[shape_name].kind != "train":
-        raise SystemExit(f"{shape_name} ({SH.SHAPES[shape_name].kind}) on the sharded mesh "
-                         f"{mesh!r}: {ITEM_1C}")
+    if ("seqpar" in toks and shape_name is not None
+            and SH.SHAPES[shape_name].kind == "train"):
+        raise SystemExit("seqpar in a train cell: the port's sequence parallelism runs under "
+                         "torch.no_grad (the prefill and decode cells)")
 
 
 def main(argv=None):
@@ -311,16 +347,17 @@ def main(argv=None):
     ap.add_argument("--shape", default=None, choices=list(SH.SHAPES))
     ap.add_argument("--mesh", default=MESH, choices=[MESH, "single", "multi", "both"],
                     help="the one card 'h100', or the reference's 256/512-chip meshes "
-                         "(train cells) on torch's fake process group")
+                         "on torch's fake process group")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     args = ap.parse_args(argv)
     archs = ARCH_IDS if args.all or args.arch is None else [args.arch]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    # every shape by default; on the sharded meshes every training shape
+    # every shape by default (under seqpar the serving shapes)
     shapes = [args.shape] if args.shape else [
-        k for k, s in SH.SHAPES.items() if args.mesh == MESH or s.kind == "train"]
+        k for k, s in SH.SHAPES.items() if s.kind != "train" or "seqpar" not in
+        _tokens(args.variant)]
     for mesh in meshes:
         for shape in shapes:
             refuse(args.variant, mesh, shape)

@@ -13,6 +13,13 @@ holds a list per layer, or a list per group (vlm, hybrid), where the
 reference stacks; ``repro_torch.tree`` describes it as the reference's
 paths and stacked shapes (a ``KVCache`` as its four fields). Each path has
 its rule in ``_RULES``, chosen by name and never from a shape.
+
+``shard_state`` carries a placement out on a live state (each rank keeps
+its block of every cache, position and recurrent leaf: a KV cache by batch,
+or by sequence where the batch does not split, and by KV heads) and
+``gather_state`` undoes it; the placed serving step
+(``launch/serve_step.py``) holds its state so, by
+``placed_state_shardings``.
 """
 from __future__ import annotations
 
@@ -139,3 +146,58 @@ def decode_state_shardings(cfg, mesh: shd.Mesh, state_specs) -> dict:
 def batch_shardings(mesh: shd.Mesh, batch_specs) -> dict:
     """The batch dim of every input on the data axes."""
     return {k: shd.batch_sharding(mesh, len(v.shape)) for k, v in batch_specs.items()}
+
+
+# -- carrying the placement out on a live state ---------------------------------
+
+#: the recurrent leaves (Mamba2's ``h`` and ``conv``, RWKV6's ``wkv`` and
+#: shifts) -> their batch dim in the stacked layout. Their blocks run whole
+#: on every model rank (``distributed/tp.py``), so the placed serving step
+#: holds them by batch on the data axes (when it divides) and whole over
+#: "model", where the reference's specs split heads or features on "model"
+#: (and its cache rule, which also takes ``ssm/conv`` and ``wkv``, would put
+#: a group or head dim on the data axes).
+_RECURRENT = {"ssm/h": -4, "ssm/conv": -3, "wkv": 1, "tshift": 1, "cshift": 1}
+
+
+def placed_state_shardings(cfg, mesh: shd.Mesh, state) -> dict:
+    """The specs by which the placed serving step holds a decode state:
+    ``decode_state_shardings``' for the KV caches, their positions, the
+    lanes' positions and ``vision``, and for the recurrent leaves
+    (``_RECURRENT``) the batch on the data axes when it divides, else
+    nothing."""
+    flat = flat_paths(decode_state_shardings(cfg, mesh, state))
+    d_ax = shd.data_axes(mesh)
+    d_axes = d_ax if len(d_ax) > 1 else (d_ax[0] if d_ax else None)
+    shapes = flat_paths(_as_tree(state))
+    for path, b_ax in _RECURRENT.items():
+        if path in flat:
+            shape = stacked_shape(shapes[path])
+            spec = [None] * len(shape)
+            if _div(shape[b_ax], shd.data_extent(mesh)):
+                spec[b_ax] = d_axes
+            flat[path] = tuple(spec)
+    return unflatten_paths(flat)
+
+
+def _like(tree, like):
+    """``tree`` (``_as_tree``'s layout) with a ``KVCache`` wherever ``like``
+    has one."""
+    if isinstance(like, KVCache):
+        return KVCache(**tree)
+    if isinstance(like, dict):
+        return {k: _like(tree[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        return [_like(t, v) for t, v in zip(tree, like)]
+    return tree
+
+
+def shard_state(state, specs, mesh: shd.Mesh):
+    """This rank's block of every leaf of a decode state (the same whole
+    state on every rank), by ``specs`` (``placed_state_shardings``)."""
+    return _like(shd.shard_tree(_as_tree(state), specs, mesh), state)
+
+
+def gather_state(state, specs, mesh: shd.Mesh):
+    """The inverse of ``shard_state``, on every rank (collective)."""
+    return _like(shd.gather_tree(_as_tree(state), specs, mesh), state)

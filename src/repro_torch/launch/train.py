@@ -23,6 +23,8 @@ launcher trains over W data-parallel ranks: a process group (gloo with
 ``--device cpu``, NCCL with ``--device cuda``, one card per rank), the
 ("data", "model") mesh (W, 1), params and moments placed by
 ``param_sharding``, checkpoints written whole by rank 0; rank 0 prints.
+The ranks end together, their groups released before the process group is
+destroyed.
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.train --demo --steps 12 --batch 4 --seq 16 \
@@ -31,6 +33,7 @@ launcher trains over W data-parallel ranks: a process group (gloo with
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import tempfile
 
@@ -99,7 +102,17 @@ def main(argv=None):
     losses = [h["loss"] for h in hist]
     say(f"steps={len(losses)} loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     if ranks:
+        # Every rank done with its collectives, and no group left referenced
+        # when the process group goes: a gloo group that outlives
+        # ``destroy_process_group`` is torn down at interpreter exit, after
+        # the runtime its threads need, and the process aborts ("terminate
+        # called without an active exception", seen on ~1 in 20 two-rank
+        # runs under load, after the run's last line was printed).
+        dist.barrier()
+        del tr, mesh
+        gc.collect()
         dist.destroy_process_group()
+        return None
     return tr
 
 

@@ -13,11 +13,16 @@ caches in place (the JAX package returns new arrays), so a decode step does
 not copy the cache; a caller that needs the old cache clones it first.
 
 Under tensor parallelism (a ``distributed.tp.TP`` current: the training
-step on a mesh whose "model" axis has several ranks) the MLP is column- then
-row-parallel on ``d_ff``, and attention runs this rank's q heads
-(``_project``): whole-head KV slices stay local, KV split within a head is
-gathered and the rank takes the heads its q heads read, and where the q
-heads do not split evenly the block runs whole on every rank.
+step or the placed serving step on a mesh whose "model" axis has several
+ranks) the MLP is column- then row-parallel on ``d_ff``, and attention runs
+this rank's q heads (``_project``): whole-head KV slices stay local, KV
+split within a head is gathered and the rank takes the heads its q heads
+read (a cache then holds every KV head, and each rank reads its own), and
+where the q heads do not split evenly the block runs whole on every rank.
+A KV cache whose sequence is split over the data ranks (``TP.kv_seq``) is
+written by the rank that holds each token's ring slot (``_write_split``),
+and a decode step merges the ranks' partial softmaxes (``attention``'s
+``merge``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import dp as _dp
 from repro_torch.distributed import tp as _tp
 from repro_torch.kernels import flash_attention as _flash
 
@@ -107,25 +113,34 @@ def mlp_init(generator, d_model: int, d_ff: int, act: str, n_layers: int, dtype,
 
 def mlp(params, x, act: str):
     par = _tp.current()
-    split = par is not None and par.dim(params["w_up"]) is not None
-    if split:  # column-parallel in, row-parallel out
-        x = par.to_parallel(x)
+    kind = None if par is None else par.kind(params["w_up"])
+    if par is not None:
+        x = par.full(x)
+    if kind:  # column-parallel in, row-parallel out
+        x = par.enter(params["w_up"], x)
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")  # jax.nn.gelu's default
-    return par.from_parallel(h @ params["w_down"]) if split else h @ params["w_down"]
+    y = h @ params["w_down"]
+    if kind:
+        return par.exit(params["w_up"], y)
+    return y if par is None else par.part(y)
 
 
 # ---------------------------------------------------------------------------
 # Chunked online-softmax attention (the plain path: decode, SWA)
 # ---------------------------------------------------------------------------
 
-def _attn_chunk_scan(q, k, v, qpos, kpos, kvalid, *, causal, window, k_chunk, scale):
+def _attn_chunk_scan(q, k, v, qpos, kpos, kvalid, *, causal, window, k_chunk, scale,
+                     merge=None):
     """Online softmax over k chunks.
 
     q: [B, Hkv, G, Tq, hd]; k/v: [B, Tk, Hkv, hd]; qpos [B, Tq]; kpos [B, Tk];
-    kvalid bool[B, Tk]. Returns [B, Hkv, G, Tq, hd] (f32).
+    kvalid bool[B, Tk]. Returns [B, Hkv, G, Tq, hd] (f32). ``merge``: a
+    process group whose ranks hold the other parts of the keys; their
+    partial softmaxes are merged (the max, then the rescaled sums and
+    weighted outputs, one ``all_reduce`` each) before the division.
     """
     b, hkv, g, tq, hd = q.shape
     tk = k.shape[1]
@@ -151,16 +166,24 @@ def _attn_chunk_scan(q, k, v, qpos, kpos, kvalid, *, causal, window, k_chunk, sc
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgqc,bchd->bhgqd", p, vb.to(F32))
         m = m_new
+    if merge is not None:
+        m_all = _dp.all_reduce(m.clone(), merge, op=torch.distributed.ReduceOp.MAX)
+        c = torch.exp(m - m_all)
+        sums = _dp.all_reduce(torch.cat([acc * c[..., None], (l * c)[..., None]], dim=-1), merge)
+        acc, l = sums[..., :-1], sums[..., -1]
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return torch.where(l[..., None] > 0, out, torch.zeros_like(out))
 
 
 def attention(q, k, v, *, qpos, kpos, kvalid=None, causal: bool = True,
-              window: Optional[int] = None, q_chunk: int = 1024, k_chunk: int = 1024):
+              window: Optional[int] = None, q_chunk: int = 1024, k_chunk: int = 1024,
+              merge=None):
     """GQA attention. q: [B, Tq, Hq, hd]; k/v: [B, Tk, Hkv, hd].
 
     qpos/kpos: int[B, Tq]/[B, Tk] absolute positions (ring caches pass
     per-slot positions; invalid slots masked by kvalid). Returns [B, Tq, Hq, hd].
+    ``merge``: the process group over which the keys are split (a
+    sequence-split cache); see ``_attn_chunk_scan``.
     """
     b, tq, hq, hd = q.shape
     hkv = k.shape[2]
@@ -171,7 +194,7 @@ def attention(q, k, v, *, qpos, kpos, kvalid=None, causal: bool = True,
     qg = q.permute(0, 2, 1, 3).reshape(b, hkv, g, tq, hd)
     outs = [_attn_chunk_scan(qg[..., s:s + q_chunk, :], k, v, qpos[:, s:s + q_chunk],
                              kpos, kvalid, causal=causal, window=window,
-                             k_chunk=k_chunk, scale=scale)
+                             k_chunk=k_chunk, scale=scale, merge=merge)
             for s in range(0, tq, q_chunk)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
     return out.reshape(b, hq, tq, hd).permute(0, 2, 1, 3).to(q.dtype)
@@ -229,39 +252,75 @@ def _kv_heads(lo: int, hi: int, group: int) -> list:
     return uniq if idx == [u for u in uniq for _ in range(per)] else idx
 
 
-def _project(params, x, src, cfg):
+def _project(params, x, src, cfg, all_kv: bool = False):
     """q ``[B, T, H, hd]`` from ``x``, k and v ``[B, Nk, Hk, hd]`` from
-    ``src`` and the output projection ``o [B, T, H * hd] -> [B, T, d]``, as
-    this rank runs them: every head with no tensor parallelism; under it
-    (``distributed.tp``) the rank's q heads and the KV heads they read
-    (``_kv_heads``), the output summed over the ranks. Where the q heads do
-    not split over the ranks, the block runs whole on every rank."""
-    b, t, _ = x.shape
-    nk = src.shape[1]
+    ``src``, the output projection ``o [B, T, H * hd] -> [B, T, d]`` and
+    ``sel``, as this rank runs them: every head with no tensor parallelism
+    (``sel`` None); under it (``distributed.tp``) the rank's q heads and
+    the KV heads they read (``_kv_heads``), the output summed over the
+    ranks. ``all_kv`` (a cache that holds every KV head: GQA's KV heads do
+    not split over the ranks) gives every KV head, and ``sel`` names the
+    ones the rank's q heads read. Where the q heads do not split over the
+    ranks, the block runs whole on every rank. Under ``seq`` the block
+    takes the stream's tokens whole and its output is the rank's part."""
+    b = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     par = _tp.current()
+    if par is not None:
+        whole_x = par.full(x)
+        src = whole_x if src is x else src
+        x = whole_x
+    t, nk = x.shape[1], src.shape[1]
     if par is None or par.dim(params["wq"]) is None or hq % par.size:
         w = {n: params[n] if par is None else par.whole(params[n])
              for n in ("wq", "wk", "wv", "wo")}
         q = (x @ w["wq"]).reshape(b, t, hq, hd)
         k = (src @ w["wk"]).reshape(b, nk, hkv, hd)
         v = (src @ w["wv"]).reshape(b, nk, hkv, hd)
-        return q, k, v, lambda o: o @ w["wo"]
+        if par is None:
+            return q, k, v, lambda o: o @ w["wo"], None
+        return q, k, v, lambda o: par.part(o @ w["wo"]), None
     lo, hi = par.span(hq)
     xp = par.to_parallel(x)
     sp = xp if src is x else par.to_parallel(src)
     q = (xp @ params["wq"]).reshape(b, t, hi - lo, hd)
+    local = par.dim(params["wk"]) is not None and hkv % par.size == 0  # whole heads
+    heads = None if local else _kv_heads(lo, hi, hq // hkv)
 
     def kv(name):
         w = params[name]
-        if par.dim(w) is not None and hkv % par.size == 0:  # whole heads: local
+        if local:
             return (sp @ w).reshape(b, nk, hkv // par.size, hd)
-        heads = _kv_heads(lo, hi, hq // hkv)
+        if all_kv:
+            return (sp @ par.whole(w)).reshape(b, nk, hkv, hd)
         w = par.gather_to_parallel(w)
         w = torch.cat([w[:, h * hd:(h + 1) * hd] for h in heads], dim=-1)
         return (sp @ w).reshape(b, nk, len(heads), hd)
 
-    return q, kv("wk"), kv("wv"), lambda o: par.from_parallel(o @ params["wo"])
+    sel = heads if all_kv else None
+    return q, kv("wk"), kv("wv"), lambda o: par.exit(params["wo"], o @ params["wo"]), sel
+
+
+def _write_split(cache: "KVCache", k, v, positions, kv_seq) -> None:
+    """The tail of ``k``/``v`` ``[B, T, H, hd]`` (``positions`` ``[B, T]``,
+    consecutive along each row) written into a ring cache whose slots are
+    split over the data ranks ``kv_seq``: this rank holds slots
+    ``[rank * n, (rank + 1) * n)`` of the ring's ``n * size``, and writes
+    only the tokens that land there (each slot takes at most one of the
+    last ``size`` tokens). Dense in the slots: no data-dependent shape."""
+    b, n = cache.k.shape[:2]
+    size = n * kv_seq.size
+    t = k.shape[1]
+    keep = min(t, size)
+    start = positions[:, t - keep].long()
+    slots = kv_seq.rank * n + torch.arange(n, device=k.device)
+    off = (slots[None, :] - start[:, None]) % size  # [B, n]: the tail token that lands there
+    hit = off < keep
+    src = (t - keep) + off.clamp(max=keep - 1)
+    idx = src[..., None, None].expand(b, n, *k.shape[2:])
+    for dst, new in ((cache.k, k), (cache.v, v)):
+        dst.copy_(torch.where(hit[..., None, None], new.gather(1, idx), dst))
+    cache.pos.copy_(torch.where(hit, positions.gather(1, src).to(torch.int32), cache.pos))
 
 
 def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] = None,
@@ -279,16 +338,26 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
     run the plain windowed ``attention`` (the kernel has no window, as the
     Pallas kernel has none).
     """
-    b, t, d = x.shape
-    q, k, v, out = _project(params, x, x, cfg)
+    q, k, v, out, sel = _project(params, x, x, cfg, all_kv=cache is not None)
+    b, t = q.shape[:2]
     q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
     k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
 
+    par = _tp.current()
+    kv_seq = None if par is None else par.kv_seq
     new_cache = None
     bidx = torch.arange(b, device=x.device)[:, None]
     if cache is None:
         kk, vv = k, v
         kpos, kvalid = positions, None
+    elif kv_seq is not None:
+        # the cache's sequence split over the data ranks: each writes the
+        # tokens that land on its slots; a decode step attends over them
+        # and the ranks merge their partial softmaxes
+        _write_split(cache, k, v, positions, kv_seq)
+        new_cache = dataclasses.replace(cache, length=cache.length + t)
+        kk, vv = (k, v) if t > 1 else (cache.k, cache.v)
+        kpos, kvalid = (positions, None) if t > 1 else (cache.pos, cache.pos >= 0)
     elif t > 1:
         # Prefill: attend over the fresh sequence (a ring cache smaller than
         # T would otherwise evict keys that early queries still need), then
@@ -313,13 +382,17 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
         new_cache = dataclasses.replace(cache, length=cache.length + t)
         kk, vv = cache.k, cache.v
         kpos, kvalid = cache.pos, cache.pos >= 0
+    if sel is not None:  # every KV head cached; the rank's q heads read these
+        idx = torch.tensor(sel, device=x.device)
+        kk, vv = kk.index_select(2, idx), vv.index_select(2, idx)
 
     if flash and t > 1 and (cfg.swa_window is None or t <= cfg.swa_window):
-        o = _flash.flash_attention(q, k, v, causal=cfg.causal)
+        o = _flash.flash_attention(q, kk, vv, causal=cfg.causal)
     else:
+        merge = kv_seq.group if kv_seq is not None and cache is not None and t == 1 else None
         o = attention(q, kk, vv, qpos=positions, kpos=kpos, kvalid=kvalid,
                       causal=cfg.causal, window=cfg.swa_window,
-                      q_chunk=q_chunk, k_chunk=k_chunk)
+                      q_chunk=q_chunk, k_chunk=k_chunk, merge=merge)
     return out(o.reshape(b, t, -1)), new_cache
 
 
@@ -328,10 +401,10 @@ def cross_attention_block(params, x, kv_src, cfg, *, q_chunk=1024, k_chunk=1024)
     mask: the keys are the RMS-normed ``kv_src`` at position 0, attended
     non-causally through the plain ``attention`` (the kernel takes one T for
     queries and keys; here they are T and Nv)."""
-    b, t, d = x.shape
     nv = kv_src.shape[1]
     src = rms_norm(kv_src, params["kv_norm"], cfg.norm_eps)
-    q, k, v, out = _project(params, x, src, cfg)
+    q, k, v, out, _sel = _project(params, x, src, cfg)
+    b, t = q.shape[:2]
     zeros_q = torch.zeros((b, t), dtype=torch.int32, device=x.device)
     zeros_k = torch.zeros((b, nv), dtype=torch.int32, device=x.device)
     o = attention(q, k, v, qpos=zeros_q, kpos=zeros_k, causal=False,

@@ -31,11 +31,16 @@ per layer call on the card); ``forward`` sums its aux loss over the layers,
 the cached path drops it, as the reference does. The audio family has no
 decode path, as in the reference.
 
-Under tensor parallelism (``distributed.tp``, the training step only) a
-vocab-split ``embed`` is a masked lookup plus one ``all_reduce``, a
-vocab-split ``head`` gives this rank's columns of the logits, and
-``train_loss`` takes the cross-entropy and z-loss from the shards'
-``[B, T]`` statistics (``TP.vocab_stats``).
+Under tensor parallelism (``distributed.tp``: the training step and the
+placed serving step, ``launch/serve_step.py``) a vocab-split ``embed`` is a
+masked lookup plus one ``all_reduce``, a vocab-split ``head`` gives this
+rank's columns of the logits (gathered whole on the vocab by the cached
+path), and ``train_loss`` takes the cross-entropy and z-loss from the
+shards' ``[B, T]`` statistics (``TP.vocab_stats``). Under ``seqpar`` the
+residual stream holds the rank's part of the tokens (``TP.part``), which
+stands for the reference's ``constrain(x, ("batch", "seq", None))``
+points: the embedding reduce-scatters it, each block gathers it, and the
+cached path's head reads the last token from the last model rank.
 """
 from __future__ import annotations
 
@@ -257,13 +262,16 @@ def to_device(tree, device):
 
 def _embed(params, batch, cfg):
     """Token or stub-frontend embedding. batch: dict with 'tokens' [B,T] int
-    or 'embeds' [B,T,d] (audio frames / any precomputed stream)."""
-    if "embeds" in batch:
-        return batch["embeds"].to(_dtype(cfg))
+    or 'embeds' [B,T,d] (audio frames / any precomputed stream). Under
+    ``seqpar`` (``distributed.tp``) the rank's part of the tokens."""
     par = tp.current()
-    if par is not None and par.dim(params["embed"]) is not None:
+    if "embeds" in batch:
+        x = batch["embeds"].to(_dtype(cfg))
+        return x if par is None else par.part(x)
+    if par is not None and par.kind(params["embed"]) is not None:
         return par.embed(params["embed"], batch["tokens"])
-    return params["embed"][batch["tokens"].long()]
+    x = params["embed"][batch["tokens"].long()]
+    return x if par is None else par.part(x)
 
 
 def _vocab_split(params) -> bool:
@@ -271,17 +279,20 @@ def _vocab_split(params) -> bool:
     return par is not None and par.dim(params["head"]) is not None
 
 
-def _head_logits(params, x, cfg):
+def _head_logits(params, x, cfg, whole: bool = False):
     """The logits in f32: this rank's vocab columns when ``head`` is split
-    over "model"."""
+    over "model", unless ``whole`` (serving) gathers every column."""
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    if _vocab_split(params):
-        x = tp.current().to_parallel(x)
+    par = tp.current()
+    kind = None if par is None else par.kind(params["head"])
+    if kind:
+        x = par.enter(params["head"], x)
     # The JAX package takes f32 logits from bf16 operands
     # (preferred_element_type=f32): each bf16 x bf16 product is exact in f32
     # and the sum is kept in f32. Upcasting both operands to f32 exactly and
     # taking an f32 product computes the same.
-    return torch.matmul(x.to(F32), params["head"].to(F32))
+    logits = torch.matmul(x.to(F32), params["head"].to(F32))
+    return par.vocab_whole(params["head"], logits) if kind and whole else logits
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
@@ -424,7 +435,7 @@ def step_with_cache(params, batch, state, cfg: ModelConfig, *,
     states returned anew. A vlm batch carries ``vision_embeds`` at its
     prefill; later steps reuse the stored ones."""
     x = _embed(params, batch, cfg)
-    b, t, _ = x.shape
+    b, t = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
     pos0 = state["pos"]  # int32[B] — lanes advance independently
     positions = pos0[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
     new_state: dict[str, Any] = dict(state)
@@ -482,7 +493,9 @@ def step_with_cache(params, batch, state, cfg: ModelConfig, *,
     else:
         raise ValueError(cfg.family)
 
-    logits = _head_logits(params, x[:, -1:, :], cfg)
+    par = tp.current()
+    last = x[:, -1:, :] if par is None else par.last(x)
+    logits = _head_logits(params, last, cfg, whole=True)
     return logits[:, 0], new_state
 
 

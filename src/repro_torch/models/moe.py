@@ -125,7 +125,33 @@ def _stream_offsets(gate_idx: torch.Tensor, n_experts: int, slots) -> torch.Tens
 
 def moe_ffn(params, x, cfg):
     """x: [B, T, d] -> ([B, T, d], {"aux_loss", "dropped"}): the Switch-style
-    load-balance loss and the count of assignments past capacity."""
+    load-balance loss and the count of assignments past capacity.
+
+    Under serving's layouts (``distributed.tp``): with ``seq`` the layer
+    routes the stream's tokens whole and keeps the rank's part of the
+    output; with the experts split over every rank (``wide``) it routes
+    every data rank's rows (one process's dispatch over the batch) and
+    keeps this rank's."""
+    par = tp.current()
+    kind = None if par is None else par.kind(params["w_up"])
+    y_in = x
+    if par is not None:
+        x = par.full(x)
+    if kind == "wide":
+        with dp.use_slots(None):
+            y, aux = _routed(params, par.rows_all(x), cfg)
+        y = par.rows_mine(y)
+    else:
+        y, aux = _routed(params, x, cfg)
+    if par is not None:
+        y = par.part(y)
+    if cfg.moe_dense_residual:
+        y = y + L.mlp(params["dense"], y_in, cfg.act)
+    return y, aux
+
+
+def _routed(params, x, cfg):
+    """``moe_ffn``'s routed experts over the tokens of ``x``."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n = b * t
@@ -177,8 +203,8 @@ def moe_ffn(params, x, cfg):
     # tokens' k slots, before the gates: far fewer rows than the buffer's
     # capacity, and the gates' gradient sees the whole output
     par = tp.current()
-    split = par is not None and par.dim(params["w_up"]) is not None
-    src = (par.to_parallel(xt) if split else xt).reshape(g, ng, d).repeat(1, k, 1).reshape(
+    kind = None if par is None else par.kind(params["w_up"])
+    src = (par.to_parallel(xt) if kind == "model" else xt).reshape(g, ng, d).repeat(1, k, 1).reshape(
         g * k * ng, d)
     buf = x.new_zeros(spill + 1, d).index_copy(
         0, torch.where(keep, slot, spill).reshape(-1), src)
@@ -188,17 +214,16 @@ def moe_ffn(params, x, cfg):
 
     # Gather back and combine with the gates; dropped assignments give 0.
     got = out_buf.index_select(0, torch.where(keep, slot, 0).reshape(-1))
-    if split:
+    if kind == "model":
         got = par.from_parallel(got)
+    elif kind == "wide":
+        got = dp.all_reduce(got.contiguous(), par.wide.ranks.group)
     got = torch.where(keep.reshape(-1, 1), got, torch.zeros((), dtype=got.dtype,
                                                             device=got.device))
     gates_g = gate_vals.reshape(g, ng, k).transpose(1, 2).reshape(g, k * ng)
     combined = (got.to(F32).view(g, k * ng, d) * gates_g[..., None]).view(
         g, k, ng, d).sum(1)
     y = combined.to(x.dtype).reshape(b, t, d)
-
-    if cfg.moe_dense_residual:
-        y = y + L.mlp(params["dense"], x, cfg.act)
 
     # Aux: Switch-style load-balance loss + drop accounting. Over several
     # ranks, ``me`` is this rank's share of the mean router prob and ``ce``

@@ -167,9 +167,9 @@ def rwkv6_channel_mix(params, x, cfg, *, state=None):
     xk = _lerp(x, xs, mu[0])
     xr = _lerp(x, xs, mu[1])
     par = tp.current()
-    if par is not None and par.dim(params["ck"]) is not None:
-        kk = torch.square(torch.relu(par.to_parallel(xk) @ params["ck"]))
-        kv = par.from_parallel(kk @ params["cv"])
+    if par is not None and par.kind(params["ck"]) is not None:
+        kk = torch.square(torch.relu(par.enter(params["ck"], xk) @ params["ck"]))
+        kv = par.exit(params["ck"], kk @ params["cv"])
     else:
         kk = torch.square(torch.relu(xk @ params["ck"]))
         kv = kk @ params["cv"]

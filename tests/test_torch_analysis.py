@@ -282,15 +282,17 @@ def test_cli_writes_the_skipped_cell_and_refuses_sharded_meshes(tmp_path, capsys
     (art,) = RR.load_artifacts(str(tmp_path))
     assert art["skipped"] == RSH.skip_reason(r_get_config("yi_6b"), "long_500k")
     assert "skipped" in art and "cost" not in art
-    for argv in (["--mesh", "single"], ["--mesh", "both"], ["--variant", "dponly"],
-                 ["--variant", "rwkvchunk+seqpar"], ["--variant", "tp4"]):
+    # the sharded meshes' variants on the one card (the decode cell on the
+    # sharded meshes lowers: tests/test_torch_serve_tp.py)
+    for argv in (["--variant", "dponly"], ["--variant", "rwkvchunk+seqpar"],
+                 ["--variant", "tp4"], ["--variant", "widetp"], ["--variant", "moegroup"]):
         with pytest.raises(SystemExit) as e:
             D.main(["--arch", "yi_6b", "--shape", "decode_32k", "--out", str(tmp_path)] + argv)
         assert "sharded" in str(e.value.code)
     with pytest.raises(SystemExit):
         D.lower_cell("yi_6b", "decode_32k", "widetp")
-    with pytest.raises(SystemExit, match="item 1\\(c\\)"):
-        D.lower_cell("yi_6b", "train_4k", "moegroup", mesh="single")
+    with pytest.raises(SystemExit, match="seqpar in a train cell"):
+        D.lower_cell("yi_6b", "train_4k", "seqpar", mesh="single")
 
 
 def test_cli_accepts_the_train_cell_on_the_sharded_meshes(tmp_path, monkeypatch):

@@ -633,6 +633,71 @@ def test_one_rank_nccl_step_equals_the_one_process_step(tmp_path, arch, over):
     assert all(torch.equal(a, b) for a, b in zip(got[1], plain[1]))
 
 
+@pytest.mark.parametrize("arch", ["yi_6b", "mixtral_8x22b", "zamba2_2_7b",
+                                  "llama_3_2_vision_90b"])
+def test_one_rank_nccl_serve_step_equals_the_one_process_step(tmp_path, arch):
+    """``launch.serve_step`` over a one-rank NCCL group (a FileStore under
+    tmp_path) on ``make_debug_mesh(1, 1)`` against ``prefill`` and
+    ``decode_step`` with no group, on the card: the logits of the prefill
+    and of 3 decode steps and every decode-state leaf bit for bit; the
+    prefill launches ``flash_attention`` once per self-attention layer."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import serve_step as SS
+    from repro_torch.launch import shardspecs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.tree import flat_paths, stack
+
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32))
+             .cuda()}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn(2, cfg.n_vision_tokens, cfg.d_model,
+                                             generator=torch.Generator().manual_seed(1)).cuda()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 2)).astype(np.int32)).cuda()
+
+    def run(prefill, decode):
+        logits, st = prefill(M.init_decode_state(cfg, 2, 16, "cuda"))
+        out = [logits]
+        for tok in toks:
+            logits, st = decode(tok, st)
+            out.append(logits)
+        return out, st
+
+    flat = lambda st: {k: stack(v) for k, v in flat_paths(shardspecs._as_tree(st)).items()
+                       if v is not None}
+    with torch.no_grad():
+        plain, plain_state = run(lambda st: M.prefill(params, batch, st, cfg),
+                                 lambda tk, st: M.decode_step(params, tk, st, cfg))
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        like = dict(M.init_decode_state(cfg, 2, 16, "cuda"))
+        specs = SS.placement(cfg, mesh, params, like)
+        mine = shd.shard_tree(params, specs["params"], mesh)
+        step = SS.ServeStep(cfg, mesh, specs, global_batch=2)
+        before = _lib.LAUNCHES["flash_attention"]
+        got, state = run(lambda st: step.prefill(mine, batch, shardspecs.shard_state(
+            st, specs["state"], mesh)), lambda tk, st: step.decode(mine, tk, st))
+        flash = _lib.LAUNCHES["flash_attention"] - before
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    want = flat(plain_state)
+    assert all(torch.equal(v, want[k]) for k, v in flat(state).items())
+    if cfg.family == "hybrid":  # the shared block's applications
+        n_attn = cfg.n_layers // cfg.attn_every
+    elif cfg.family == "vlm":  # the self-attention layers
+        n_attn = cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    else:
+        n_attn = cfg.n_layers
+    assert flash == n_attn
+
+
 # -- the MoE family: the expert pack through dispatch_plan ---------------------
 
 def _moe_members(n_tokens, n_experts, top_k, groups, seed):
