@@ -81,10 +81,10 @@ result:
                 step); then the full-width straggler
                 traffic (16 DAQs, 128 triggers of 64 kB bundles per window,
                 ~16k jumbo frames, 1.024 GB/s offered, the farm at ~0.7 of
-                capacity): the fused engine at 16 members, 96 windows, K=8
-                (one capture, 12 replays, lb_route / farm_serve /
+                capacity): the fused engine at 16 members, 48 windows, K=8
+                (one capture, 6 replays, lb_route / farm_serve /
                 seq_cumsum / build_calendar in every window), then again
-                traced with live metrics (no capture, the same 12 replays,
+                traced with live metrics (no capture, the same 6 replays,
                 the per-row outputs copied back once per replay and timed),
                 against the host engine, traced and metered, on
                 the card (counters exact, latencies rel 1e-9; spans ids
@@ -193,7 +193,30 @@ result:
                 memory and collective terms (the link term: recorded wire
                 bytes / 450e9 B/s), which must hold recorded wire bytes
                 above 0 with all-gathers, all-reduces and all-to-alls
- 13. result     the `kernels` JSON line, the card line, and the last line
+ 13. drivers    the operator entry points as a user runs them: simnet.run's
+                --compare-frozen, --compare-policy and --tournament
+                proportional,pid,frozen at the straggler preset (a
+                subprocess on the card: every gate of the reference holds)
+                and, through its functions on a built config, at phase 6's
+                full-width traffic (24 windows; controld legs run the host
+                engine): every leg card == CPU (whole report, the CPU's legs
+                in a process of their own), PID not worse than proportional,
+                no leg with a violation, each leg's wall s and windows/s,
+                the closed loop's p99 against frozen printed; the
+                critical-path analyzer (telemetry.analyze_trace) on traced
+                full-width runs (16 windows, head-sampled 1/16): the fused
+                engine's tables equal to the host engine's, the fabric's
+                vlb_spray card == CPU, stage sums within 1% of the
+                end-to-end latency at p50/p99/p99.9, each summary reloaded
+                through --summary to the same tables; controld.run with
+                --device cuda in subprocesses: --demo and a compacted demo
+                at 64 members over 4 instances (every check true), --serve
+                --metrics-port 0 driven over its socket (12 rounds of 64
+                heartbeats) and /metrics scraped, --ha-demo at 64 members
+                (every check true, failover_s); the three examples
+                (examples/*_torch.py --device cuda) exit 0 with their
+                prints; every driver's launches from its launch line
+ 14. result     the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
     python3 chip_smoke.py
@@ -1353,7 +1376,9 @@ SIMNET_SMALL_STEPS = 30
 # (1.024 GB/s offered, ~16k jumbo frames), 10 GbE member links, and a farm
 # whose byte cost puts it at ~0.7 of capacity with the per-packet cost
 SIMNET_OFFERED_BPS = 16 * 128 * 64_000 / 0.128
-SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, SIMNET_K = 16, 96, 8
+# (48 windows: the host engine's traced run costs ~1.5 s a window of host
+# time)
+SIMNET_FUSED_MEMBERS, SIMNET_FUSED_WINDOWS, SIMNET_K = 16, 48, 8
 SIMNET_CPU_WINDOWS = 8
 SIMNET_HOST_MEMBERS, SIMNET_HOST_WINDOWS = 64, 12
 # chain bounds: farm_serve's and seq_cumsum's come from the chain probe
@@ -3328,6 +3353,459 @@ def roofline_sharded(run):
         sort_keys=True))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the operator entry points (drivers), as a user runs them
+# ---------------------------------------------------------------------------
+
+#: the tournament and policy comparison of simnet.run at the simulator's
+#: full-width straggler traffic (phase 6's config; controld legs run the
+#: host engine: sessions are host-side daemons), each leg also on the CPU in
+#: a process of its own, beside the card's, the reports compared whole
+DRIVER_POLICIES = "proportional,pid,frozen"
+DRIVER_WINDOWS = 24
+#: the analyzer's traced full-width runs (fused and host engine), head-
+#: sampled so that their lossless summaries stay a few MB
+ANALYZER_WINDOWS, ANALYZER_SAMPLE = 16, 1 / 16
+ANALYZER_PERCENTILES = (50.0, 99.0, 99.9)
+ANALYZER_MAX_REL_ERR = 0.01
+#: the control plane as a service: the daemon's largest reservation
+CONTROLD_MEMBERS, CONTROLD_INSTANCES = 64, 4
+#: member leases (wall clock) of the demos and the served daemon at 8x the
+#: driver's default: the phase runs its drivers side by side, a member's
+#: lease runs from its registration through the other 63 registrations to
+#: its first heartbeat, and a lapse there would fail a check that has
+#: nothing to do with the card
+CONTROLD_LEASE_S = 2.0
+DRIVER_TIMEOUT_S = 420
+DRIVERS_DIR = ROOT / "build" / "drivers"
+
+
+def _launch_line(text: str) -> dict:
+    """The launch line a driver prints on stderr (the last one)."""
+    from repro_torch.kernels import _lib
+
+    lines = [ln for ln in text.splitlines() if ln.startswith(_lib.LAUNCH_LINE)]
+    check(bool(lines), f"a driver printed no launch line:\n{text[-2000:]}")
+    return json.loads(lines[-1][len(_lib.LAUNCH_LINE):])
+
+
+def _spawn(name, argv):
+    """``python argv`` from the checkout's root in a process group of its
+    own (``_kill`` ends the processes it starts too), its output to files
+    under ``DRIVERS_DIR``; returns (process, start, its out and err paths,
+    its end: set by a thread that waits for it)."""
+    import threading
+
+    out, err = DRIVERS_DIR / f"{name}.out", DRIVERS_DIR / f"{name}.err"
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    proc = subprocess.Popen([sys.executable] + argv, cwd=ROOT, env=env,
+                            stdout=open(out, "w"), stderr=open(err, "w"),
+                            start_new_session=True)
+    end = []
+    threading.Thread(target=lambda: (proc.wait(), end.append(time.perf_counter())),
+                     daemon=True).start()
+    return proc, time.perf_counter(), out, err, end
+
+
+def _kill(proc):
+    """SIGKILL a spawned driver's process group (--ha-demo's nodes with it)."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def _finish(name, run):
+    """Wait for a spawned driver; it must exit 0. Returns (stdout, stderr,
+    its wall s from spawn to exit)."""
+    proc, t0, out, err, end = run
+    try:
+        rc = proc.wait(timeout=DRIVER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _kill(proc)
+        raise SmokeFailure(f"[drivers] {name} ran past {DRIVER_TIMEOUT_S} s")
+    while not end:
+        time.sleep(0.01)
+    wall = end[0] - t0
+    o, e = out.read_text(), err.read_text()
+    check(rc == 0, f"[drivers] {name} exited {rc}:\n{o[-3000:]}\n{e[-3000:]}")
+    return o, e, wall
+
+
+def driver_cpu_legs(path, windows):
+    """The tournament's legs on the CPU (the plain path), in a process of
+    its own: each distinct leg's comparable report, to ``path``."""
+    from repro_torch.simnet import run as sim_run
+
+    cfg, scn = simnet_config(SIMNET_FUSED_MEMBERS, windows, "fused", "cpu", controld=True)
+    report, _ = sim_run.run_leg(cfg, scn)
+    legs = sim_run.Legs(cfg, scn, report)
+    sim_run.frozen_compare(legs)
+    sim_run.policy_compare(legs)
+    sim_run.tournament(legs, DRIVER_POLICIES, scn.name)
+    out = [dict(frozen=c.frozen_weights, policy=c.controld_policy, report=_comparable(r))
+           for c, r in legs.reports()]
+    Path(path).write_text(json.dumps(out))
+
+
+def driver_tournament(torch, cpu_run):
+    """simnet.run's --compare-frozen, --compare-policy and --tournament at
+    the full-width straggler traffic on the card, through the driver's
+    functions on a built config; every leg's report equal to the same leg
+    on the CPU. Returns the launches."""
+    from repro_torch.kernels import _lib
+    from repro_torch.simnet import fused
+    from repro_torch.simnet import run as sim_run
+
+    cfg, scn = simnet_config(SIMNET_FUSED_MEMBERS, DRIVER_WINDOWS, "fused", "cuda",
+                             controld=True)
+    _lib.reset_launches()
+    report, _ = sim_run.run_leg(cfg, scn)
+    legs = sim_run.Legs(cfg, scn, report)
+    frozen, bad_f = sim_run.frozen_compare(legs)
+    compare, bad_p = sim_run.policy_compare(legs)
+    ranked, bad_t = sim_run.tournament(legs, DRIVER_POLICIES, scn.name)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    done = legs.reports()
+    _, _, cpu_wall = _finish("cpu_legs", cpu_run)
+    cpu = json.loads((DRIVERS_DIR / "cpu_legs.json").read_text())
+    legs_line = [dict(policy=c.controld_policy, frozen=c.frozen_weights, engine=r.engine,
+                      wall_s=r.wall_s, windows_per_s=r.steps / r.wall_s,
+                      latency_p50_s=r.latency_p50_s, latency_p99_s=r.latency_p99_s,
+                      bundles_completed=r.bundles_completed,
+                      bundles_timed_out=r.bundles_timed_out,
+                      packets_dropped_queue=r.packets_dropped_queue,
+                      epoch_switches=r.epoch_switches, violations=r.violations)
+                 for c, r in done]
+    say("[drivers] " + json.dumps(dict(
+        run="simnet.run --compare-frozen --compare-policy --tournament " + DRIVER_POLICIES,
+        traffic=f"phase 6's full width: {SIMNET_FUSED_MEMBERS} members, 16 DAQs, 128 "
+                f"triggers of 64 kB bundles a window, {DRIVER_WINDOWS} windows",
+        engine=f"host ({fused.unsupported_reason(cfg, scn)})", legs=legs_line,
+        control=frozen, policy_compare=compare, tournament=ranked["ranked"],
+        cpu_legs_wall_s=cpu_wall, launches={k: v for k, v in launches.items() if v}),
+        sort_keys=True))
+    check(len(done) == 3, f"[drivers] {len(done)} distinct legs, want 3")
+    for c, r in done:
+        check(r.engine == "host" and not r.violations,
+              f"[drivers] leg {c.controld_policy} frozen={c.frozen_weights}: engine "
+              f"{r.engine}, {r.violations}")
+    violations = list(report.violations) + bad_p + bad_t
+    check(not violations, f"[drivers] tournament gates: {violations}")
+    check(report.latency_p99_s > report.latency_p50_s > 0, "[drivers] degenerate p99/p50")
+    check(compare["pid_p99_s"] <= compare["proportional_p99_s"],
+          f"[drivers] PID lost to proportional: {compare}")
+    # --compare-frozen's gate is the straggler preset's promise, held where
+    # the preset runs (driver_preset). At this traffic the reference's own
+    # host engine trails frozen from 12 windows on, with the same legs as the
+    # port (tests/test_torch_simnet_full_width.py), so the outcome is printed
+    say(f"[drivers] closed loop against frozen at full width: p99 gain "
+        f"{frozen['p99_gain_vs_frozen_s']:+.9f} s, the preset's gate "
+        + ("holds" if not bad_f else f"does not hold here, as in the reference's "
+                                     f"host engine at this traffic: {bad_f}"))
+    check(launches["lb_route"] == len(done) * DRIVER_WINDOWS,
+          f"[drivers] lb_route launched {launches['lb_route']} times in {len(done)} legs "
+          f"of {DRIVER_WINDOWS} windows")
+    check(len(cpu) == len(done), "[drivers] the CPU ran other legs")
+    for (c, r), want in zip(done, cpu):
+        check((c.frozen_weights, c.controld_policy) == (want["frozen"], want["policy"])
+              and json.loads(json.dumps(_comparable(r))) == want["report"],
+              f"[drivers] leg {c.controld_policy} frozen={c.frozen_weights}: the card's "
+              f"report differs from the CPU's")
+    say("[drivers] every leg card == CPU (whole report); no leg broke an invariant, PID "
+        "not worse than proportional")
+    return launches
+
+
+def driver_preset(run):
+    """``python -m repro_torch.simnet.run --scenario straggler
+    --compare-frozen --compare-policy --tournament ...`` as a user runs it,
+    at the preset's own size and depth on the card: every gate of the
+    reference (the closed loop beats frozen, PID not worse than
+    proportional, no leg with a violation) must hold. Returns the launches."""
+    _, e, wall = _finish("preset", run)
+    summary = json.loads((DRIVERS_DIR / "preset.json").read_text())
+    launched = _launch_line(e)
+    check(not summary["violations"] and summary["p99_gain_vs_frozen_s"] > 0,
+          f"[drivers] the straggler preset's gates: {summary['violations']}")
+    check(launched["lb_route"] > 0, "[drivers] the preset's legs launched no lb_route")
+    say("[drivers] " + json.dumps(dict(
+        run="python -m repro_torch.simnet.run --scenario straggler --compare-frozen "
+            "--compare-policy --tournament " + DRIVER_POLICIES + " --device cuda",
+        windows=summary["steps"], wall_s=wall, primary_wall_s=summary["wall_s"],
+        p99_gain_vs_frozen_s=summary["p99_gain_vs_frozen_s"],
+        policy_compare=summary["policy_compare"],
+        tournament=summary["tournament"]["ranked"]), sort_keys=True)
+        + " — every gate holds")
+    return launched
+
+
+def _tables(analyze_trace, tb):
+    """The analyzer's tables of a trace and their stage sums' errors."""
+    from repro_torch.telemetry.traceview import format_table
+
+    rows, failures = analyze_trace.analyze(tb, ANALYZER_PERCENTILES, ANALYZER_MAX_REL_ERR)
+    check(not failures, f"[drivers] analyzer: {failures}")
+    return [format_table(d) for d in rows], [d["reconcile_rel_err"] for d in rows]
+
+
+def _reloaded(analyze_trace, tb, name):
+    """The trace through ``--summary-json`` and back through ``--summary``:
+    the tables the reloaded summary prints."""
+    import contextlib
+    import io
+
+    path = DRIVERS_DIR / f"{name}_summary.json"
+    analyze_trace.write_summary(tb, str(path), ANALYZER_PERCENTILES)
+    buf = io.StringIO()
+    argv = ["--summary", str(path)] + [a for p in ANALYZER_PERCENTILES
+                                       for a in ("--percentile", str(p))]
+    with contextlib.redirect_stdout(buf):
+        rc = analyze_trace.main(argv)
+    check(rc == 0, f"[drivers] analyze_trace --summary {name} exited {rc}")
+    return buf.getvalue(), path.stat().st_size
+
+
+def driver_analyzer(torch):
+    """The critical-path analyzer (telemetry.analyze_trace) on traced
+    full-width runs: the fused engine against the host engine on the card,
+    and the fabric's vlb_spray at the analyzer's preset on the card against
+    the CPU: the same tables, stage sums within 1% at p50/p99/p99.9, the
+    summary reloaded to the same tables. Returns the card runs' launches."""
+    import argparse
+    import dataclasses
+
+    from repro_torch.kernels import _lib
+    from repro_torch.simnet import Simulator, fused
+    from repro_torch.telemetry import analyze_trace
+
+    launches, tables, lines = {}, {}, []
+    for engine in ("fused", "host"):
+        cfg, scn = simnet_config(SIMNET_FUSED_MEMBERS, ANALYZER_WINDOWS, engine, "cuda",
+                                 trace=True, trace_sample=ANALYZER_SAMPLE)
+        _lib.reset_launches()
+        sim = Simulator(cfg, dataclasses.replace(scn))
+        replays0 = fused.FUSED_STEP_CALLS
+        # Simulator.run's own engine for the fused config, held here for its
+        # program's launch counts
+        eng = fused.FusedEngine(sim, superblock=SIMNET_K) if engine == "fused" else sim
+        t0 = time.perf_counter()
+        report = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(report.engine == engine and not report.violations,
+              f"[drivers] traced {engine} run: engine {report.engine}, {report.violations}")
+        if engine == "fused":  # a graph's launches tick the counts at capture only
+            n_rep = fused.FUSED_STEP_CALLS - replays0
+            per_run = eng.program.launches_per_run
+            check(n_rep == ANALYZER_WINDOWS // SIMNET_K and all(
+                per_run.get(k, 0) == SIMNET_K for k in SIMNET_KERNELS),
+                f"[drivers] traced fused run: {n_rep} replays of {per_run}")
+            ran = {k: v * n_rep for k, v in per_run.items()}
+        else:
+            ran = dict(_lib.LAUNCHES)
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        tables[engine], errs = _tables(analyze_trace, sim.trace)
+        analyze_s = time.perf_counter() - t0
+        again, size = _reloaded(analyze_trace, sim.trace, engine)
+        check(again == "".join(t + "\n\n" for t in tables[engine]),
+              f"[drivers] the {engine} run's summary reloads to other tables")
+        lines.append(dict(run=f"simnet straggler, {engine} engine", windows=ANALYZER_WINDOWS,
+                          trace_sample=ANALYZER_SAMPLE, wall_s=wall,
+                          spans=len(sim.trace.spans()["key"]), analyze_s=analyze_s,
+                          summary_bytes=size, reconcile_rel_err=errs,
+                          p99_e2e_ms=report.latency_p99_s * 1e3))
+    check(tables["fused"] == tables["host"],
+          "[drivers] the fused engine's tables differ from the host engine's:\n"
+          + "\n".join(tables["fused"]) + "\n" + "\n".join(tables["host"]))
+
+    def fabric(device):
+        args = argparse.Namespace(fabric="vlb_spray", steps=50, seed=0,
+                                  trace_sample=1.0, trace_tail_k=64, device=device)
+        t0 = time.perf_counter()
+        tb = analyze_trace.run_fabric(args)
+        return tb, time.perf_counter() - t0
+
+    _lib.reset_launches()
+    tb, wall = fabric("cuda")
+    torch.cuda.synchronize()
+    check(_lib.LAUNCHES["lb_route"] > 0, "[drivers] the fabric's traced run launched no "
+                                         "lb_route")
+    for k, v in _lib.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    card, errs = _tables(analyze_trace, tb)
+    cpu, _ = _tables(analyze_trace, fabric("cpu")[0])
+    check(card == cpu, "[drivers] the fabric's tables differ card vs CPU")
+    again, size = _reloaded(analyze_trace, tb, "vlb_spray")
+    check(again == "".join(t + "\n\n" for t in card),
+          "[drivers] the fabric's summary reloads to other tables")
+    lines.append(dict(run="fabric vlb_spray (the analyzer's 50 windows)", wall_s=wall,
+                      spans=len(tb.spans()["key"]), summary_bytes=size,
+                      reconcile_rel_err=errs))
+    say("[drivers] " + json.dumps(dict(
+        run="telemetry.analyze_trace", percentiles=ANALYZER_PERCENTILES, legs=lines,
+        launches={k: v for k, v in launches.items() if v}), sort_keys=True)
+        + " — fused tables == host tables, fabric card == CPU, summaries reload equal")
+    say("[drivers] p99 of the traced fused run:\n" + tables["fused"][1])
+    return launches
+
+
+def _serve_and_scrape(run):
+    """Drive a ``--serve --metrics-port 0`` daemon over its socket with the
+    demo's rounds at CONTROLD_MEMBERS members; scrape /metrics; stop it."""
+    import signal
+    import urllib.request
+
+    from repro_torch.controld import ControldClient, SocketClient
+
+    proc, _, out, err, _ = run
+    deadline = time.perf_counter() + DRIVER_TIMEOUT_S
+    while out.read_text().count("\n") < 2:
+        check(proc.poll() is None and time.perf_counter() < deadline,
+              f"[drivers] --serve did not come up:\n{err.read_text()[-3000:]}")
+        time.sleep(0.1)
+    line1, line2 = out.read_text().splitlines()[:2]
+    port = int(line1.split(" on ", 1)[1].split()[0].split(":")[1])
+    url = line2.split(" on ", 1)[1].strip()
+    n, rounds = CONTROLD_MEMBERS, 12
+    client = ControldClient(SocketClient("127.0.0.1", port))
+    token = client.reserve(policy="pid")["token"]
+    for m in range(n):
+        client.register(token, member_id=m, node_id=m, lane_bits=1)
+    client.tick(current_event=0)
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        reply = client.send_state_batch(token, list(range(n)),
+                                        [0.9 if m == 0 else 0.3 for m in range(n)])
+        check(reply["n_accepted"] == n and not reply["rejected"],
+              f"[drivers] --serve rejected heartbeats: {reply}")
+        client.tick(current_event=400 * (r + 1))
+    rounds_s = time.perf_counter() - t0
+    weights = {int(k): v["weight"] for k, v in
+               client.status(token)["sessions"][token]["members"].items()}
+    # the daemon is on this host: no proxy of the environment in between
+    scrape = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    page = scrape.open(url, timeout=10).read().decode()
+    client.close()
+    for want in ('controld_messages_total{kind="send_state_batch"} ' + str(rounds),
+                 f"controld_heartbeats_total {n * rounds}",
+                 f'controld_session_members{{token="{token}"}} {n}',
+                 "controld_handle_seconds_bucket"):
+        check(want in page, f"[drivers] /metrics lacks {want!r}")
+    check(weights[0] < min(weights[m] for m in range(1, n)),
+          "[drivers] --serve: the straggler kept its weight")
+    proc.send_signal(signal.SIGTERM)
+    _, e, wall = _finish("serve", run)
+    series = sorted({ln.split()[2] for ln in page.splitlines() if ln.startswith("# TYPE")})
+    return dict(members=n, rounds=rounds, heartbeats_per_s=n * rounds / rounds_s,
+                round_trip_ms=rounds_s / rounds / 2 * 1e3, series=series,
+                process_lifetime_s=wall, launches=_launch_line(e))
+
+
+def drivers_phase(torch, np):
+    """The operator entry points on the card: controld.run (demo, compacted
+    demo, a served and scraped daemon, HA failover) and the three examples
+    as subprocesses with --device cuda, beside simnet.run's tournament and
+    the analyzer in this process. Returns the launches of the phase."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
+    for d in ("demo", "compacted"):
+        (DRIVERS_DIR / d).mkdir(parents=True)
+    cd = ["-m", "repro_torch.controld.run", "--device", "cuda"]
+    wide = ["--n-instances", str(CONTROLD_INSTANCES), "--n-members", str(CONTROLD_MEMBERS)]
+    leased = wide + ["--lease-s", str(CONTROLD_LEASE_S)]
+    runs = {
+        "cpu_legs": _spawn("cpu_legs", ["-c", "import sys; sys.path.insert(0, 'src'); "
+                                              "import chip_smoke; chip_smoke.driver_cpu_legs("
+                                              f"{str(DRIVERS_DIR / 'cpu_legs.json')!r}, "
+                                              f"{DRIVER_WINDOWS})"]),
+        "preset": _spawn("preset", ["-m", "repro_torch.simnet.run", "--scenario", "straggler",
+                                    "--compare-frozen", "--compare-policy", "--tournament",
+                                    DRIVER_POLICIES, "--device", "cuda", "--json",
+                                    str(DRIVERS_DIR / "preset.json")]),
+        "demo": _spawn("demo", cd + ["--demo"] + leased + [
+            "--journal", str(DRIVERS_DIR / "demo" / "journal.jsonl"),
+            "--json", str(DRIVERS_DIR / "demo.json")]),
+        "demo_compacted": _spawn("demo_compacted", cd + ["--demo"] + leased + [
+            "--compact-every", "16", "--snapshot-dir", str(DRIVERS_DIR / "snapshots"),
+            "--journal", str(DRIVERS_DIR / "compacted" / "journal.jsonl"),
+            "--json", str(DRIVERS_DIR / "demo_compacted.json")]),
+        "serve": _spawn("serve", cd + ["--serve", "--port", "0", "--metrics-port", "0",
+                                       "--journal", str(DRIVERS_DIR / "serve.jsonl")] + leased),
+        "ha_demo": _spawn("ha_demo", cd + ["--ha-demo", "--n-members", str(CONTROLD_MEMBERS),
+                                           "--json", str(DRIVERS_DIR / "ha_demo.json")]),
+        "quickstart": _spawn("quickstart", ["examples/quickstart_torch.py", "--device",
+                                            "cuda"]),
+        "serve_lb": _spawn("serve_lb", ["examples/serve_lb_torch.py", "--device", "cuda"]),
+        "elastic_scaling": _spawn("elastic_scaling", [
+            "examples/elastic_scaling_torch.py", "--device", "cuda", "--ckpt-dir",
+            str(DRIVERS_DIR / "elastic_ckpt")]),
+    }
+    try:
+        total = {}
+
+        def add(name, launches):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            say(f"[drivers] {name} launched " + json.dumps(
+                {k: v for k, v in launches.items() if v}, sort_keys=True))
+
+        add("simnet.run's legs", driver_tournament(torch, runs["cpu_legs"]))
+        runs.pop("cpu_legs")
+        add("simnet.run at the straggler preset", driver_preset(runs.pop("preset")))
+        add("analyze_trace's card runs", driver_analyzer(torch))
+        served = _serve_and_scrape(runs["serve"])
+        runs.pop("serve")
+        add("controld.run --serve", served.pop("launches"))
+        say("[drivers] " + json.dumps(dict(run="controld.run --serve --metrics-port 0 "
+                                           "--device cuda", **served), sort_keys=True))
+        for name in ("demo", "demo_compacted", "ha_demo"):
+            _, e, wall = _finish(name, runs.pop(name))
+            summary = json.loads((DRIVERS_DIR / f"{name}.json").read_text())
+            check(summary["checks"] and all(summary["checks"].values()),
+                  f"[drivers] controld.run {name}: {summary['checks']}")
+            add(f"controld.run {name}", _launch_line(e))
+            keep = {k: summary[k] for k in ("journal_entries", "failover_s", "lease_term_s",
+                                            "leader_killed") if k in summary}
+            say("[drivers] " + json.dumps(dict(run=f"controld.run {name}", wall_s=wall,
+                                               checks=sorted(summary["checks"]), **keep),
+                                          sort_keys=True) + " — every check true")
+        prints = {"quickstart": "event atomicity: OK", "serve_lb": "drained OK",
+                  "elastic_scaling": "trained 50 steps through 4 epochs"}
+        for name, want in prints.items():
+            o, e, wall = _finish(name, runs.pop(name))
+            check(want in o, f"[drivers] {name} did not print {want!r}:\n{o[-2000:]}")
+            launched = _launch_line(e)
+            add(f"examples/{name}_torch.py", launched)
+            say(f"[drivers] examples/{name}_torch.py --device cuda: {wall:.2f} s, "
+                f"printed {want!r}; last lines: " + " | ".join(o.strip().splitlines()[-3:]))
+            if name == "quickstart":
+                # its reassembly is the compute node's host-side numpy plan
+                # (DataPlane.make_reassembler's default, as the reference's):
+                # no seg_masks on this path
+                check(launched["lb_route"] > 0 and launched["seg_masks"] == 0,
+                      f"[drivers] quickstart launched {launched}")
+            if name == "serve_lb":
+                check(launched["lb_route"] > 0 and launched["flash_attention"] > 0,
+                      f"[drivers] serve_lb launched {launched}")
+    finally:
+        for proc, *_ in runs.values():
+            _kill(proc)
+    say(f"[drivers] the daemon (np policy engine) launches no kernel: controld.run's "
+        f"runs touch the card only through CUDA's start; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3388,8 +3866,10 @@ def main() -> int:
         results["flash_attention"].update(family_flash)
         roofline_phase(card, paths + train_paths + moe_paths + family_paths)
         roofline_sharded(sharded)
+        drivers_launches = drivers_phase(torch, np)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
+        print(f"FAIL: {exc}", file=sys.stderr, flush=True)
         return 1
     finally:
         if sharded[0].poll() is None:
@@ -3403,7 +3883,8 @@ def main() -> int:
                               + fabric_launches.get(name, 0) + train_launches.get(name, 0)
                               + train_dp_launches.get(name, 0)
                               + serve_tp_launches.get(name, 0)
-                              + moe_launches[name] + family_launches[name]),
+                              + moe_launches[name] + family_launches[name]
+                              + drivers_launches.get(name, 0)),
                     **results[name])
                for name in REPLACES]
     for row in kernels:
@@ -3419,12 +3900,15 @@ def main() -> int:
             row["launches_moe"] = moe_launches[row["name"]]
         if family_launches[row["name"]]:  # of which in the families phase
             row["launches_families"] = family_launches[row["name"]]
+        if drivers_launches.get(row["name"]):  # of which in the drivers phase
+            row["launches_drivers"] = drivers_launches[row["name"]]
         if row["name"] == "flash_attention":  # of which through the wgmma design
             row["launches_wgmma"] = (loop_launches["flash_attention_wgmma"]
                                      + serve_launches["flash_attention_wgmma"]
                                      + serve_tp_launches.get("flash_attention_wgmma", 0)
                                      + moe_launches["flash_attention_wgmma"]
-                                     + family_launches["flash_attention_wgmma"])
+                                     + family_launches["flash_attention_wgmma"]
+                                     + drivers_launches.get("flash_attention_wgmma", 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

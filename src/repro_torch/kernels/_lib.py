@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -45,6 +46,15 @@ _LIB = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+#: how a driver prints its launches (on stderr, after its run)
+LAUNCH_LINE = "# kernel launches: "
+
+
+def launch_line() -> str:
+    """``LAUNCHES`` as the one line a driver prints when it ends."""
+    return LAUNCH_LINE + json.dumps(LAUNCHES, sort_keys=True)
 
 
 def _nvcc() -> str:

@@ -123,6 +123,8 @@ class TraceBuffer:
         self._thresh = (np.uint64(0xFFFFFFFFFFFFFFFF) if rate >= 1.0
                         else np.uint64(int(rate * float(2**64))))
         self._keep_all = rate >= 1.0
+        #: set by ``from_summary``: the retained keys are those with spans
+        self._summary_keys: Optional[np.ndarray] = None
 
     # -- sampling ----------------------------------------------------------
     def stage_id(self, name: str) -> int:
@@ -199,7 +201,10 @@ class TraceBuffer:
         return ks[order[:self.cfg.tail_k]]
 
     def retained_keys(self) -> np.ndarray:
-        """head-sampled ∪ tail top-k, over every key ever seen."""
+        """head-sampled ∪ tail top-k, over every key ever seen (for a
+        buffer read from a summary: the keys whose spans it holds)."""
+        if self._summary_keys is not None:
+            return self._summary_keys
         seen = [c[1] for c in self._chunks]
         if self._done:
             seen.append(np.concatenate([c[0] for c in self._done]))
@@ -332,6 +337,11 @@ class TraceBuffer:
 
     @classmethod
     def from_summary(cls, d: dict) -> "TraceBuffer":
+        """A summary back as a buffer. The summary holds the spans of the
+        retained bundles and every completion, so the retained bundles are
+        those whose spans it holds: a head-sampled trace reloads to the
+        live tables (the JAX package's reader counts every completion as
+        retained, and finds no spans for an unsampled percentile bundle)."""
         tb = cls(TraceConfig(head_rate=1.0, tail_k=0, compact_every=0))
         tb.stage_names = list(d["stage_names"])
         tb._stage_ids = {s: i for i, s in enumerate(tb.stage_names)}
@@ -346,6 +356,7 @@ class TraceBuffer:
                 np.asarray(sp["t0"], np.float64),
                 np.asarray(sp["t1"], np.float64),
                 np.asarray(sp["aux"], np.int64)))
+        tb._summary_keys = np.unique(np.asarray(sp["key"], np.uint64))
         c = d["completions"]
         if c["key"]:
             tb._done.append((np.asarray(c["key"], np.uint64),

@@ -29,17 +29,25 @@ PATH_STAGES = ("uplink", "wan", "lb", "fabric", "downlink",
 def critical_path(tb: TraceBuffer, key: int) -> Optional[List[Tuple[str, float]]]:
     """``[(stage, seconds), ...]`` along the bundle's critical chain, or
     None if the bundle's spans were not retained / it never completed."""
-    ks, te, td = tb.completions()
+    return _critical_path(tb, key, tb.spans(), tb.completions())
+
+
+def _critical_path(tb, key, sp, completions):
+    """``critical_path`` on the span set and completion table read once by
+    a caller that walks many bundles."""
+    ks, te, td = completions
     hit = np.flatnonzero(ks == np.uint64(key))
     if len(hit) == 0:
         return None
     t_done = float(td[hit[0]])
-    sp = tb.spans()
-    mine = sp["key"] == np.uint64(key)
-    if not mine.any():
+    # the bundle's rows: spans are sorted by key, so they are one slice, in
+    # the order a mask over all spans would give them
+    lo, hi = np.searchsorted(sp["key"], np.uint64(key), side="left"), \
+        np.searchsorted(sp["key"], np.uint64(key), side="right")
+    if lo == hi:
         return None
-    st, pid, t0, t1 = (sp["stage"][mine], sp["pid"][mine],
-                       sp["t0"][mine], sp["t1"][mine])
+    st, pid, t0, t1 = (sp["stage"][lo:hi], sp["pid"][lo:hi],
+                       sp["t0"][lo:hi], sp["t1"][lo:hi])
     svc_id = tb.stage_id("service")
     # critical copy: the service span ending exactly at t_done (duplicate
     # copies of the same segment can finish later; they are off-path)
@@ -58,10 +66,14 @@ def critical_path(tb: TraceBuffer, key: int) -> Optional[List[Tuple[str, float]]
 
 def reconcile(tb: TraceBuffer, key: int) -> Optional[Tuple[float, float, float]]:
     """(stage_sum, e2e, relative_error) for one bundle's critical path."""
-    path = critical_path(tb, key)
+    return _reconcile(tb, key, tb.spans(), tb.completions())
+
+
+def _reconcile(tb, key, sp, completions):
+    path = _critical_path(tb, key, sp, completions)
     if path is None:
         return None
-    ks, te, td = tb.completions()
+    ks, te, td = completions
     i = np.flatnonzero(ks == np.uint64(key))[0]
     e2e = float(td[i] - te[i])
     ssum = float(sum(d for _, d in path))
@@ -96,18 +108,19 @@ def stage_decomposition(tb: TraceBuffer, percentile: float) -> Optional[dict]:
     key = percentile_key(tb, percentile)
     if key is None:
         return None
-    rec = reconcile(tb, key)
-    path = critical_path(tb, key)
+    sp, completions = tb.spans(), tb.completions()
+    rec = _reconcile(tb, key, sp, completions)
+    path = _critical_path(tb, key, sp, completions)
     if rec is None or path is None:
         return None
-    ks, te, td = tb.completions()
+    ks, te, td = completions
     e2e_all = td - te
     pv = float(np.percentile(e2e_all, percentile))
     rk, re2e = tb.retained_completions()
     band = rk[re2e >= pv]
     agg: Dict[str, List[float]] = {}
     for k in band[:256]:                      # bounded host work
-        p = critical_path(tb, int(k))
+        p = _critical_path(tb, int(k), sp, completions)
         if p is None:
             continue
         for sname, dur in p:

@@ -154,6 +154,12 @@ def test_port_imports_without_jax_or_repro():
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "import importlib.util, pathlib\n"
+        "for f in sorted(pathlib.Path('scripts').glob('*_torch.py'))"
+        " + sorted(pathlib.Path('examples').glob('*_torch.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(f.stem, f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    names.append(str(f))\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print(' '.join(names))\n")
@@ -176,8 +182,27 @@ def test_port_imports_without_jax_or_repro():
                 "checkpoint.ckpt", "launch.train", "tree", "models.moe",
                 "configs.mixtral_8x22b", "configs.arctic_480b", "analysis.perfmodel",
                 "analysis.roofline", "launch.shapes", "launch.dryrun", "launch.mesh",
-                "launch.shardspecs", "distributed.dp"):
+                "launch.shardspecs", "distributed.dp", "controld.run",
+                "telemetry.analyze_trace", "simnet.run"):
         assert f"repro_torch.{mod}" in names, mod
+    for f in ("scripts/make_tables_torch.py", "examples/quickstart_torch.py",
+              "examples/serve_lb_torch.py", "examples/elastic_scaling_torch.py"):
+        assert f in names, f
+
+
+def test_port_sources_name_no_jax_or_repro_import():
+    """Imports inside functions too: no line of the port's package, its
+    scripts, its examples or the smoke imports ``jax`` or ``repro``."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+             + sorted((ROOT / "scripts").glob("*_torch.py"))
+             + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
+    assert len(files) > 60
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
+           for m in pat.finditer(f.read_text())]
+    assert not bad, bad
 
 
 def test_calendar_edges_run_without_hypothesis():
