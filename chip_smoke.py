@@ -3,7 +3,8 @@
 
 Drives the port's main paths — the load balancer's closed loop, the
 simulator, the control plane as a service, the two-tier fabric,
-LB-front-door serving of Yi-6B, training with LB ingest, serving of the MoE
+LB-front-door serving of Yi-6B, training with LB ingest (Yi-6B and the moe,
+vlm, hybrid, ssm and audio families), serving of the MoE
 family (Mixtral-8x22B, Arctic) and the vlm, audio, hybrid and ssm families
 (Llama-3.2-Vision-90B, HuBERT-XLarge, Zamba2-2.7B, RWKV6-7B) — through the
 entry points a user calls,
@@ -137,6 +138,25 @@ result:
                 prefill/decode_step's, flash_attention once a layer in the
                 prefill on wgmma; prefill ms, decode step ms, peak memory,
                 collectives by kind
+ 9c. train_families  training of the moe, vlm, hybrid, ssm and audio
+                families with LB ingest, after the earlier phases' tensors
+                are freed: the smoke configs of Mixtral, Arctic,
+                Llama-Vision (fed its vision embeddings), Zamba2, RWKV6
+                (rwkv_chunk 1 and 4) and HuBERT through the Trainer, card
+                == CPU from one checkpoint drawn on the CPU (loss,
+                grad_norm, lr within rtol/atol 2e-4, occupancy exact), a
+                checkpoint at step 2 restored into a fresh trainer whose
+                steps 3-4 equal the live run's (deterministic algorithms);
+                then at published width on the card (bf16, random weights,
+                remat): Mixtral-8x22B 2 of 56 layers with 8-bit moments,
+                Zamba2-2.7B all 54, RWKV6-7B 16 of 32 at rwkv_chunk 64,
+                HuBERT-XLarge all 48 over 4 x 1500 frames: a warm-up step
+                with every leaf's gradient finite and non-zero (HuBERT's
+                token table zero by design), 3 timed steps, one profiled;
+                lb_route once a step, dispatch_plan once for the ingest and
+                twice per MoE layer (forward, remat's recompute),
+                flash_attention never; step ms, tokens/s, peak memory
+                against the state's reckoning, the card's busy share
  10. moe        the MoE family, after the earlier phases' tensors are
                 freed: the Mixtral smoke config served card == CPU;
                 dispatch_plan at the pack's shapes (a 4000-token prefill's
@@ -179,7 +199,8 @@ result:
                 HuBERT-XLarge's encoder over 4 x 1500 frames (no kernel)
  12. roofline   every prefill, decode step, forward and training step
                 measured above (Yi-6B, Mixtral, Llama-Vision, Zamba2,
-                RWKV6, HuBERT; the Yi-6B-width training step) against the
+                RWKV6, HuBERT; the training steps of Yi-6B's width and of
+                phase 9c's four families, 8-bit moments where they ran) against the
                 port's analytic model of its work at its own shape and depth
                 (repro_torch.analysis.perfmodel, chips = dp = tp = 1) on the
                 H100's roofline (analysis.roofline.H100): model FLOPs,
@@ -1688,6 +1709,18 @@ def simnet_kernels(torch, np):
     return {"farm_serve": farm, "seq_cumsum": scan, "build_calendar": cal}
 
 
+def _device_us(torch, prof) -> dict:
+    """The card's kernel, copy and set intervals that ``prof`` (a finished
+    torch.profiler run) recorded, in us by name, read from its raw (kineto)
+    events: the function events that ``prof.events()`` builds from them
+    take over a minute for a training step's ~10^5 launches."""
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            per[e.name()] = per.get(e.name(), 0.0) + (e.end_ns() - e.start_ns()) / 1e3
+    return per
+
+
 def _profiled(torch, fn):
     """``fn()`` under torch.profiler: (its result, wall s, device busy s as
     the sum of the card's kernel, copy and set intervals; one stream)."""
@@ -1699,9 +1732,7 @@ def _profiled(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return out, wall, busy_us / 1e6
+    return out, wall, sum(_device_us(torch, prof).values()) / 1e6
 
 
 def _simnet_line(what, report, wall, busy_s, launches, busy_how, **extra):
@@ -2207,18 +2238,18 @@ def _profiled_kernels(torch, fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    per = _device_us(torch, prof)
     busy_us = sum(per.values())
     ranked = sorted(per.items(), key=lambda kv: -kv[1])[:top]
     return wall, busy_us / 1e6, [[k[:90], v / 1e3, v / busy_us] for k, v in ranked]
 
 
-def _grad_check(torch, O):
-    """Patch ``optimizer.update`` for one call: record, per leaf, whether
-    its gradient is finite and non-zero. Returns (undo, results)."""
+def _checked_step(torch, tr, run, what, exempt=()):
+    """One step of trainer ``tr`` with ``optimizer.update`` patched for the
+    call: every leaf's gradient must be finite and non-zero, but those of
+    the leaves ``exempt`` (indices), which must be finite and zero. Returns
+    the number of leaves."""
+    from repro_torch.train import optimizer as O
     from repro_torch.tree import leaves
 
     orig, seen = O.update, []
@@ -2230,7 +2261,18 @@ def _grad_check(torch, O):
         return orig(grads, state, params, cfg, **kw)
 
     O.update = update
-    return (lambda: setattr(O, "update", orig)), seen
+    try:
+        tr.run(1, **run)
+    finally:
+        O.update = orig
+    ok = seen[0]
+    bad = [i for i in range(len(ok)) if not bool(ok[i].all()) and i not in exempt]
+    check(not bad, f"{what}: {len(bad)} of {len(ok)} leaves have a gradient that is not "
+                   "finite or is zero after the step")
+    for i in exempt:
+        check(bool(ok[i, 0]) and not bool(ok[i, 1]),
+              f"{what}: exempt leaf {i}'s gradient is not finite and zero")
+    return len(ok)
 
 
 def _timed_steps(torch, tr, times):
@@ -2300,14 +2342,7 @@ def train_full(torch, np):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = sum(p.numel() for p in leaves(tr.state["params"]))
-    undo, grads_ok = _grad_check(torch, O)
-    try:
-        tr.run(1, **run)
-    finally:
-        undo()
-    ok = grads_ok[0]
-    check(bool(ok.all()), f"full train: {int((~ok).any(1).sum())} of {len(ok)} leaves have a "
-                          "gradient that is not finite or is zero after step 1")
+    n_leaves = _checked_step(torch, tr, run, "full train: step 1")
     t0 = time.perf_counter()
     tr.run(2, **run)                          # steps 2-3; run() waits for step 3's save
     t_save = time.perf_counter() - t0 - sum(times[1:3])  # the host copy and the write
@@ -2380,7 +2415,7 @@ def train_full(torch, np):
         state_reckoning=f"{n_params} params x {TRAIN_STATE_BYTES_PER_PARAM} B (bf16 params "
                         "and grads, f32 m and v)",
         loss=[h["loss"] for h in embedded + resumed[-1:] + controld + eight],
-        leaves_with_finite_nonzero_grad_step1=len(grads_ok[0]),
+        leaves_with_finite_nonzero_grad_step1=n_leaves,
         step_ms_8bit_compressed=times[12] * 1e3,
         launches={k: v for k, v in launches.items() if v}), sort_keys=True))
     import shutil
@@ -2641,6 +2676,288 @@ def serve_tp(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# phase 9c: training of the moe, vlm, hybrid, ssm and audio families
+# ---------------------------------------------------------------------------
+
+# the non-dense smoke configs through the Trainer with LB ingest, card
+# against CPU (float32, TF32 off), RWKV6 at the reference's rwkv_chunk 1 and
+# at 4; steps 1-2, a checkpoint at step 2, steps 3-4
+FAMILY_TRAIN_SMOKE = [("mixtral_8x22b", {}), ("arctic_480b", {}),
+                      ("llama_3_2_vision_90b", {}), ("zamba2_2_7b", {}),
+                      ("rwkv6_7b", {"rwkv_chunk": 1}), ("rwkv6_7b", {"rwkv_chunk": 4}),
+                      ("hubert_xlarge", {})]
+FAMILY_TRAIN_SMOKE_RUN = dict(batch=8, seq=32)
+# published width on one card (bf16, random weights, remat, LB ingest): the
+# arch, its layers (None: all), 8-bit moments, rows x tokens a step, the
+# TrainConfig's extra keywords. Mixtral's 2 of 56 layers hold 5.41e9 params
+# (64.9 GB of state with f32 moments, ~33 GB with 8-bit ones); Zamba2 takes 2
+# rows, not 4: its shared attention block, which neither package remats,
+# keeps each of its 9 applications' chunked scores and probabilities (f32,
+# B x 32 heads x 2048^2) for the backward, ~5 GB an application at 4 rows
+# beside 29 GB of state; RWKV6 runs at rwkv_chunk 64 (chunk 1 is ~10x
+# slower: PERF.md §5)
+FAMILY_TRAIN_FULL = [("mixtral-8x22b", 2, True, 4, 2048, {}),
+                     ("zamba2-2.7b", None, False, 2, 2048, {}),
+                     ("rwkv6-7b", 16, False, 2, 2048, {"rwkv_chunk": 64}),
+                     ("hubert-xlarge", None, False, 4, 1500, {})]
+FAMILY_TRAIN_TIMED = 3  # steps after one warm-up step, then one profiled
+FAMILY_TRAIN_DIR = ROOT / "build" / "train"
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_plans(cfg, steps) -> int:
+    """dispatch_plan launches of ``steps`` training steps with LB ingest and
+    remat: the ingest's pack, then each MoE layer's in the forward and
+    again in remat's recompute (``models/model.py``'s checkpointed blocks)."""
+    return steps * (1 + (2 * cfg.n_layers if cfg.family == "moe" else 0))
+
+
+def _family_trainer(cfg, tc, ckpt_dir, device, **kw):
+    """The port's Trainer on a one-process mesh (TrainerConfig ``kw``: 4
+    LB members unless named), fed the vlm's vision embeddings or
+    (``frames``) an encoder's frames."""
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.testing.batches import with_frames, with_vision
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    frames = kw.pop("frames", False)
+    tr = Trainer(cfg, tc, TrainerConfig(ckpt_dir=str(ckpt_dir), device=device, **kw),
+                 mesh=Mesh(("data",), (1,)))
+    if cfg.family == "vlm":
+        with_vision(tr)
+    if frames:
+        with_frames(tr)
+    return tr
+
+
+def family_train_smoke(torch, np):
+    """Each FAMILY_TRAIN_SMOKE case through the Trainer on the card and on
+    the CPU, both from one checkpoint drawn on the CPU: steps 1-2 with a
+    checkpoint at step 2, then steps 3-4 (the card's under deterministic
+    algorithms); loss, grad_norm and lr within TRAIN_TOL, occupancy exact;
+    on the card lb_route once a step, dispatch_plan as ``_train_plans``,
+    flash_attention never. Then a fresh card trainer restored from step 2
+    repeats steps 3-4 exactly (metrics and every param)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import _lib
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = FAMILY_TRAIN_SMOKE_RUN
+    lines = []
+    for arch, kw in FAMILY_TRAIN_SMOKE:
+        cfg = get_smoke_config(arch)
+        tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-3), remat=True, lb_ingest=True,
+                            q_chunk=8, k_chunk=8, **kw)
+        st = TS.init_train_state(torch.Generator().manual_seed(0), cfg, tc, "cpu")
+        tag = arch + "".join(f" {k}={v}" for k, v in kw.items())
+        hist, live = {}, None
+        for dev in ("cuda", "cpu"):
+            d = _train_dir(f"family_{arch}_{dev}")
+            ckpt.save(str(d), 0, {"params": st["params"], "opt": st["opt"], "step": st["step"]})
+            tr = _family_trainer(cfg, tc, d, dev, ckpt_every=2)
+            tr.init_or_restore(torch.Generator(device=dev).manual_seed(5))
+            _lib.reset_launches()
+            tr.run(2, **run)  # steps 1-2, saved at 2
+            tr.cfg.ckpt_every = 1 << 30
+            if dev == "cuda":
+                event = tr.next_event
+                _deterministic(torch, lambda: tr.run(2, **run))
+                launches = dict(_lib.LAUNCHES)
+                live = [p.detach().cpu() for p in leaves(tr.state["params"])]
+                want = dict(lb_route=4, dispatch_plan=_train_plans(cfg, 4), flash_attention=0)
+                check(all(launches[k] == v for k, v in want.items()),
+                      f"[train_families] {tag}: launches over 4 steps {launches}, not {want}")
+            else:
+                tr.run(2, **run)
+            hist[dev] = tr.history
+        worst = 0.0
+        for a, b in zip(hist["cuda"], hist["cpu"]):
+            check(a["ingest_occupancy"] == b["ingest_occupancy"],
+                  f"[train_families] {tag}: occupancy differs card vs CPU: {a} {b}")
+            for k in ("loss", "grad_norm", "lr"):
+                err = abs(a[k] - b[k])
+                check(err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(b[k]),
+                      f"[train_families] {tag}: {k} differs card vs CPU: {a[k]} {b[k]}")
+                worst = max(worst, err / abs(b[k]))
+        tr2 = _family_trainer(cfg, tc, FAMILY_TRAIN_DIR / f"family_{arch}_cuda", "cuda",
+                              ckpt_every=1 << 30)
+        step = tr2.init_or_restore(torch.Generator(device="cuda").manual_seed(9))
+        check(step == 2, f"[train_families] {tag}: restored step {step}, not 2")
+        tr2.next_event = event  # event numbers are not checkpointed (nor in the reference)
+        resumed = _deterministic(torch, lambda: tr2.run(2, **run))
+        check(resumed == hist["cuda"][2:],
+              f"[train_families] {tag}: the resume from step 2 differs:\n{resumed}\n"
+              f"{hist['cuda'][2:]}")
+        differ = sum(not torch.equal(p.detach().cpu(), q)
+                     for p, q in zip(leaves(tr2.state["params"]), live))
+        check(differ == 0, f"[train_families] {tag}: {differ} of {len(live)} param leaves "
+                           "differ after the resume")
+        lines.append(dict(config=tag, worst_rel_diff=worst,
+                          occupancy=[h["ingest_occupancy"] for h in hist["cuda"]],
+                          loss_card=[h["loss"] for h in hist["cuda"]],
+                          loss_cpu=[h["loss"] for h in hist["cpu"]],
+                          launches_card={k: v for k, v in launches.items() if v}))
+    say("[train_families] " + json.dumps(dict(
+        run="the non-dense smoke configs (float32, TF32 off) through the Trainer with LB "
+            f"ingest, {run['batch']} x {run['seq']} tokens a step, card and CPU from one "
+            "checkpoint drawn on the CPU",
+        card_equals_cpu=f"loss, grad_norm, lr within {TRAIN_TOL}; occupancy exact; 4 steps",
+        resume="a fresh card trainer restored from step 2: steps 3-4 metrics and every param "
+               "equal the live run's (both deterministic)",
+        configs=lines), sort_keys=True))
+
+
+def _reckoned_state(n_params, leaf_sizes, eight_bit) -> float:
+    """Bytes of bf16 params and grads and of the moments: f32, or int8
+    with a float32 scale per row (its last dim) when ``eight_bit``."""
+    if not eight_bit:
+        return n_params * TRAIN_STATE_BYTES_PER_PARAM
+    return n_params * (2 + 2 + 2) + sum(2 * 4 * n // last for n, last in leaf_sizes)
+
+
+def family_train_full(torch, np, arch, layers, eight_bit, rows, seq, kw):
+    """One family at published width, ``layers`` of its depth (None: all;
+    bf16, random weights, remat, LB ingest on a one-process mesh, one LB
+    member): step 1
+    (the warm-up) with every leaf's gradient checked finite and non-zero
+    (HuBERT's token table exempt: the encoder reads frame embeddings, so
+    its gradient is zero by design in both packages), FAMILY_TRAIN_TIMED
+    timed steps, one step under torch.profiler; every loss and grad_norm
+    finite; lb_route once a step, dispatch_plan as ``_train_plans``,
+    flash_attention never. A MoE model's step 1 also holds every
+    dispatch_plan call of the step (the ingest's pack, each layer's in the
+    forward and in remat's recompute, at the training pack's shape) exactly
+    equal to plain (pos, counts), and its first MoE layer at the step's
+    rows x tokens goes through ``moe_layer_check``. Returns (its launches,
+    its measured path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.testing.plans import held, recorded_plans
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import leaves
+
+    full = get_config(arch)
+    cfg = full.with_(n_layers=layers) if layers else full
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-4, warmup_steps=2, decay_steps=100,
+                                            eight_bit=eight_bit), remat=True, lb_ingest=True,
+                        **kw)
+    frames = cfg.family == "audio"
+    times = []
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # one LB member, the card's one data rank: every event is its own
+    # (occupancy 1), where [train] keeps the trainer's 4 members' quarter
+    tr = _timed_steps(torch, _family_trainer(cfg, tc, _train_dir("family_full"), "cuda",
+                                             n_members=1, ckpt_every=1 << 30, frames=frames),
+                      times)
+    tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    params = leaves(tr.state["params"])
+    n_params = sum(p.numel() for p in params)
+    exempt = [i for i, p in enumerate(params) if frames and p is tr.state["params"]["embed"]]
+    run = dict(batch=rows, seq=seq)
+    _lib.reset_launches()
+    with recorded_plans() as calls:
+        n_leaves = _checked_step(torch, tr, run, f"[train_families] {cfg.name}: step 1", exempt)
+    plans = held(calls)
+    check(len(plans) == _train_plans(cfg, 1) and all(p["equal"] for p in plans),
+          f"[train_families] {cfg.name}: step 1's dispatch_plan calls against plain: {plans}")
+    moe_pack = plans[1:]  # after the ingest's: each MoE layer's, forward and recompute
+    check(all(p["n"] == cfg.top_k * rows * seq and p["n_members"] == cfg.n_experts
+              for p in moe_pack),
+          f"[train_families] {cfg.name}: a MoE pack not at the step's shape: {moe_pack}")
+    tr.run(FAMILY_TRAIN_TIMED, **run)
+    t_prof = time.perf_counter()
+    wall, busy, top = _profiled_kernels(torch, lambda: tr.run(1, **run))
+    t_prof = time.perf_counter() - t_prof
+    hist = tr.history  # every step's
+    steps = 2 + FAMILY_TRAIN_TIMED
+    launches = dict(_lib.LAUNCHES)
+    want = dict(lb_route=steps, dispatch_plan=_train_plans(cfg, steps), flash_attention=0)
+    check(all(launches[k] == v for k, v in want.items()),
+          f"[train_families] {cfg.name}: launches over {steps} steps {launches}, not {want}")
+    for h in hist:
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"[train_families] {cfg.name}: a step's loss or grad_norm is not finite: {h}")
+    check(int(tr.state["step"]) == steps, f"[train_families] step {int(tr.state['step'])}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sizes = [(p.numel(), p.shape[-1]) for p in params]
+    state_gb = _reckoned_state(n_params, sizes, eight_bit) / 1e9
+    layer = (moe_layer_check(torch, cfg, tr.state["params"]["layers"][0]["moe"], (rows, seq),
+                             "[train_families]") if cfg.family == "moe" else None)
+    del tr, params
+    _free(torch)
+    step_s = times[1:1 + FAMILY_TRAIN_TIMED]
+    med = statistics.median(step_s)
+    occ = [h["ingest_occupancy"] for h in hist]
+    labelled = seq - 1 if cfg.causal else seq  # an encoder's labels are not shifted
+    trained = statistics.median(occ[1:1 + FAMILY_TRAIN_TIMED]) * rows * labelled
+    cuts = {"layers": f"{cfg.n_layers} of {full.n_layers}" if layers else "all",
+            "moments": "8-bit (int8, a float32 scale a row)" if eight_bit else "float32",
+            "rows": f"{rows} x {seq} {'frames' if frames else 'tokens'}",
+            "lb_members": "1 (the card's one data rank: occupancy 1)"}
+    say("[train_families] " + json.dumps(dict(
+        model=cfg.name, family=cfg.family, published_width=True, cuts=cuts,
+        n_layers=cfg.n_layers, n_params=n_params, batch=rows, seq=seq,
+        train_kw=kw, init_s=t_init, state_gb_reckoned=state_gb, peak_mem_gb=peak_gb,
+        run_s=time.perf_counter() - t0, profiled_step_with_its_reading_s=t_prof,
+        step_ms_median=med * 1e3, step_ms=[t * 1e3 for t in step_s],
+        step_ms_warmup=times[0] * 1e3,
+        step_ms_of=f"steps 2-{1 + FAMILY_TRAIN_TIMED}, host clock around a step that ends on "
+                   "the card",
+        occupancy=occ, trained_tokens_per_step=trained, trained_tokens_per_s=trained / med,
+        processed_tokens_per_s=rows * seq / med,
+        busy_share_of_a_step=busy / wall, profiled_step_ms=wall * 1e3, busy_ms=busy * 1e3,
+        busy_measured_by=f"torch.profiler: the card's kernel, copy and set intervals of step "
+                         f"{steps}", top_kernels=top,
+        loss=[h["loss"] for h in hist],
+        leaves_with_finite_nonzero_grad_step1=n_leaves - len(exempt),
+        dispatch_plan_step1_equal_to_plain=[(p["n"], p["n_members"]) for p in plans],
+        moe_layer_check=layer,
+        grad_exempt=("embed (the token table: frames in, zero gradient by design)"
+                     if exempt else None),
+        launches={k: v for k, v in launches.items() if v}), sort_keys=True))
+    return launches, measured(cfg, "train", rows, seq, med * 1e3,
+                              f"host clock around a step that ends on the card, median of "
+                              f"steps 2-{1 + FAMILY_TRAIN_TIMED} (LB ingest, fwd+bwd with "
+                              "remat, AdamW)", eight_bit_opt=eight_bit)
+
+
+def train_families(torch, np):
+    """Training of the moe, vlm, hybrid, ssm and audio families, after the
+    earlier phases' tensors are freed: the smoke configs card == CPU with a
+    resume each, then FAMILY_TRAIN_FULL at published width. Returns (the
+    full-width runs' launches, summed; their measured paths)."""
+    t0 = time.perf_counter()
+    _free(torch)
+    family_train_smoke(torch, np)
+    launches, paths = {}, []
+    for case in FAMILY_TRAIN_FULL:
+        got, path = family_train_full(torch, np, *case)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        paths.append(path)
+    import shutil
+    shutil.rmtree(FAMILY_TRAIN_DIR, ignore_errors=True)
+    say(f"[train_families] phase {time.perf_counter() - t0:.1f} s")
+    return launches, paths
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the MoE family
 # ---------------------------------------------------------------------------
 
@@ -2653,6 +2970,9 @@ MOE_LONG_PROMPT = 4500
 # Arctic at published width, 2 of its 35 layers (55.4 GB; 1 layer when the
 # card's free memory cannot hold 2 beside the caches): 4 requests
 ARCTIC_LAYERS, ARCTIC_REQUESTS = 2, 4
+# its layer check's rows x tokens: the training step's (4 x 2048, top-2:
+# 16,384 packets over 128 experts)
+ARCTIC_TRAIN_PACK = (TRAIN_BATCH, TRAIN_SEQ)
 ARCTIC_SERVE = dict(n_replicas=2, lane_bits=1, max_len=2048, rebalance_every=4)
 # the pack's shapes: a prefill of 4000 tokens (8000 k-major packets) over
 # Mixtral's 8 experts and over Arctic's 128, a decode step of 4 lanes (8
@@ -2711,37 +3031,51 @@ def moe_kernels(torch, np):
     return plans, flash
 
 
-def moe_layer_check(torch, cfg, moe_params):
-    """One MoE layer at full width (bf16, MOE_LAYER_T tokens): ``moe_ffn``
-    with its positions from the kernel (one launch) against the same
-    function with the plain version's positions: the output bit for bit,
-    the drop count equal."""
+def moe_layer_check(torch, cfg, moe_params, shape=(1, MOE_LAYER_T), tag="[moe]"):
+    """One MoE layer at full width (bf16, ``shape`` rows x tokens, one
+    dispatch group): ``moe_ffn`` with its positions from the kernel (one
+    launch, its (pos, counts) exactly equal to the plain version's on the
+    same k-major members) against the same function with the plain
+    version's positions: the output bit for bit, the drop count and the aux
+    loss equal."""
     from repro_torch.kernels import _lib, dispatch as disp, ref
     from repro_torch.models import moe as MOE
+    from repro_torch.testing.plans import held, recorded_plans
 
-    x = torch.randn((1, MOE_LAYER_T, cfg.d_model), device="cuda",
+    n_tokens = shape[0] * shape[1]
+    x = torch.randn(tuple(shape) + (cfg.d_model,), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(5)).bfloat16()
     before = _lib.LAUNCHES["dispatch_plan"]
-    y, aux = MOE.moe_ffn(moe_params, x, cfg)
-    check(_lib.LAUNCHES["dispatch_plan"] == before + 1,
-          "the full-width MoE layer did not launch dispatch_plan once")
+    with torch.no_grad(), recorded_plans() as calls:
+        y, aux = MOE.moe_ffn(moe_params, x, cfg)
+    check(_lib.LAUNCHES["dispatch_plan"] == before + 1 and len(calls) == 1,
+          f"{tag} the full-width MoE layer did not launch dispatch_plan once")
+    plan = held(calls)[0]
+    check(plan["equal"] and plan["n"] == cfg.top_k * n_tokens
+          and plan["n_members"] == cfg.n_experts,
+          f"{tag} {cfg.name}'s pack of {cfg.top_k} x {n_tokens} packets over "
+          f"{cfg.n_experts} experts differs from plain (pos, counts): {plan}")
     orig = disp.dispatch_plan
     disp.dispatch_plan = ref.dispatch_plan_ref
     try:
-        y_p, aux_p = MOE.moe_ffn(moe_params, x, cfg)
+        with torch.no_grad():
+            y_p, aux_p = MOE.moe_ffn(moe_params, x, cfg)
     finally:
         disp.dispatch_plan = orig
-    check(_lib.LAUNCHES["dispatch_plan"] == before + 1, "the plain positions launched the kernel")
-    check(bool(torch.isfinite(y).all()), "the full-width MoE layer gave non-finite values")
-    check(torch.equal(y, y_p), "the full-width MoE layer differs between the kernel's and "
-                               f"the plain positions: max |diff| {(y - y_p).abs().max()}")
+    check(_lib.LAUNCHES["dispatch_plan"] == before + 1,
+          f"{tag} the plain positions launched the kernel")
+    check(bool(torch.isfinite(y).all()), f"{tag} the full-width MoE layer gave non-finite values")
+    check(torch.equal(y, y_p), f"{tag} the full-width MoE layer differs between the kernel's "
+                               f"and the plain positions: max |diff| {(y - y_p).abs().max()}")
     check(int(aux["dropped"]) == int(aux_p["dropped"]) and torch.equal(
-        aux["aux_loss"], aux_p["aux_loss"]), "the MoE layer's drops or aux loss differ")
-    line = dict(tokens=MOE_LAYER_T, dropped=int(aux["dropped"]),
-                aux_loss=float(aux["aux_loss"]), bit_equal=True)
-    say(f"[moe] one {cfg.name} MoE layer at full width (bf16, T={MOE_LAYER_T}): positions "
-        f"from the kernel == from plain: output bit-equal, dropped {line['dropped']} of "
-        f"{cfg.top_k * MOE_LAYER_T} equal, aux loss equal")
+        aux["aux_loss"], aux_p["aux_loss"]), f"{tag} the MoE layer's drops or aux loss differ")
+    line = dict(rows=shape[0], tokens=shape[1], packets=plan["n"], experts=cfg.n_experts,
+                dropped=int(aux["dropped"]), aux_loss=float(aux["aux_loss"]),
+                pack_equal_to_plain=True, bit_equal=True)
+    say(f"{tag} one {cfg.name} MoE layer at full width (bf16, {shape[0]} x {shape[1]} tokens): "
+        f"the pack of {plan['n']} packets over {cfg.n_experts} experts == plain (pos, counts); "
+        f"output from the kernel's positions == from plain bit for bit, dropped "
+        f"{line['dropped']} of {plan['n']} equal, aux loss equal")
     return line
 
 
@@ -2857,11 +3191,16 @@ def arctic_serve(torch, np):
     run = dict(wall_s=time.perf_counter() - t0, launches=dict(_lib.LAUNCHES))
     serving_gates(cfg, eng, reqs, run["launches"], "[moe] arctic:")
     steps = _moe_forward_checks(cfg, eng, run["launches"], "[moe] arctic:")
-    say("[moe] " + json.dumps(serve_line(
+    line = serve_line(
         cfg, eng, reqs, run, ARCTIC_SERVE, n_params=cfg.param_count()[0] + cfg.d_model,
         init_s=t_init, dispatch_plan_launches=run["launches"]["dispatch_plan"],
-        decode_steps_total=steps, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9),
-        sort_keys=True))
+        decode_steps_total=steps, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    # the 128-expert pack at the training step's shape (scripts/train_dp_torch.py
+    # trains Arctic on four cards over these rows)
+    line["layer_check_training_pack"] = moe_layer_check(
+        torch, cfg, params["layers"][0]["moe"], ARCTIC_TRAIN_PACK, "[moe] arctic:")
+    say("[moe] " + json.dumps(line, sort_keys=True))
     return run["launches"]
 
 
@@ -3273,7 +3612,8 @@ ROOFLINE_MAX_SHARE = 1.05
 def roofline_phase(card, paths):
     """Each measured path against the port's analytic model of its work
     (``analysis.perfmodel.estimate`` at the path's own batch, length, kind
-    and depth; one card: chips = dp = tp = 1; f32 moments) on the H100's
+    and depth; one card: chips = dp = tp = 1; f32 moments, or 8-bit ones where
+    the path ran them) on the H100's
     roofline: mfu = model FLOPs / (ms x peak) and roofline_fraction =
     max(compute, memory) / ms, each in (0, ROOFLINE_MAX_SHARE]."""
     from repro_torch.analysis import perfmodel, roofline
@@ -3287,7 +3627,8 @@ def roofline_phase(card, paths):
         cfg = p["cfg"]
         shape = ShapeSpec(f"{p['kind']}_{p['batch']}x{p['seq_len']}", p["seq_len"], p["batch"],
                           p["kind"])
-        est = perfmodel.estimate(cfg, shape, 1, 1, 1)
+        est = perfmodel.estimate(cfg, shape, 1, 1, 1,
+                                 eight_bit_opt=p.get("eight_bit_opt", False))
         got = roofline.against(est, model_flops(cfg, shape), p["ms"] / 1e3, chip)
         line = dict(model=cfg.name, n_layers=cfg.n_layers, kind=p["kind"], batch=p["batch"],
                     seq_len=p["seq_len"], ms=p["ms"], ms_of=p["ms_of"], **got,
@@ -3859,12 +4200,16 @@ def main() -> int:
         train_launches, train_paths = train_phase(torch, np)
         train_dp_launches = train_dp(torch, np, train_paths[0]["ms"])
         serve_tp_launches = serve_tp(torch, np)
+        family_train_launches, family_train_paths = train_families(torch, np)
+        for k, v in family_train_launches.items():  # the families' steps count as training
+            train_launches[k] = train_launches.get(k, 0) + v
         moe_launches, moe_plans, moe_flash, moe_paths = moe_phase(torch, np)
         results["dispatch_plan"]["moe_shapes"] = moe_plans
         results["flash_attention"]["mixtral_prefill"] = moe_flash
         family_launches, family_flash, family_paths = families_phase(torch, np)
         results["flash_attention"].update(family_flash)
-        roofline_phase(card, paths + train_paths + moe_paths + family_paths)
+        roofline_phase(card, paths + train_paths + family_train_paths + moe_paths
+                       + family_paths)
         roofline_sharded(sharded)
         drivers_launches = drivers_phase(torch, np)
     except SmokeFailure as exc:

@@ -2,26 +2,35 @@
 """The port's training step over the ranks of one host's CUDA cards (NCCL),
 one process per card, started by ``torch.distributed.run``:
 
-    python -m torch.distributed.run --nproc-per-node 4 scripts/train_dp_torch.py [--model N]
+    python -m torch.distributed.run --nproc-per-node 4 scripts/train_dp_torch.py \
+        [--model N] [--arch A --layers L]
 
 The mesh is ``make_debug_mesh(world / N, N)``: ``--model`` ranks of tensor
-parallelism on "model" (default 1), the rest data-parallel.
+parallelism on "model" (default 1), the rest data-parallel. ``--arch``
+(default yi-6b) picks the model of both legs.
 
-1. Agreement: Yi-6B's and Mixtral's smoke configs (float32, TF32 off, LB
-   ingest off), params and moments split across the ranks
+1. Agreement: Yi-6B's and Mixtral's smoke configs and the smoke config of
+   ``--arch`` (float32, TF32 off, LB ingest off; the vlm's rows carry their
+   vision embeddings), params and moments split across the ranks
    (``train_step.placement`` at ``min_fsdp_size`` 1024), 3 steps of the
    step over the mesh on each data rank's rows of the batch against the
    one-process ``make_train_step`` on the whole batch (every rank runs it
    too, on its own card, from the same init): loss, grad norm
    and every param within rtol/atol 2e-4 (float32 reassociation: the ranks'
    gradients add in another order).
-2. Timing: Yi-6B at full width, ``--layers`` of its 32 layers (bf16, remat,
-   LB ingest), placed at the default FSDP threshold; the trainer's global
-   batch is ``--rows`` per data rank x 2048 tokens; 2 warm-up steps, then
+2. Timing: ``--arch`` at full width, ``--layers`` of its depth (bf16, remat,
+   LB ingest; the vlm's rows with their vision embeddings, drawn by
+   ``repro_torch.testing.batches.with_vision``), placed at the default FSDP
+   threshold; the trainer's global batch is ``--rows`` per data rank x 2048
+   tokens; 2 warm-up steps, then
    ``--steps`` timed. Rank 0 prints the median step ms, trained tokens/s,
    its peak memory and the collectives a step (``distributed.dp.COUNTS``),
    and those of one more step (not timed) by kind with their bytes
-   (``analysis.collectives.CollectiveRecord``).
+   (``analysis.collectives.CollectiveRecord``). In that step every
+   ``dispatch_plan`` call (the ingest's pack; a MoE model's packs, each
+   layer's in the forward and in remat's recompute) is held exactly equal
+   to the plain version's (pos, counts) on the same members
+   (``repro_torch.testing.plans``).
 
 Rank 0 prints the card line and one JSON object; any rank's failed check
 exits non-zero.
@@ -59,6 +68,9 @@ def agreement(torch, np, arch, over, mesh, device="cuda"):
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab, (4 * w, 16)).astype(np.int32)
     batch = {"tokens": toks, "labels": toks.copy()}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (4 * w, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
     fresh = lambda: TS.init_train_state(torch.Generator(device=device).manual_seed(0), cfg, tc,
                                         device)
     plain, plain_step = fresh(), TS.make_train_step(cfg, tc)
@@ -82,17 +94,20 @@ def agreement(torch, np, arch, over, mesh, device="cuda"):
     return worst
 
 
-def timing(torch, mesh, layers, rows, steps):
+def timing(torch, mesh, arch, layers, rows, steps):
     from repro_torch.analysis.collectives import CollectiveRecord
     from repro_torch.configs import get_config
     from repro_torch.distributed import dp as DP
     from repro_torch.distributed.sharding import data_extent, model_extent, placed_dims
+    from repro_torch.testing.batches import with_vision
+    from repro_torch.testing.plans import held, recorded_plans
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as TS
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.tree import leaves
 
-    cfg = get_config("yi-6b").with_(n_layers=layers)
+    full = get_config(arch)
+    cfg = full.with_(n_layers=layers)
     tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-4, warmup_steps=2, decay_steps=100),
                         remat=True, lb_ingest=True)
     w = data_extent(mesh)  # the LB members: the data ranks
@@ -100,7 +115,10 @@ def timing(torch, mesh, layers, rows, steps):
                                         ckpt_dir=str(ROOT / "build" / "train_dp_torch"),
                                         device=f"cuda:{torch.cuda.current_device()}",
                                         ckpt_every=1 << 30), mesh=mesh)
+    if cfg.family == "vlm":
+        with_vision(tr)
     tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(TS.state_shapes(cfg, tc)["params"]))
     torch.cuda.reset_peak_memory_stats()
     times, counts = [], []
     inner = tr.step_fn
@@ -121,22 +139,35 @@ def timing(torch, mesh, layers, rows, steps):
     occ = hist[-1]["ingest_occupancy"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     tr.step_fn = inner
-    with CollectiveRecord() as rec:  # one more step, not timed
+    with CollectiveRecord() as rec, recorded_plans() as calls:  # one more step, not timed
         tr.run(1, batch=rows * w, seq=SEQ)
+    plans = held(calls)
+    moe = cfg.family == "moe"
+    if len(plans) != 1 + (2 * layers if moe else 0) or not all(p["equal"] for p in plans) or (
+            moe and any(p["n"] != cfg.top_k * rows * SEQ for p in plans[1:])):
+        raise SystemExit(f"{arch}: the step's dispatch_plan calls against plain: {plans}")
     split = {axis: sum(d is not None for d in leaves(placed_dims(
         tr.state["params"], tr.specs["params"], mesh, axis))) for axis in ("data", "model")}
-    return dict(model=f"yi-6b width, {layers} of 32 layers, bf16, remat, lb_ingest",
+    return dict(model=f"{cfg.name} width, {layers} of {full.n_layers} layers, bf16, remat, "
+                      "lb_ingest" + (f", {cfg.n_vision_tokens} vision_embeds rows a row"
+                                     if cfg.family == "vlm" else ""),
+                n_params=n_params, state_gb_a_rank_reckoned=n_params * 12 / 1e9 / model_extent(
+                    mesh) / data_extent(mesh),
                 mesh=dict(data=w, model=model_extent(mesh)), rows_per_data_rank=rows, seq=SEQ,
                 step_ms_median=med * 1e3, step_ms=[t * 1e3 for t in times[2:]],
                 trained_tokens_per_s=occ * rows * w * (SEQ - 1) / med,
                 occupancy=occ, peak_mem_gb_rank0=peak,
                 collectives_per_step=counts[-1], collectives_recorded=rec.stats().to_json(),
-                param_leaves_split=split, loss=[h["loss"] for h in hist])
+                param_leaves_split=split, loss=[h["loss"] for h in hist],
+                dispatch_plan_equal_to_plain=[(p["n"], p["n_members"]) for p in plans])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--arch", default="yi-6b", help="the model of both legs")
+    ap.add_argument("--layers", type=int, default=8,
+                    help="layers of the timing leg (the vlm: a multiple of its "
+                         "cross_attn_every)")
     ap.add_argument("--rows", type=int, default=4, help="rows of 2048 tokens per rank")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", type=int, default=1,
@@ -157,10 +188,11 @@ def main() -> int:
     rank, world = dist.get_rank(), dist.get_world_size()
     try:
         mesh = make_debug_mesh(world // args.model, args.model)
-        out = {"agreement_share_of_tol": {
-            arch: agreement(torch, np, arch, over, mesh)
-            for arch, over in (("yi_6b", {}), ("mixtral_8x22b", {"capacity_factor": 0.5}))}}
-        out["timing"] = timing(torch, mesh, args.layers, args.rows, args.steps)
+        cases = {"yi_6b": {}, "mixtral_8x22b": {"capacity_factor": 0.5}}
+        cases.setdefault(args.arch.replace("-", "_").replace(".", "_"), {})
+        out = {"agreement_share_of_tol": {arch: agreement(torch, np, arch, over, mesh)
+                                          for arch, over in cases.items()}}
+        out["timing"] = timing(torch, mesh, args.arch, args.layers, args.rows, args.steps)
     finally:
         dist.destroy_process_group()
     if rank == 0:

@@ -84,14 +84,17 @@ def _ssd_chunks(h0, xdt, bmat, cmat, log_a):
     bmat, cmat: [B, C, L, N]; log_a: [B, C, L, H]. Returns (h_final,
     y [B, C, L, H, P])."""
     cum = torch.cumsum(log_a, dim=2)  # [B, C, L, H]
-    # Intra-chunk: decay-masked (L x L) attention-like product. The decay is
-    # taken over the whole square and the upper triangle zeroed after the
-    # exp, as the reference does.
+    # Intra-chunk: decay-masked (L x L) attention-like product. The upper
+    # triangle is masked before the exp, where the reference zeroes it after:
+    # the same values, but its exponents (a sum of dt over up to a chunk)
+    # pass float32's range at published width, and exp's inf times the
+    # mask's zero gradient is NaN.
     scores = torch.einsum("bcin,bcjn->bcij", cmat, bmat)  # [B, C, L, L]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # [B, C, L, L, H]
     li = torch.arange(xdt.shape[2], device=xdt.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
-    w = scores[..., None] * torch.where(causal, decay, torch.zeros_like(decay))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, C, L, L, H]
+    decay = torch.exp(torch.where(causal, diff, torch.full_like(diff, float("-inf"))))
+    w = scores[..., None] * decay
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xdt)
     # each chunk's own contribution to the state it hands on
     suffix = torch.exp(cum[:, :, -1:, :] - cum)  # [B, C, L, H]

@@ -3,10 +3,11 @@
 Port of the JAX package's ``repro/train/optimizer.py``: plain functions over
 the params tree, not ``torch.optim``, so the state keeps the reference's
 keys (``mu/<path>/m|v``, ``count``) and checkpoints cross over. The update
-is written in place: each parameter tensor is overwritten with its new
-value (under ``torch.no_grad``), and the returned params are the same
-tensors; a caller that needs the old values copies them first (the
-checkpoint's ``AsyncSaver`` copies to the host before it returns).
+is written in place: each parameter tensor, and each float32 moment, is
+overwritten with its new value (under ``torch.no_grad``), and the returned
+params and moments are the same tensors; a caller that needs the old
+values copies them first (the checkpoint's ``AsyncSaver`` copies to the
+host before it returns).
 
 A leaf of the layer list counts the list as a leading dim
 (``repro_torch.tree``), as the reference's stacked (scanned) layers do: the
@@ -153,8 +154,10 @@ def update(grads, state, params, cfg: AdamWConfig, shards: Optional[Shards] = No
             m, v = _deq_state(mu["m"]), _deq_state(mu["v"])
         else:
             m, v = mu["m"], mu["v"]
-        m = cfg.b1 * m + (1 - cfg.b1) * gf
-        v = cfg.b2 * v + (1 - cfg.b2) * gf * gf
+        # in place (the reference's products and sum, rounded the same), so a
+        # step holds one copy of the float32 moments, not the old and the new
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
         upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         if p.ndim + stacked >= 2:  # decoupled weight decay on matrices only
             upd = upd + cfg.weight_decay * p.to(F32)

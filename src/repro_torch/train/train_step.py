@@ -66,11 +66,18 @@ class TrainConfig:
 
 
 def init_train_state(generator: torch.Generator, model_cfg: ModelConfig,
-                     train_cfg: TrainConfig, device="cuda"):
+                     train_cfg: TrainConfig, device="cuda", *, specs: Optional[dict] = None,
+                     mesh=None):
     """Fresh state on ``device``: params drawn from ``generator`` (a
-    ``torch.Generator`` on that device), zero moments, step 0."""
+    ``torch.Generator`` on that device), zero moments, step 0. With
+    ``specs`` (``placement``'s) the params are drawn whole and cut to this
+    rank's blocks on ``mesh`` before the moments are made, so that no rank
+    holds a whole moment: the same state as ``shard_state`` of the whole
+    one (a zero moment's block is the zero moment of the block)."""
     dev = resolve_device(device)
     params = M.init_params(model_cfg, generator, dev)
+    if specs is not None:
+        params = shd.shard_tree(params, specs["params"], mesh)
     return {
         "params": params,
         "opt": opt.init(params, train_cfg.adamw),

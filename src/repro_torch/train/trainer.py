@@ -134,9 +134,7 @@ class Trainer:
         format), the latest is copied into that state in place. Returns the
         step resumed from."""
         self.state = TS.init_train_state(generator, self.model_cfg, self.train_cfg,
-                                         self.device)
-        if self.specs is not None:
-            self.state = TS.shard_state(self.state, self.specs, self.mesh)
+                                         self.device, specs=self.specs, mesh=self.mesh)
         if ckpt.latest_step(self.cfg.ckpt_dir) is None:
             return 0
         return ckpt.restore_into(self.cfg.ckpt_dir, self._checkpointed(), specs=self.specs,

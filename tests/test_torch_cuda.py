@@ -575,6 +575,50 @@ def test_smoke_trainer_with_lb_ingest_on_the_card_equals_the_cpu(tmp_path, _full
             np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=2e-4)
 
 
+TRAIN_FAMILY_ARCHS = ["mixtral_8x22b", "arctic_480b", "llama_3_2_vision_90b", "zamba2_2_7b",
+                      "rwkv6_7b", "hubert_xlarge"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILY_ARCHS)
+def test_family_trainer_step_with_lb_ingest_on_the_card_equals_the_cpu(tmp_path, arch,
+                                                                       _full_f32):
+    """One Trainer step with LB ingest of each non-dense smoke config (the
+    vlm fed its vision embeddings), from one checkpoint on the card and on
+    the CPU: occupancy equal, loss, grad_norm and lr within rtol/atol 2e-4;
+    on the card lb_route launched once and dispatch_plan once for the
+    ingest plus twice per MoE layer (forward and remat's recompute)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.testing.batches import with_vision
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke_config(arch)
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-3), remat=True, lb_ingest=True,
+                        q_chunk=8, k_chunk=8)
+    st = TS.init_train_state(torch.Generator().manual_seed(0), cfg, tc, "cpu")
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        d = str(tmp_path / dev)
+        ckpt.save(d, 0, {"params": st["params"], "opt": st["opt"], "step": st["step"]})
+        tr = Trainer(cfg, tc, TrainerConfig(ckpt_dir=d, device=dev), mesh=Mesh(("data",), (1,)))
+        if cfg.family == "vlm":
+            with_vision(tr)
+        tr.init_or_restore(torch.Generator(device=dev).manual_seed(5))
+        before = dict(_lib.LAUNCHES)
+        hist[dev] = tr.run(1, batch=8, seq=16)
+        if dev == "cuda":
+            moe_layers = cfg.n_layers if cfg.family == "moe" else 0
+            assert _lib.LAUNCHES["lb_route"] == before["lb_route"] + 1
+            assert _lib.LAUNCHES["dispatch_plan"] == before["dispatch_plan"] + 1 + 2 * moe_layers
+            assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"]
+    a, b = hist["cuda"][0], hist["cpu"][0]
+    assert a["ingest_occupancy"] == b["ingest_occupancy"] > 0
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=2e-4, err_msg=k)
+
+
 @pytest.mark.parametrize("arch,over", [("yi_6b", {}), ("mixtral_8x22b", {"capacity_factor": 0.5})])
 def test_one_rank_nccl_step_equals_the_one_process_step(tmp_path, arch, over):
     """``jit_train_step`` over a one-rank NCCL group (a FileStore under

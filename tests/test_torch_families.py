@@ -144,9 +144,11 @@ def test_mamba2_chunk_invariance_and_recurrence():
 
 
 def test_mamba2_decay_is_zero_above_the_diagonal():
-    """A strongly decaying head (dt ~ 20, A = -e) with the upper triangle
-    zeroed after the exp: the block stays finite (a mask before the exp would
-    leave exp(0) = 1 there; a mask of exp(+large) would overflow)."""
+    """A strongly decaying head (dt ~ 20, A = -e), its upper triangle
+    masked to zero (its exponent to -inf before the exp; the reference
+    zeroes exp's value after it): the block stays finite and equals the
+    reference (a mask to exp(0) = 1 would leave ones there; exp(+large)
+    unmasked would overflow)."""
     cfg, jp, tp, x = _mamba_case()
     tp["dt_bias"] = torch.full_like(tp["dt_bias"], 20.0)
     tp["a_log"] = torch.ones_like(tp["a_log"])
