@@ -213,7 +213,12 @@ result:
                 smoke's start, run beside the card's phases): its compute,
                 memory and collective terms (the link term: recorded wire
                 bytes / 450e9 B/s), which must hold recorded wire bytes
-                above 0 with all-gathers, all-reduces and all-to-alls
+                above 0 with all-gathers, all-reduces and all-to-alls;
+                and the same cell under seqpar (the residual stream split
+                by sequence over "model", lowered beside it), whose record
+                must add reduce-scatters to the baseline's and issue no
+                fewer all-gathers, its collective term printed beside the
+                baseline's
  13. drivers    the operator entry points as a user runs them: simnet.run's
                 --compare-frozen, --compare-policy and --tournament
                 proportional,pid,frozen at the straggler preset (a
@@ -3641,57 +3646,83 @@ def roofline_phase(card, paths):
                   f"(0, {ROOFLINE_MAX_SHARE}]: the count or the clock is wrong")
 
 
-#: the dry run's sharded cell: (arch, shape, mesh)
+#: the dry run's sharded cells: (arch, shape, mesh) under each variant (the
+#: baseline, and seqpar: the residual stream split by sequence over "model")
 SHARDED_CELL = ("yi_6b", "train_4k", "single")
+SHARDED_VARIANTS = ("baseline", "seqpar")
 
 
 def start_sharded_dry_run():
-    """Start the sharded cell's dry run (``repro_torch.launch.dryrun`` on
-    torch's fake process group: meta tensors, the CPU only); returns the
-    process, its output directory and its start."""
+    """Start the sharded cells' dry runs (``repro_torch.launch.dryrun`` on
+    torch's fake process group: meta tensors, the CPU only), one process a
+    variant, side by side; returns per variant the process, its output
+    directory and its start."""
     import shutil
 
-    out = ROOT / "build" / "dryrun_sharded"
-    shutil.rmtree(out, ignore_errors=True)
     arch, shape, mesh = SHARDED_CELL
     env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-         "--mesh", mesh, "--out", str(out)],
-        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, out, time.perf_counter()
+    runs = {}
+    for variant in SHARDED_VARIANTS:
+        out = ROOT / "build" / "dryrun_sharded" / variant
+        shutil.rmtree(out, ignore_errors=True)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--variant", variant, "--out", str(out)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        runs[variant] = (proc, out, time.perf_counter())
+    return runs
 
 
-def roofline_sharded(run):
-    """The sharded cell's artifact on the H100's roofline (``analyze``):
+def roofline_sharded(runs):
+    """Each sharded cell's artifact on the H100's roofline (``analyze``):
     the compute and memory terms from the analytic model at 256 chips, dp
     16, tp 16, and the collective term from the recorded wire bytes a
-    device over the link's 450e9 B/s."""
+    device over the link's 450e9 B/s. The seqpar cell's record must hold
+    more reduce-scatters than the baseline's (the stream's, on the model
+    group: the data ranks issue none) and no fewer all-gathers; its line
+    carries the baseline's collective term beside its own."""
     from repro_torch.analysis import roofline
 
-    proc, out, t0 = run
-    log, _ = proc.communicate(timeout=900)
-    check(proc.returncode == 0, f"[roofline] the sharded dry run failed:\n{log[-3000:]}")
     arch, shape, mesh = SHARDED_CELL
-    art = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
-    col = art["collectives"]
-    kinds = {"all-gather", "all-reduce", "all-to-all"}
-    check(col["total_wire_bytes"] > 0 and kinds <= set(col["ops"]),
-          f"[roofline] the sharded cell's record lacks wire bytes or one of {sorted(kinds)}: "
-          f"{col['ops']}")
-    r = roofline.analyze(art, roofline.H100)
-    say("[roofline] " + json.dumps(dict(
-        model=art["arch"], shape=shape, mesh=f"{mesh}: make_production_mesh() on torch's fake "
-        "process group (rank 0 of 256), tensor-parallel on 'model'",
-        chips=art["chips"], dp=art["dp"], tp=art["tp"],
-        compute_ms=r.compute_s * 1e3, memory_ms=r.memory_s * 1e3,
-        collective_ms=r.collective_s * 1e3,
-        link_term="recorded wire bytes a device / 450e9 B/s (roofline.H100.link_bw)",
-        wire_bytes=col["total_wire_bytes"], ops=col["ops"], wire_bytes_by_kind=col["wire_bytes"],
-        bottleneck=r.bottleneck, counted_flops_rank0=art["cost"]["flops"],
-        argument_bytes_rank0=art["memory"]["argument_size_in_bytes"],
-        dry_run_cpu_s=art["lower_compile_s"], wall_s=time.perf_counter() - t0),
-        sort_keys=True))
+    arts, terms = {}, {}
+    for variant, (proc, out, t0) in runs.items():
+        log, _ = proc.communicate(timeout=900)
+        check(proc.returncode == 0,
+              f"[roofline] the sharded dry run ({variant}) failed:\n{log[-3000:]}")
+        tag = "" if variant == "baseline" else f"__{variant}"
+        art = arts[variant] = json.loads((out / f"{arch}__{shape}__{mesh}{tag}.json").read_text())
+        col = art["collectives"]
+        kinds = {"all-gather", "all-reduce", "all-to-all"}
+        check(col["total_wire_bytes"] > 0 and kinds <= set(col["ops"]),
+              f"[roofline] the sharded cell's ({variant}) record lacks wire bytes or one of "
+              f"{sorted(kinds)}: {col['ops']}")
+        r = roofline.analyze(art, roofline.H100)
+        terms[variant] = r.collective_s * 1e3
+        extra = {} if variant == "baseline" else dict(
+            baseline_collective_ms=terms["baseline"],
+            baseline_ops=arts["baseline"]["collectives"]["ops"],
+            baseline_wire_bytes=arts["baseline"]["collectives"]["total_wire_bytes"])
+        say("[roofline] " + json.dumps(dict(
+            model=art["arch"], shape=shape, variant=variant,
+            mesh=f"{mesh}: make_production_mesh() on torch's fake "
+            "process group (rank 0 of 256), tensor-parallel on 'model'"
+            + (", the residual stream split by sequence over 'model'"
+               if variant == "seqpar" else ""),
+            chips=art["chips"], dp=art["dp"], tp=art["tp"],
+            compute_ms=r.compute_s * 1e3, memory_ms=r.memory_s * 1e3,
+            collective_ms=r.collective_s * 1e3,
+            link_term="recorded wire bytes a device / 450e9 B/s (roofline.H100.link_bw)",
+            wire_bytes=col["total_wire_bytes"], ops=col["ops"],
+            wire_bytes_by_kind=col["wire_bytes"],
+            bottleneck=r.bottleneck, counted_flops_rank0=art["cost"]["flops"],
+            argument_bytes_rank0=art["memory"]["argument_size_in_bytes"],
+            dry_run_cpu_s=art["lower_compile_s"], wall_s=time.perf_counter() - t0, **extra),
+            sort_keys=True))
+    base, seq = (arts[v]["collectives"]["ops"] for v in SHARDED_VARIANTS)
+    check(seq.get("reduce-scatter", 0) > base.get("reduce-scatter", 0)
+          and seq.get("all-gather", 0) >= base.get("all-gather", 0),
+          f"[roofline] the seqpar cell's record lacks the stream's reduce-scatters or issues "
+          f"fewer all-gathers than the baseline's: {seq} against {base}")
 
 
 # ---------------------------------------------------------------------------
@@ -4217,9 +4248,10 @@ def main() -> int:
         print(f"FAIL: {exc}", file=sys.stderr, flush=True)
         return 1
     finally:
-        if sharded[0].poll() is None:
-            sharded[0].kill()
-            sharded[0].wait()
+        for proc, _out, _t0 in sharded.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     # launches: the sum over the main-path runs (each checked on its own)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

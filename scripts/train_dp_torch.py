@@ -3,11 +3,13 @@
 one process per card, started by ``torch.distributed.run``:
 
     python -m torch.distributed.run --nproc-per-node 4 scripts/train_dp_torch.py \
-        [--model N] [--arch A --layers L]
+        [--model N] [--seqpar] [--arch A --layers L]
 
 The mesh is ``make_debug_mesh(world / N, N)``: ``--model`` ranks of tensor
 parallelism on "model" (default 1), the rest data-parallel. ``--arch``
-(default yi-6b) picks the model of both legs.
+(default yi-6b) picks the model of both legs. ``--seqpar`` splits the
+residual stream by sequence over the model ranks (Megatron's sequence
+parallelism, ``make_train_step(..., seqpar=True)``) in both legs.
 
 1. Agreement: Yi-6B's and Mixtral's smoke configs and the smoke config of
    ``--arch`` (float32, TF32 off, LB ingest off; the vlm's rows carry their
@@ -17,7 +19,9 @@ parallelism on "model" (default 1), the rest data-parallel. ``--arch``
    one-process ``make_train_step`` on the whole batch (every rank runs it
    too, on its own card, from the same init): loss, grad norm
    and every param within rtol/atol 2e-4 (float32 reassociation: the ranks'
-   gradients add in another order).
+   gradients add in another order). With ``--seqpar`` each config also
+   runs the seqpar step over the mesh from the same state, held against
+   the same mesh's unsplit step within the same tolerance.
 2. Timing: ``--arch`` at full width, ``--layers`` of its depth (bf16, remat,
    LB ingest; the vlm's rows with their vision embeddings, drawn by
    ``repro_torch.testing.batches.with_vision``), placed at the default FSDP
@@ -51,10 +55,11 @@ SEQ = 2048
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-def agreement(torch, np, arch, over, mesh, device="cuda"):
+def agreement(torch, np, arch, over, mesh, seqpar=False, device="cuda"):
     """The largest share of TOL that the W-rank step's loss, grad norm and
     params take from the one-process step's on the whole batch (a check
-    fails above 1)."""
+    fails above 1); with ``seqpar`` also that of the seqpar step's from the
+    W-rank step's."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.sharding import data_extent, rank_of
     from repro_torch.train import optimizer as O
@@ -77,24 +82,38 @@ def agreement(torch, np, arch, over, mesh, device="cuda"):
     specs = TS.placement(cfg, tc, mesh, TS.state_shapes(cfg, tc)["params"], min_fsdp_size=1024)
     step = TS.make_train_step(cfg, tc, mesh, len(toks), specs=specs)
     mine = TS.shard_state(fresh(), specs, mesh)
+    if seqpar:
+        seq_step = TS.make_train_step(cfg, tc, mesh, len(toks), specs=specs, seqpar=True)
+        seq = TS.shard_state(fresh(), specs, mesh)
     rows = slice(rank * 4, (rank + 1) * 4)
     share = lambda a, b: float(((a - b).abs() / (TOL["atol"] + TOL["rtol"] * b.abs())).max()
                                .detach())
-    worst = 0.0
+    worst = {"mesh_vs_one_process": 0.0}
+    if seqpar:
+        worst["seqpar_vs_mesh"] = 0.0
     for _ in range(3):
         plain, pm = plain_step(plain, batch, None)
         mine, mm = step(mine, {k: v[rows] for k, v in batch.items()}, None)
+        if seqpar:
+            seq, sm = seq_step(seq, {k: v[rows] for k, v in batch.items()}, None)
         for k in ("loss", "grad_norm"):
-            worst = max(worst, share(mm[k], pm[k]))
+            worst["mesh_vs_one_process"] = max(worst["mesh_vs_one_process"], share(mm[k], pm[k]))
+            if seqpar:
+                worst["seqpar_vs_mesh"] = max(worst["seqpar_vs_mesh"], share(sm[k], mm[k]))
     whole = TS.gather_state(mine, specs, mesh)
     for a, b in zip(leaves(whole["params"]), leaves(plain["params"])):
-        worst = max(worst, share(a, b))
-    if worst > 1:
-        raise SystemExit(f"{arch}: the W-rank step is {worst:.3g}x TOL from the one-process step")
+        worst["mesh_vs_one_process"] = max(worst["mesh_vs_one_process"], share(a, b))
+    if seqpar:
+        for a, b in zip(leaves(TS.gather_state(seq, specs, mesh)["params"]),
+                        leaves(whole["params"])):
+            worst["seqpar_vs_mesh"] = max(worst["seqpar_vs_mesh"], share(a, b))
+    if max(worst.values()) > 1:
+        raise SystemExit(f"{arch}: a step is more than TOL from the one it is held to "
+                         f"(shares of TOL): {worst}")
     return worst
 
 
-def timing(torch, mesh, arch, layers, rows, steps):
+def timing(torch, mesh, arch, layers, rows, steps, seqpar=False):
     from repro_torch.analysis.collectives import CollectiveRecord
     from repro_torch.configs import get_config
     from repro_torch.distributed import dp as DP
@@ -114,7 +133,9 @@ def timing(torch, mesh, arch, layers, rows, steps):
     tr = Trainer(cfg, tc, TrainerConfig(n_members=w,
                                         ckpt_dir=str(ROOT / "build" / "train_dp_torch"),
                                         device=f"cuda:{torch.cuda.current_device()}",
-                                        ckpt_every=1 << 30), mesh=mesh)
+                                        ckpt_every=1 << 30), mesh=mesh,
+                 step_fn=TS.jit_train_step(cfg, tc, mesh, TS.state_shapes(cfg, tc),
+                                           global_batch=None, seqpar=seqpar))
     if cfg.family == "vlm":
         with_vision(tr)
     tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
@@ -150,7 +171,8 @@ def timing(torch, mesh, arch, layers, rows, steps):
         tr.state["params"], tr.specs["params"], mesh, axis))) for axis in ("data", "model")}
     return dict(model=f"{cfg.name} width, {layers} of {full.n_layers} layers, bf16, remat, "
                       "lb_ingest" + (f", {cfg.n_vision_tokens} vision_embeds rows a row"
-                                     if cfg.family == "vlm" else ""),
+                                     if cfg.family == "vlm" else "")
+                      + (", seqpar" if seqpar else ""), seqpar=seqpar,
                 n_params=n_params, state_gb_a_rank_reckoned=n_params * 12 / 1e9 / model_extent(
                     mesh) / data_extent(mesh),
                 mesh=dict(data=w, model=model_extent(mesh)), rows_per_data_rank=rows, seq=SEQ,
@@ -172,6 +194,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", type=int, default=1,
                     help="ranks of tensor parallelism on 'model' (the data extent is world / N)")
+    ap.add_argument("--seqpar", action="store_true",
+                    help="split the residual stream by sequence over the model ranks")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -190,9 +214,11 @@ def main() -> int:
         mesh = make_debug_mesh(world // args.model, args.model)
         cases = {"yi_6b": {}, "mixtral_8x22b": {"capacity_factor": 0.5}}
         cases.setdefault(args.arch.replace("-", "_").replace(".", "_"), {})
-        out = {"agreement_share_of_tol": {arch: agreement(torch, np, arch, over, mesh)
+        out = {"agreement_share_of_tol": {arch: agreement(torch, np, arch, over, mesh,
+                                                          args.seqpar)
                                           for arch, over in cases.items()}}
-        out["timing"] = timing(torch, mesh, args.arch, args.layers, args.rows, args.steps)
+        out["timing"] = timing(torch, mesh, args.arch, args.layers, args.rows, args.steps,
+                               args.seqpar)
     finally:
         dist.destroy_process_group()
     if rank == 0:

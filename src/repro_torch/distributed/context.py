@@ -8,7 +8,8 @@ GSPMD to take such a constraint: ``constrain`` is a no-op here, kept so the
 rules and their resolution to placement specs (``ShardingRules.spec``) carry
 over and are tested against the reference. The sequence-parallel layout that
 ``logical_rules(seq_axis="model")`` names is carried out by the model code
-itself under the placed serving step (``distributed/tp.py``'s ``seq``). The training step places params
+itself (``distributed/tp.py``'s ``seq``) under the training step's
+``seqpar`` and the placed serving step's. The training step places params
 and moments itself (``sharding.shard_tree``), and its activations are each
 rank's rows of the batch, which is the placement the "batch" rule names.
 """

@@ -31,20 +31,31 @@ rank of a model group holds the same rows and computes the same residual
 stream, so the gradient of a replicated tensor is whole on every rank.
 Every collective goes through ``distributed.dp``'s counted functions.
 
-Serving (under ``torch.no_grad``) adds three layouts, each a field of the
-``TP``:
+``seq`` (``seqpar``, Megatron's sequence parallelism; the training step and
+the serving step's prefill): the residual stream holds this rank's
+``T / size`` tokens between blocks. A block gathers them (``full``: one
+``all_gather`` forward, a ``reduce_scatter`` of the gradient backward)
+before its column products, and its row products end in a
+``reduce_scatter`` over the tokens (``exit``; an ``all_gather`` of the
+gradient backward) where they would all-reduce; a block that runs whole
+keeps its rank's part of the output (``part``). Its gradients then follow
+one rule: each rank's loss is its share of the model group's (a term that
+every rank computes whole, such as the cross-entropy from ``vocab_stats``
+or a MoE layer's load-balance loss, counts ``1 / size`` on each), and the
+gradient of every tensor on a rank is that rank's share. So
+``to_parallel`` is the identity both ways, ``from_parallel`` all-reduces
+both ways, a leaf gathered for a whole block reduce-scatters its gradient,
+and the step adds the whole leaves' shares over the model group once
+(``train_step``).
+
+Serving (under ``torch.no_grad``) adds two more layouts, each a field of
+the ``TP``:
 
   * ``wide`` (``wide_tp``): leaves split over every rank of the mesh
     (data-major). A product on such a leaf gathers the batch's rows over
     the data ranks (``rows_all``), and its partial sums are added over all
     ranks (one ``all_reduce``) before each rank keeps its rows
     (``rows_mine``): the activations move, not the weights;
-  * ``seq`` (``seqpar``, Megatron's sequence parallelism): the residual
-    stream holds this rank's ``T / size`` tokens between blocks. A block
-    gathers them (``full``: one ``all_gather``) before its column
-    products, and its row products end in a ``reduce_scatter`` over the
-    tokens (``exit``) where they would all-reduce; a block that runs whole
-    keeps its rank's part of the output (``part``);
   * ``kv_seq``: the KV caches' sequence split over the data ranks (a batch
     that does not split over them, ``long_500k``). Each data rank attends
     over its slots and the ranks merge their partial softmaxes
@@ -86,6 +97,34 @@ class _FromParallel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The ranks' shares added: ``all_reduce`` forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return dp.all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dp.all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _Scatter(torch.autograd.Function):
+    """The ranks' partial sums added and cut along ``dim``
+    (``reduce_scatter``); backward, the slices' gradients joined
+    (``all_gather``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return dp.reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(dp.all_gather(g, ctx.group), dim=ctx.dim), None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -159,10 +198,10 @@ class TP:
         return self.rank * per, (self.rank + 1) * per
 
     def to_parallel(self, x):
-        return _ToParallel.apply(x, self.group)
+        return x if self.seq else _ToParallel.apply(x, self.group)
 
     def from_parallel(self, x):
-        return _FromParallel.apply(x, self.group)
+        return (_AllReduce if self.seq else _FromParallel).apply(x, self.group)
 
     def gather_to_parallel(self, leaf):
         """A leaf whole, for a use that differs by rank; a whole leaf goes
@@ -178,14 +217,17 @@ class TP:
             return torch.cat(dp.all_gather(leaf, self.wide.ranks.group),
                              dim=self.wide.dims[id(leaf)])
         d = self.dim(leaf)
-        return leaf if d is None else _Gather.apply(leaf, self.group, d, self.rank, False)
+        # under ``seq`` each rank's use keeps only its tokens' outputs: the
+        # ranks' gradients are shares, added before the slice is kept
+        return leaf if d is None else _Gather.apply(leaf, self.group, d, self.rank, self.seq)
 
-    # -- serving's layouts -----------------------------------------------------
+    # -- the layouts of the stream ---------------------------------------------
 
     def full(self, x):
         """A residual-stream tensor ``[B, T', ...]`` with all its tokens:
-        under ``seq`` the model ranks' parts joined (one ``all_gather``)."""
-        return torch.cat(dp.all_gather(x, self.group), dim=1) if self.seq else x
+        under ``seq`` the model ranks' parts joined (one ``all_gather``;
+        backward, one ``reduce_scatter`` of the ranks' shares)."""
+        return _Gather.apply(x, self.group, 1, self.rank, True) if self.seq else x
 
     def part(self, x):
         """This rank's tokens of a whole ``[B, T, ...]`` under ``seq``."""
@@ -222,7 +264,7 @@ class TP:
         the tokens under ``seq``), or for a wide leaf over every rank, this
         rank's rows (and tokens) kept."""
         if self.kind(leaf) == "model":
-            return dp.reduce_scatter(y, self.group, 1) if self.seq else self.from_parallel(y)
+            return _Scatter.apply(y, self.group, 1) if self.seq else self.from_parallel(y)
         y = dp.all_reduce(y.contiguous(), self.wide.ranks.group)
         return self.part(self.rows_mine(y))
 

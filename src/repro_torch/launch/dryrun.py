@@ -25,15 +25,18 @@ collective with its bytes and its group's size:
 
 - train: the state placed by ``jit_train_step``'s specs, the step
   tensor-parallel on "model" (``distributed/tp.py``) on data rank 0's rows;
+  under ``seqpar`` its residual stream split by sequence over "model"
+  (the reference's ``logical_rules(mesh, seq_axis="model")``): the row
+  products reduce-scatter the tokens and each block gathers them;
 - prefill, decode: the placed serving step (``launch/serve_step.py``):
   params by ``param_sharding(min_fsdp_size=2**24)``, the decode state by
   ``shardspecs.placed_state_shardings`` (``long_500k``'s batch of one puts
   the cache's sequence on the data axes), data rank 0's rows.
 
-The serving variants, as the reference's: ``widetp`` (TP dims over every
-axis, no FSDP), ``seqpar`` (the residual stream split over "model" in the
-prefill), ``moegroup`` (``moe_dispatch_groups`` = the data extent). Each
-token of a variant joins with ``+``.
+The variants, as the reference's: ``widetp`` (serving: TP dims over every
+axis, no FSDP), ``seqpar`` (the residual stream split over "model": the
+train cells and the prefill), ``moegroup`` (``moe_dispatch_groups`` = the
+data extent). Each token of a variant joins with ``+``.
 
 The kernel wrappers take their plain versions on meta tensors, so nothing
 computes; an operation whose result lies off the meta device fails the cell.
@@ -53,15 +56,14 @@ Usage:
     python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --arch yi_6b --shape long_500k --mesh single \
         --variant seqpar
+    python -m repro_torch.launch.dryrun --shape train_4k --mesh both --variant seqpar
     python -m repro_torch.launch.dryrun --all --out DIR
     python -m repro_torch.launch.dryrun --all --mesh both
 
 Variants: ``baseline`` and ``rwkvchunk`` (the same cells here: RWKV6
 prefills with the chunked WKV in both, see ``RWKV_CHUNK``); on the sharded
 meshes ``dponly``, ``tpN``, ``seqpar``, ``widetp`` and ``moegroup``.
-``seqpar`` is refused in a train cell: the port's sequence parallelism
-runs under ``torch.no_grad`` (serving); ``widetp`` places serving's params
-only, as the reference's does.
+``widetp`` places serving's params only, as the reference's does.
 """
 from __future__ import annotations
 
@@ -219,7 +221,7 @@ def lower_cell(arch: str, shape_name: str, variant: str = "baseline", *, mesh: s
     (``mesh="h100"``) or on the reference's mesh ``"single"`` or
     ``"multi"`` (inside ``fake_world`` of its size). ``cfg`` stands in for
     the arch's published config (a smoke config)."""
-    refuse(variant, mesh, shape_name)
+    refuse(variant, mesh)
     cfg = get_config(arch) if cfg is None else cfg
     reason = SH.skip_reason(cfg, shape_name)
     if reason:
@@ -254,7 +256,8 @@ def lower_cell(arch: str, shape_name: str, variant: str = "baseline", *, mesh: s
                 raise SystemExit(f"{mesh} {variant}: a global batch of {spec.global_batch} "
                                  f"rows does not split over {w} data ranks")
             step = TS.jit_train_step(cfg, tcfg, m, {"params": state["params"]},
-                                     global_batch=spec.global_batch)
+                                     global_batch=spec.global_batch,
+                                     seqpar="seqpar" in toks)
             state = TS.shard_state(state, step.specs, m)
             rows = spec.global_batch // w
             batch = {k: v[:rows] for k, v in batch.items()}  # data rank 0's rows
@@ -324,7 +327,7 @@ def _split_leaves(params, specs, mesh) -> dict:
             for axis in ("data", "model", "wide")}
 
 
-def refuse(variant: str, mesh: str = MESH, shape_name: str = None) -> None:
+def refuse(variant: str, mesh: str = MESH) -> None:
     """Stops (``SystemExit``) on a cell that the dry run does not lower."""
     toks = _tokens(variant)
     mesh_toks = {t for t in toks if t in MESH_VARIANTS or _tp_of({t})}
@@ -335,10 +338,6 @@ def refuse(variant: str, mesh: str = MESH, shape_name: str = None) -> None:
     if mesh == MESH and mesh_toks:
         raise SystemExit(f"variant {'+'.join(sorted(mesh_toks))} places the reference's "
                          f"sharded meshes: run it with --mesh single|multi|both")
-    if ("seqpar" in toks and shape_name is not None
-            and SH.SHAPES[shape_name].kind == "train"):
-        raise SystemExit("seqpar in a train cell: the port's sequence parallelism runs under "
-                         "torch.no_grad (the prefill and decode cells)")
 
 
 def main(argv=None):
@@ -354,13 +353,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     archs = ARCH_IDS if args.all or args.arch is None else [args.arch]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    # every shape by default (under seqpar the serving shapes)
-    shapes = [args.shape] if args.shape else [
-        k for k, s in SH.SHAPES.items() if s.kind != "train" or "seqpar" not in
-        _tokens(args.variant)]
+    shapes = [args.shape] if args.shape else list(SH.SHAPES)
     for mesh in meshes:
-        for shape in shapes:
-            refuse(args.variant, mesh, shape)
+        refuse(args.variant, mesh)
 
     os.makedirs(args.out, exist_ok=True)
     failures = []

@@ -19,6 +19,10 @@ this rank's q heads (``_project``): whole-head KV slices stay local, KV
 split within a head is gathered and the rank takes the heads its q heads
 read (a cache then holds every KV head, and each rank reads its own), and
 where the q heads do not split evenly the block runs whole on every rank.
+Under ``seqpar`` (``TP.seq``: training and serving's prefill) the MLP and
+the attention block take the rank's part of the tokens, gather them
+(``TP.full``) and end in a reduce-scatter over the tokens (``TP.exit``), or
+keep the rank's part of a block run whole (``TP.part``).
 A KV cache whose sequence is split over the data ranks (``TP.kv_seq``) is
 written by the rank that holds each token's ring slot (``_write_split``),
 and a decode step merges the ranks' partial softmaxes (``attention``'s

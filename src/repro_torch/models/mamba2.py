@@ -112,8 +112,13 @@ def _ssd_chunks(h0, xdt, bmat, cmat, log_a):
 def mamba2_block(params, x, cfg, *, state=None, chunk: int = 128):
     """x: [B, T, d]. state: dict(h [B,H,N,P] f32, conv [B,K-1,C]) or None.
 
-    Returns (out [B, T, d], new_state).
+    Returns (out [B, T, d], new_state). Under ``seqpar``
+    (``distributed.tp``) ``x`` and ``out`` are the rank's part of the
+    tokens: the scan runs over them gathered.
     """
+    par = tp.current()
+    if par is not None:
+        x = par.full(x)
     b, t, d = x.shape
     di, n, h_heads, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     proj = x @ tp.whole(params["w_in"])
@@ -150,4 +155,6 @@ def mamba2_block(params, x, cfg, *, state=None, chunk: int = 128):
     y = y * F.silu(z)
     y = rms_norm(y, params["ssm_norm"], cfg.norm_eps)
     out = y @ tp.whole(params["w_out"])
+    if par is not None:
+        out = par.part(out)
     return out, {"h": h_final.to(F32), "conv": new_conv}

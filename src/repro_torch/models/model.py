@@ -39,8 +39,12 @@ path), and ``train_loss`` takes the cross-entropy and z-loss from the
 shards' ``[B, T]`` statistics (``TP.vocab_stats``). Under ``seqpar`` the
 residual stream holds the rank's part of the tokens (``TP.part``), which
 stands for the reference's ``constrain(x, ("batch", "seq", None))``
-points: the embedding reduce-scatters it, each block gathers it, and the
-cached path's head reads the last token from the last model rank.
+points: the embedding reduce-scatters it, each block gathers it (Mamba2's
+scan and RWKV6's token shift and WKV state run over the gathered tokens
+and keep the rank's part of their output), ``forward``'s head gathers the
+tokens before its product, and the cached path's head reads the last
+token from the last model rank. In training each rank's loss is then its
+share of the model group's (``distributed/tp.py``).
 """
 from __future__ import annotations
 
@@ -281,10 +285,15 @@ def _vocab_split(params) -> bool:
 
 def _head_logits(params, x, cfg, whole: bool = False):
     """The logits in f32: this rank's vocab columns when ``head`` is split
-    over "model", unless ``whole`` (serving) gathers every column."""
+    over "model", unless ``whole`` (serving's last token) gathers every
+    column. ``x`` is the stream (``forward``: under ``seq`` the rank's
+    tokens, gathered here after the norm) or, with ``whole``, the last
+    token, which every rank holds."""
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     par = tp.current()
     kind = None if par is None else par.kind(params["head"])
+    if par is not None and not whole:
+        x = par.full(x)
     if kind:
         x = par.enter(params["head"], x)
     # The JAX package takes f32 logits from bf16 operands
@@ -303,7 +312,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
     non-reentrant) where the reference wraps its scan body in
     ``jax.checkpoint`` (not the hybrid family's shared block)."""
     x = _embed(params, batch, cfg)
-    b, t, _ = x.shape
+    b, t = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
     positions = torch.arange(t, dtype=torch.int32, device=x.device)[None].expand(b, t)
     zero = torch.zeros((), dtype=F32, device=x.device)
     run = lambda fn, *a: checkpoint(fn, *a, use_reentrant=False) if remat else fn(*a)
@@ -360,7 +369,11 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     several ranks) the CE and the z-loss divide by the label count of the whole
     microbatch (a sum over its ranks), and the moe layers' aux loss is this
     rank's share: each rank's loss, and its gradient, is its share of the
-    microbatch's, and the shares add up to it."""
+    microbatch's, and the shares add up to it. Under ``seqpar`` the terms
+    that every rank of the model group computes whole (the CE and z-loss
+    over the gathered tokens, the aux loss) count ``1 / size`` on each, so
+    the loss and every metric are the rank's share of the model group's as
+    well."""
     logits, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk,
                           k_chunk=k_chunk, rwkv_chunk=rwkv_chunk)
     labels = batch["labels"].long()
@@ -380,6 +393,9 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
     ce = -(ll * mask).sum() / denom
     # z-loss keeps the softmax normalizer tame (standard at scale).
     zl = 1e-4 * ((lse ** 2) * mask).sum() / denom
+    par = tp.current()
+    if par is not None and par.seq:
+        ce, zl, aux = (v / par.size for v in (ce, zl, aux))
     loss = ce + zl + 0.01 * aux
     return loss, {"ce": ce, "z_loss": zl, "moe_aux": aux}
 

@@ -27,7 +27,10 @@ output (``cfg.moe_dense_residual``).
 Under tensor parallelism (``distributed.tp``) the router, top-k and the
 pack run on every rank of the model group on the same (replicated) tokens;
 the expert products are split on ``ff``, and their shares are added (one
-``all_reduce``) on the rows gathered back to the tokens.
+``all_reduce``) on the rows gathered back to the tokens. Under ``seqpar``
+those tokens are the stream's parts gathered (one ``all_gather``), the
+pack's label and expert counts stay the microbatch's, and the layer keeps
+the rank's part of its output.
 """
 from __future__ import annotations
 
@@ -127,11 +130,12 @@ def moe_ffn(params, x, cfg):
     """x: [B, T, d] -> ([B, T, d], {"aux_loss", "dropped"}): the Switch-style
     load-balance loss and the count of assignments past capacity.
 
-    Under serving's layouts (``distributed.tp``): with ``seq`` the layer
-    routes the stream's tokens whole and keeps the rank's part of the
-    output; with the experts split over every rank (``wide``) it routes
-    every data rank's rows (one process's dispatch over the batch) and
-    keeps this rank's."""
+    Under the layouts of ``distributed.tp``: with ``seq`` the layer routes
+    the stream's tokens whole and keeps the rank's part of the output (in
+    training the aux loss, computed whole on every rank, counts as its
+    ``1 / size`` share in ``model.train_loss``); with the experts split over
+    every rank (serving's ``wide``) it routes every data rank's rows (one
+    process's dispatch over the batch) and keeps this rank's."""
     par = tp.current()
     kind = None if par is None else par.kind(params["w_up"])
     y_in = x

@@ -18,7 +18,9 @@ then row-parallel on ``d_ff`` (``ck``, ``cv``); the time-mix runs whole on
 every rank, its ``wr``/``wk``/``wv``/``wg``/``wo`` gathered over "model"
 (``tp.whole``): the reference splits ``wo`` on its output dim, which no
 local product of the rank's heads can use, and the ``ln_x`` norm spans
-every head.
+every head. Under ``seqpar`` both mixes take the rank's part of the
+tokens, gather them (the token shift and the WKV state cross the split)
+and keep the rank's part of their output.
 """
 from __future__ import annotations
 
@@ -75,6 +77,9 @@ def _lerp(x, xs, mu):
 
 def rwkv6_time_mix(params, x, cfg, *, state=None, chunk_size: int = 1):
     """x: [B, T, d]. state: dict(shift [B,d], wkv [B,H,P,P]) or None."""
+    par = tp.current()
+    if par is not None:
+        x = par.full(x)
     b, t, d = x.shape
     h, p = cfg.rwkv_heads, cfg.ssm_head_dim
     if state is None:
@@ -103,6 +108,8 @@ def rwkv6_time_mix(params, x, cfg, *, state=None, chunk_size: int = 1):
     o = o.reshape(b, t, d).to(x.dtype)
     o = rms_norm(o, params["ln_x"], cfg.norm_eps)
     o = (o * F.silu(g)) @ tp.whole(params["wo"])
+    if par is not None:
+        o = par.part(o)
     return o, {"shift": x[:, -1, :].to(F32), "wkv": s_fin}
 
 
@@ -157,6 +164,9 @@ def _wkv_chunked_carry(r, k, v, w, u, chunk, s0):
 
 def rwkv6_channel_mix(params, x, cfg, *, state=None):
     """Channel-mix (relu^2 FFN with token shift). state: [B, d] prev token."""
+    par = tp.current()
+    if par is not None:
+        x = par.full(x)
     b, t, d = x.shape
     if state is None:
         prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
@@ -166,12 +176,13 @@ def rwkv6_channel_mix(params, x, cfg, *, state=None):
     mu = params["mu_c"]
     xk = _lerp(x, xs, mu[0])
     xr = _lerp(x, xs, mu[1])
-    par = tp.current()
     if par is not None and par.kind(params["ck"]) is not None:
         kk = torch.square(torch.relu(par.enter(params["ck"], xk) @ params["ck"]))
         kv = par.exit(params["ck"], kk @ params["cv"])
     else:
         kk = torch.square(torch.relu(xk @ params["ck"]))
-        kv = kk @ params["cv"]
+        kv = kk @ params["cv"] if par is None else par.part(kk @ params["cv"])
+    if par is not None:
+        xr = par.part(xr)
     out = torch.sigmoid(xr @ params["cr"]) * kv
     return out, x[:, -1, :].to(F32)

@@ -26,7 +26,11 @@ keeps the model slices and runs the model tensor-parallel on them
 (``all_reduce``) and updates its blocks; the loss divides by the global
 label count (``distributed.dp``). ``make_train_step`` takes the placement
 as ``specs`` (needed over a process group), or holds every leaf whole in
-one process.
+one process. ``seqpar`` (the reference's ``logical_rules(seq_axis=
+"model")``, Megatron's sequence parallelism) splits the residual stream
+over the T model ranks by sequence between blocks: each rank's gradient of
+a whole leaf is then its tokens' share, and the step adds the shares over
+the model group once.
 """
 from __future__ import annotations
 
@@ -174,6 +178,7 @@ def make_train_step(
     global_batch: Optional[int] = None,
     *,
     specs: Optional[dict] = None,
+    seqpar: bool = False,
 ):
     """Returns step(state, batch, tables) -> (state, metrics). ``tables``
     may be None when lb_ingest is off. The batch is numpy or tensors (this
@@ -185,7 +190,14 @@ def make_train_step(
     the metrics over the data ranks, the tensor-parallel products over the
     model ranks. It then needs ``specs`` ({"params", "opt"}, as
     ``placement`` makes them), which say which leaves ``state`` holds as
-    this rank's blocks."""
+    this rank's blocks.
+
+    ``seqpar`` on a mesh of several model ranks holds each rank's part of
+    the sequence in the residual stream (``distributed.tp``'s ``seq``): a
+    sequence length that does not split over them raises ``ValueError``.
+    Each rank's loss and gradient are then its share of the model group's,
+    and the step adds the whole leaves' gradients (one ``all_reduce`` of
+    their float32 concatenation) and the metrics over the model group."""
     w = shd.data_extent(mesh) if mesh is not None else 1
     t_size = shd.model_extent(mesh) if mesh is not None else 1
     group = None if mesh is None else mesh.group
@@ -236,7 +248,12 @@ def make_train_step(
             lsum = lsum + loss
         return lsum / a, {}, tree_map(lambda x, stacked: x / a, gsum)
 
+    seq = seqpar and t_size > 1
+
     def step(state, batch, tables):
+        if seq and batch["labels"].shape[1] % t_size:
+            raise ValueError(f"seqpar: a sequence of {batch['labels'].shape[1]} tokens does not "
+                             f"split over {t_size} model ranks")
         dev = state["step"].device
         rank = 0 if mesh is None else shd.rank_of(mesh)
         params = state["params"]
@@ -252,16 +269,22 @@ def make_train_step(
         if specs is not None:
             whole = shd.gather_tree(params, specs["params"], mesh, axes=("data",))
             if t_size > 1:
-                mdims = shd.placed_dims(params, specs["params"], mesh, "model")
+                mdims = leaves(shd.placed_dims(params, specs["params"], mesh, "model"))
                 par = TP.TP(group=mesh.model_group, rank=shd.model_rank(mesh), size=t_size,
-                            dims={id(x): d for x, d in zip(leaves(whole), leaves(mdims))
-                                  if d is not None})
+                            dims={id(x): d for x, d in zip(leaves(whole), mdims)
+                                  if d is not None}, seq=seq)
         else:
             whole = params
         with TP.use_tp(par):
             loss, lmet, grads = grads_of(whole, mb, rank)
         del whole
         stats = [loss] + list(lmet.values())
+        if seq:
+            # each rank's shares (its tokens') of the whole leaves' gradients
+            # and of the loss, added over the model group
+            _add_shares([g for g, d in zip(leaves(grads), mdims) if d is None],
+                        mesh.model_group)
+            stats = list(DP.all_reduce(torch.stack(stats), mesh.model_group).unbind())
         if train_cfg.lb_ingest:
             stats.append(occ.sum().to(F32))
         if group is not None:
@@ -313,6 +336,16 @@ def make_train_step(
     return step
 
 
+def _add_shares(grads: list, group) -> None:
+    """``grads`` summed over ``group`` in place, through one ``all_reduce``
+    of their float32 concatenation."""
+    if not grads:
+        return
+    flat = DP.all_reduce(torch.cat([g.reshape(-1).to(F32) for g in grads]), group)
+    for g, piece in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(piece.view_as(g))
+
+
 def state_shapes(model_cfg: ModelConfig, train_cfg: TrainConfig) -> dict:
     """The params and optimizer state on the meta device (shapes only), as
     ``jit_train_step`` takes them."""
@@ -336,15 +369,18 @@ def jit_train_step(
     *,
     global_batch: Optional[int],
     donate: bool = True,
+    seqpar: bool = False,
 ):
     """The step with params and moments placed by the sharding rules
     (``placement`` over ``state_shapes["params"]``). Its ``specs``
     attribute holds them: ``shard_state`` places a whole state so, and
     ``gather_state`` makes it whole again. ``donate=False`` leaves the
     caller's state as it was (the step works on a copy); with ``donate``
-    the step updates it in place, as it always does."""
+    the step updates it in place, as it always does. ``seqpar``: see
+    ``make_train_step``."""
     specs = placement(model_cfg, train_cfg, mesh, state_shapes["params"])
-    inner = make_train_step(model_cfg, train_cfg, mesh, global_batch, specs=specs)
+    inner = make_train_step(model_cfg, train_cfg, mesh, global_batch, specs=specs,
+                            seqpar=seqpar)
 
     def step(state, batch, tables):
         if not donate:

@@ -291,14 +291,13 @@ def test_cli_writes_the_skipped_cell_and_refuses_sharded_meshes(tmp_path, capsys
         assert "sharded" in str(e.value.code)
     with pytest.raises(SystemExit):
         D.lower_cell("yi_6b", "decode_32k", "widetp")
-    with pytest.raises(SystemExit, match="seqpar in a train cell"):
-        D.lower_cell("yi_6b", "train_4k", "seqpar", mesh="single")
 
 
 def test_cli_accepts_the_train_cell_on_the_sharded_meshes(tmp_path, monkeypatch):
     """``--mesh single --shape train_4k`` (and ``both``, ``--variant
-    dponly``, ``tp4``) lowers each mesh's cell inside a fake process group of the
-    mesh's size (the lowering itself: ``tests/test_torch_collectives.py``)."""
+    dponly``, ``tp4``, ``seqpar``) lowers each mesh's cell inside a fake
+    process group of the mesh's size (the lowering itself:
+    ``tests/test_torch_collectives.py``)."""
     import torch.distributed as dist
 
     seen = []
@@ -308,17 +307,20 @@ def test_cli_accepts_the_train_cell_on_the_sharded_meshes(tmp_path, monkeypatch)
         return {"arch": arch, "shape": shape, "mesh": mesh, "skipped": "stub"}
 
     monkeypatch.setattr(D, "lower_cell", fake_lower)
-    for mesh, variant in (("both", "baseline"), ("single", "dponly"), ("single", "tp4")):
+    for mesh, variant in (("both", "baseline"), ("single", "dponly"), ("single", "tp4"),
+                          ("single", "seqpar")):
         D.main(["--arch", "yi_6b", "--shape", "train_4k", "--mesh", mesh, "--variant", variant,
                 "--out", str(tmp_path)])
     assert seen == [("yi_6b", "train_4k", "baseline", "single", 256),
                     ("yi_6b", "train_4k", "baseline", "multi", 512),
                     ("yi_6b", "train_4k", "dponly", "single", 256),
-                    ("yi_6b", "train_4k", "tp4", "single", 256)]
+                    ("yi_6b", "train_4k", "tp4", "single", 256),
+                    ("yi_6b", "train_4k", "seqpar", "single", 256)]
     assert not dist.is_initialized()
     assert sorted(os.listdir(tmp_path)) == [
         "yi_6b__train_4k__multi.json", "yi_6b__train_4k__single.json",
-        "yi_6b__train_4k__single__dponly.json", "yi_6b__train_4k__single__tp4.json"]
+        "yi_6b__train_4k__single__dponly.json", "yi_6b__train_4k__single__seqpar.json",
+        "yi_6b__train_4k__single__tp4.json"]
 
 
 def test_dry_run_refuses_a_tensor_off_meta():

@@ -83,24 +83,28 @@ def test_a_group_of_one_records_nothing_and_dtensor_issues_its_own():
 
 def test_train_cell_on_the_sharded_meshes_records_collectives():
     """Yi's smoke config in the ``train_4k`` cell at
-    ``make_production_mesh()`` (16 x 16) and at ``tp4`` (64 x 4), lowered
-    in a subprocess as rank 0 of a fake 256-rank world: every operation
-    stays on meta (the dry run fails a cell otherwise), the record holds
-    all-gathers, all-reduces and the ingest's all-to-alls, and both
-    packages' ``analyze`` read the artifact."""
+    ``make_production_mesh()`` (16 x 16), at ``tp4`` (64 x 4) and at
+    ``seqpar`` (16 x 16, the residual stream split by sequence over
+    "model"), lowered in a subprocess as rank 0 of a fake 256-rank world:
+    every operation stays on meta (the dry run fails a cell otherwise), the
+    record holds all-gathers, all-reduces and the ingest's all-to-alls (and
+    under seqpar the stream's reduce-scatters on the model group, beside no
+    fewer all-gathers than the baseline's), and both packages' ``analyze``
+    read the artifact."""
     code = (
         "import json\n"
         "from repro_torch.configs import get_smoke_config\n"
         "from repro_torch.launch import dryrun as D\n"
         "with D.fake_world(256):\n"
         "    arts = [D.lower_cell('yi_6b', 'train_4k', v, mesh='single',\n"
-        "                         cfg=get_smoke_config('yi_6b')) for v in ('baseline', 'tp4')]\n"
+        "                         cfg=get_smoke_config('yi_6b'))\n"
+        "            for v in ('baseline', 'tp4', 'seqpar')]\n"
         "print(json.dumps(arts))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     arts = json.loads(res.stdout.splitlines()[-1])
-    for art, (dp_, tp_) in zip(arts, [(16, 16), (64, 4)]):
+    for art, (dp_, tp_) in zip(arts, [(16, 16), (64, 4), (16, 16)]):
         assert (art["chips"], art["dp"], art["tp"]) == (256, dp_, tp_)
         col = art["collectives"]
         assert col["total_wire_bytes"] > 0
@@ -110,3 +114,6 @@ def test_train_cell_on_the_sharded_meshes_records_collectives():
             r = analyze(art)
             assert r.chips == 256 and r.wire_bytes_per_device > 0 and r.collective_s > 0
         assert art["memory"]["argument_size_in_bytes"] > 0 and art["cost"]["flops"] > 0
+    base, seq = arts[0]["collectives"]["ops"], arts[2]["collectives"]["ops"]
+    assert seq.get("reduce-scatter", 0) > base.get("reduce-scatter", 0)
+    assert seq["all-gather"] >= base["all-gather"]

@@ -17,6 +17,11 @@ record's counts equal ``distributed.dp.COUNTS`` (every collective of the
 step goes through ``dp``, and a group of one issues none), and at (1, 4)
 Yi's dense step issues exactly the model-group collectives that
 ``distributed/tp.py``'s pattern gives (``dense_counts``).
+
+A ``seqpar`` case (the residual stream split by sequence over "model",
+Megatron's sequence parallelism) takes its base case's config, batch and
+mesh, and so its reference run: the reference's seqpar is a placement of
+the same function, so the oracle is the same step.
 """
 import pickle
 
@@ -50,7 +55,13 @@ CASES.update({"yi_6b/accum": ({"accum_steps": 2}, ((2, 2),), {}),
               "yi_6b/eight_bit": ({"eight_bit": True}, ((2, 2),), {}),
               # 6 q heads over 4 ranks: the attention runs whole on every rank
               "yi_6b/odd_heads": ({}, ((1, 4),), {"n_heads": 6})})
+#: seqpar case -> its base case, whose config, batch and reference run it
+#: takes: each family at (1, 4), and Yi's accumulation at (2, 2)
+SEQPAR = {f"{a}/seqpar": f"{a}/default" for a in ARCHS} | {"yi_6b/accum+seqpar": "yi_6b/accum"}
+CASES.update({f"{a}/seqpar": ({"seqpar": True}, ((1, 4),), {}) for a in ARCHS})
+CASES["yi_6b/accum+seqpar"] = ({"accum_steps": 2, "seqpar": True}, ((2, 2),), {})
 RUNS = [(name, dm) for name, (_, meshes, _) in CASES.items() for dm in meshes]
+SEQ_RUNS = [(name, dm) for name, dm in RUNS if name in SEQPAR]
 #: the run whose stepped state is checkpointed and restored on its mesh
 CKPT = ("yi_6b/eight_bit", (2, 2))
 
@@ -60,7 +71,7 @@ def _case(name: str) -> dict:
     opts, meshes, over = CASES[name]
     over = {**ARCHS[arch], **over}
     cfg = j_smoke(arch).with_(**over)
-    rng = np.random.default_rng(len(name))
+    rng = np.random.default_rng(len(SEQPAR.get(name, name)))
     labels = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
     batch = {"labels": labels, "headers": encode_headers(
         rng.integers(0, 1 << 40, B).astype(np.uint64),
@@ -119,10 +130,12 @@ def world(tmp_path_factory):
     d = tmp_path_factory.mktemp("tp")
     (d / "cases.pkl").write_bytes(pickle.dumps(cases))
     procs = _spawn(WORLD, d)  # the world runs while the references are computed
-    refs = {(name, dm): _reference(cases[name], dm) for name, dm in RUNS}
+    refs = {(name, dm): _reference(cases[name], dm) for name, dm in RUNS
+            if name not in SEQPAR}
     ranks = _join(procs, d)
     out = {"ranks": ranks, "ref": {}, "resync": {}, "init": {}, "dir": d}
-    for (name, dm), (want, step_from) in refs.items():
+    for name, dm in RUNS:
+        want, step_from = refs[(SEQPAR.get(name, name), dm)]
         tag = f"{name}@{dm[0]}x{dm[1]}"
         out["ref"][tag] = want
         out["resync"][tag] = step_from(_states(ranks[0], f"{tag}/state0/"))
@@ -241,3 +254,57 @@ def test_whole_kv_heads_stay_local_at_two_model_ranks(world):
     for s in range(STEPS):
         got = _collectives(world["ranks"][0], "yi_6b/default@2x2", s, "record")
         assert "reduce-scatter" not in got
+
+
+@pytest.mark.parametrize("name,dm", SEQ_RUNS, ids=[f"{n}@{d}x{m}" for n, (d, m) in SEQ_RUNS])
+def test_seqpar_step_reduce_scatters_the_stream_on_the_model_group(world, name, dm):
+    """Under seqpar the row products reduce-scatter the residual stream
+    over the model ranks, and every block gathers it: reduce-scatters where
+    the base case has few or none (the data ranks issue none: the ingest's
+    exchange is an all-to-all, FSDP gathers, the gradients all-reduce), and
+    no fewer all-gathers."""
+    got = world["ranks"][0]
+    base = f"{SEQPAR[name]}@{dm[0]}x{dm[1]}"
+    for s in range(STEPS):
+        seq = _collectives(got, f"{name}@{dm[0]}x{dm[1]}", s, "record")
+        plain = _collectives(got, base, s, "record")
+        assert seq.get("reduce-scatter", 0) > plain.get("reduce-scatter", 0), (name, s, seq)
+        assert seq.get("all-gather", 0) >= plain.get("all-gather", 0), (name, s, seq)
+
+
+def test_sequence_collectives_give_the_unsplit_gradients(world):
+    """``TP.full`` (all_gather; backward reduce_scatter), ``TP.exit`` under
+    ``seq`` (reduce_scatter; backward all_gather) and ``TP.whole`` under
+    ``seq`` (backward: the ranks' shares reduce-scattered) on a two-rank
+    gloo model group: each rank's gradients of its tokens and of its
+    slices equal the unsplit computation's, and the ranks' shares of a
+    whole leaf's add up to it (``tests/torch_dp_worker.py``'s
+    ``seq_collectives``)."""
+    ranks = world["ranks"]
+    for r in ranks:
+        for name in ("x", "w1", "w2", "w3"):
+            np.testing.assert_allclose(r[f"seqcoll/got/{name}"], r[f"seqcoll/want/{name}"],
+                                       rtol=1e-12, atol=1e-12, err_msg=name)
+    for d in (0, 1):
+        group = [r for r in ranks if int(r["seqcoll/data_rank"]) == d]
+        assert len(group) == 2
+        np.testing.assert_allclose(sum(r["seqcoll/got/s"] for r in group),
+                                   group[0]["seqcoll/want/s"], rtol=1e-12, atol=1e-12)
+
+
+def test_seqpar_refuses_a_sequence_that_does_not_split_over_the_model_ranks():
+    """A sequence of 7 tokens over 2 model ranks raises before any
+    collective (the mesh's groups are stand-ins, never used)."""
+    import torch
+
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.train import train_step as TS
+
+    cfg = get_smoke_config("yi_6b")
+    tc = TS.TrainConfig(lb_ingest=False)
+    mesh = Mesh(("data", "model"), (1, 2), group=object(), model_group=object())
+    step = TS.make_train_step(cfg, tc, mesh, 2, specs={}, seqpar=True)
+    toks = np.zeros((2, 7), np.int32)
+    state = {"step": torch.zeros((), dtype=torch.int32)}
+    with pytest.raises(ValueError, match="7 tokens does not split over 2 model ranks"):
+        step(state, {"tokens": toks, "labels": toks}, None)

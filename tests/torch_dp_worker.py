@@ -15,7 +15,10 @@ leaves are split); each rank feeds its data rank's rows of the batch. At
 W = 1 the same case also runs through the one-process ``make_train_step``
 (no process group). On a mesh given by the case, each step runs under
 ``analysis.collectives.CollectiveRecord``, and the record's counts are kept
-beside ``distributed.dp.COUNTS``.
+beside ``distributed.dp.COUNTS``. A case whose options hold ``seqpar``
+runs the step with the residual stream split by sequence over "model".
+A world that holds a (2, 2) mesh also runs ``seq_collectives`` on its
+two-rank model group.
 """
 from __future__ import annotations
 
@@ -92,7 +95,8 @@ def run_case(case: dict, mesh, rank: int, world: int, out: dict, tag: str, specs
     tc = train_config(case["opts"])
     gb = len(case["batch"]["labels"])
     if specs is not None:
-        step = TS.make_train_step(cfg, tc, mesh, gb, specs=specs)
+        step = TS.make_train_step(cfg, tc, mesh, gb, specs=specs,
+                                  seqpar=case["opts"].get("seqpar", False))
         state = TS.shard_state(fresh_state(case, tc), specs, mesh)
         dims = placed_dims(state["params"], specs["params"], mesh)
         out[f"{tag}/n_split"] = np.asarray(sum(d is not None for d in leaves(dims)))
@@ -173,9 +177,55 @@ def main(rank: int, world: int, init_file: str, out_dir: str) -> None:
                                   mesh=mesh)
                 for k, v in host(TS.gather_state(back, specs, mesh)).items():
                     out[f"restored_w1/{k}"] = v
+        if (2, 2) in meshes:
+            seq_collectives(meshes[(2, 2)], out)
         np.savez(out_dir / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
+
+
+def seq_collectives(mesh, out: dict) -> None:
+    """``distributed.tp``'s sequence-parallel collectives under autograd on
+    the two-rank model group of ``mesh`` (float64): the rank's half of the
+    tokens of ``x`` ``[B, T, d]`` gathered (``TP.full``), a column product
+    on its half of ``w1``'s outputs, the row product on its half of
+    ``w2``'s inputs reduce-scattered over the tokens (``TP.exit``), and a
+    block run whole on a gathered ``w3`` (``TP.whole``) whose output keeps
+    the rank's tokens (``TP.part``). The rank's gradients of its tokens,
+    of its slices and of the whole leaf ``s`` (its tokens' share) go to
+    ``seqcoll/got/<name>``; those of the unsplit computation, cut the same
+    way, to ``seqcoll/want/<name>``."""
+    from repro_torch.distributed import tp as TPM
+    from repro_torch.distributed.sharding import model_rank
+
+    r, n = model_rank(mesh), 2
+    g = torch.Generator().manual_seed(11)
+    draw = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
+    x, c, s = draw(2, 8, 6), draw(2, 8, 6), draw(6)
+    w1, w2, w3 = draw(6, 10), draw(10, 6), draw(6, 6)
+
+    def loss(x, w1, w2, w3, s, full, exit_, whole, part):
+        xs = x * s
+        xf = full(xs)
+        y = exit_(torch.tanh(xf @ w1) @ w2) + part(torch.sin(xf @ whole(w3)))
+        return (y * part(c)).sum()
+
+    mine = [x.narrow(1, r * 4, 4), w1.narrow(1, r * 5, 5), w2.narrow(0, r * 5, 5),
+            w3.narrow(1, r * 3, 3), s]
+    mine = [t.clone().requires_grad_(True) for t in mine]
+    par = TPM.TP(group=mesh.model_group, rank=r, size=n,
+                 dims={id(mine[1]): 1, id(mine[2]): 0, id(mine[3]): 1}, seq=True)
+    got = torch.autograd.grad(loss(*mine, par.full, lambda y: par.exit(mine[2], y), par.whole,
+                                   par.part), mine)
+    whole = [t.clone().requires_grad_(True) for t in (x, w1, w2, w3, s)]
+    ident = lambda t: t
+    want = torch.autograd.grad(loss(*whole, ident, ident, ident, ident), whole)
+    cuts = [lambda t: t.narrow(1, r * 4, 4), lambda t: t.narrow(1, r * 5, 5),
+            lambda t: t.narrow(0, r * 5, 5), lambda t: t.narrow(1, r * 3, 3), ident]
+    out["seqcoll/data_rank"] = np.asarray(rank_of(mesh))
+    for name, a, b, cut in zip(("x", "w1", "w2", "w3", "s"), got, want, cuts):
+        out[f"seqcoll/got/{name}"] = a.numpy()
+        out[f"seqcoll/want/{name}"] = cut(b).numpy()
 
 
 def state_ckpt(state: dict) -> dict:
