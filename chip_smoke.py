@@ -130,6 +130,11 @@ result:
                 never; median step ms (steps 1-3, 8-9), trained tokens/s,
                 peak memory against the state's reckoning, the checkpoint's
                 save and restore seconds
+ 9a. train_dp   jit_train_step over a one-rank NCCL group: Yi-6B width,
+                8 layers, bit for bit the one-process trainer's steps;
+                then the Mixtral smoke config with accum_steps 3 and 3
+                dispatch groups a microbatch, card == CPU, every
+                dispatch_plan call equal to plain
  9b. serve_tp   serving under the placement (launch/serve_step.py) over a
                 one-rank NCCL group on make_debug_mesh(1, 1): Yi-6B width,
                 8 of 32 layers (bf16, random weights), a prefill of 4 x
@@ -2442,6 +2447,80 @@ def train_phase(torch, np):
     return launches, paths
 
 
+# the Mixtral smoke config in [train_dp]: 3 microbatches of 4 rows of 12
+# tokens, 3 dispatch groups of 16 tokens in each (a group takes rows in
+# part), capacity factor 0.5 so that experts drop
+TRAIN_DP_MOE = dict(steps=2, batch=12, seq=12, accum_steps=3, moe_dispatch_groups=3)
+
+
+def train_dp_moe(torch, np, mesh):
+    """The Mixtral smoke config (TRAIN_DP_MOE) through the Trainer: on
+    ``jit_train_step`` over ``mesh`` (the one-rank NCCL group) on the card
+    and on the one-process step on the CPU, both from one checkpoint drawn
+    on the CPU; loss, grad_norm and lr within TRAIN_TOL, the occupancy and
+    every MoE layer call's drops exactly equal; every ``dispatch_plan`` call
+    of the card's steps held equal to plain, one a step for the ingest and
+    one for each layer of each microbatch, in the forward and again in
+    remat's recompute. Returns (the card's launches, the line's fields)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import _lib
+    from repro_torch.testing.plans import held, recorded_drops, recorded_plans
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    p = TRAIN_DP_MOE
+    cfg = get_smoke_config("mixtral_8x22b").with_(
+        capacity_factor=0.5, moe_dispatch_groups=p["moe_dispatch_groups"])
+    tc = TS.TrainConfig(adamw=O.AdamWConfig(lr=1e-3), remat=True, lb_ingest=True,
+                        accum_steps=p["accum_steps"], q_chunk=8, k_chunk=8)
+    st = TS.init_train_state(torch.Generator().manual_seed(0), cfg, tc, "cpu")
+    hist, drops = {}, {}
+    for dev, m in (("cuda", mesh), ("cpu", Mesh(("data",), (1,)))):
+        d = _train_dir(f"dp_moe_{dev}")
+        ckpt.save(str(d), 0, {"params": st["params"], "opt": st["opt"], "step": st["step"]})
+        tr = Trainer(cfg, tc, TrainerConfig(n_members=1, ckpt_dir=str(d), device=dev,
+                                            ckpt_every=1 << 30), mesh=m)
+        check((tr.specs is not None) == (dev == "cuda"),
+              f"train_dp moe: the {dev} trainer's step is not the expected one")
+        tr.init_or_restore(torch.Generator(device=dev).manual_seed(1))
+        _lib.reset_launches()
+        with recorded_plans() as calls, recorded_drops() as dr:
+            tr.run(p["steps"], batch=p["batch"], seq=p["seq"])
+        if dev == "cuda":
+            launches, plans = dict(_lib.LAUNCHES), held(calls)
+        hist[dev], drops[dev] = tr.history, dr
+        del tr
+    calls = p["steps"] * (1 + 2 * cfg.n_layers * p["accum_steps"])
+    check(len(plans) == calls and all(q["equal"] for q in plans),
+          f"train_dp moe: {len(plans)} dispatch_plan calls (want {calls}), against plain: "
+          f"{plans}")
+    check(launches["dispatch_plan"] == calls and launches["lb_route"] == p["steps"],
+          f"train_dp moe: launches {launches}")
+    check(drops["cuda"] == drops["cpu"] and sum(drops["cuda"]) > 0,
+          f"train_dp moe: drops card {drops['cuda']} CPU {drops['cpu']}")
+    worst = 0.0
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        check(a["ingest_occupancy"] == b["ingest_occupancy"],
+              f"train_dp moe: occupancy differs card vs CPU: {a} {b}")
+        for k in ("loss", "grad_norm", "lr"):
+            err = abs(a[k] - b[k])
+            check(err <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(b[k]),
+                  f"train_dp moe: {k} differs card vs CPU: {a[k]} {b[k]}")
+            worst = max(worst, err / abs(b[k]))
+    return launches, dict(
+        run="mixtral smoke config (float32, capacity_factor 0.5), accum_steps "
+            f"{p['accum_steps']}, moe_dispatch_groups {p['moe_dispatch_groups']}, lb_ingest: "
+            "jit_train_step over the one-rank NCCL group against the CPU's one-process step",
+        **p, card_equals_cpu=f"loss, grad_norm, lr within {TRAIN_TOL}; occupancy and drops "
+                             "exact", worst_rel_diff=worst,
+        dispatch_plan_calls_equal_to_plain=len(plans),
+        dropped_per_layer_call=drops["cuda"], loss_card=[h["loss"] for h in hist["cuda"]],
+        loss_cpu=[h["loss"] for h in hist["cpu"]])
+
+
 def train_dp(torch, np, full_ms):
     """The data-parallel step (``jit_train_step``) over a one-rank NCCL
     process group (a FileStore under build/, no network) on
@@ -2449,8 +2528,10 @@ def train_dp(torch, np, full_ms):
     and the batches of [train]'s steps 4-6, under deterministic algorithms,
     against the one-process step on the same: loss, metrics and params bit
     for bit; lb_route and dispatch_plan launched once a step. Then 2 steps
-    timed as [train] times its own (``full_ms``, its median, beside them).
-    Returns the launches of the three deterministic steps."""
+    timed as [train] times its own (``full_ms``, its median, beside them),
+    and the Mixtral smoke config's microbatches and dispatch groups over the
+    same group (``train_dp_moe``). Returns the launches of the three
+    deterministic steps and of the Mixtral steps."""
     import shutil
 
     import torch.distributed as dist
@@ -2527,9 +2608,11 @@ def train_dp(torch, np, full_ms):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         for h in timed:
             check(np.isfinite(h["loss"]), f"train_dp: a step's loss is not finite: {h}")
+        del tr
+        torch.cuda.empty_cache()
+        moe_launches, moe_line = train_dp_moe(torch, np, mesh)
     finally:
         dist.destroy_process_group()
-    del tr
     torch.cuda.empty_cache()
     shutil.rmtree(store_dir, ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "train", ignore_errors=True)
@@ -2546,8 +2629,8 @@ def train_dp(torch, np, full_ms):
         train_full_step_ms_median=full_ms,
         peak_mem_gb=peak_gb, collectives_per_step=collectives[0],
         launches_per_3_steps={k: v for k, v in launches.items() if v},
-        phase_s=time.perf_counter() - t_phase), sort_keys=True))
-    return launches
+        moe=moe_line, phase_s=time.perf_counter() - t_phase), sort_keys=True))
+    return {k: launches.get(k, 0) + moe_launches.get(k, 0) for k in {**launches, **moe_launches}}
 
 
 # ---------------------------------------------------------------------------

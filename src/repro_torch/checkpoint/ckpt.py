@@ -18,7 +18,8 @@ map of the file.
 A state held as slices across data-parallel ranks (FSDP, ``specs`` and a
 ``mesh`` as ``distributed.sharding.shard_tree`` takes them) is saved whole:
 every rank joins the gather and rank 0 writes. A restore copies each rank's
-slice of every array into its tensors, so a checkpoint of W ranks restores
+slice of every array into its tensors (of a leaf placed on its layer list,
+the rank's layers), so a checkpoint of W ranks restores
 at any other W, one process included, and the other way round.
 """
 from __future__ import annotations
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.tree import flat_paths, stack, tree_map
+from repro_torch.tree import flat_paths, list_depth, stack, tree_map
 
 
 @torch.no_grad()
@@ -186,12 +187,14 @@ def _stored_array(mm: mmap.mmap, zi: zipfile.ZipInfo):
 
 def _copy_into(leaf, arr: np.ndarray, path: str) -> None:
     """``arr`` into ``leaf`` in place (cast to its dtype, on its device); a
-    list takes the items of the leading dim."""
+    list takes the items of the leading dim, but for its None items (those
+    of another rank, ``sharding.shard_lists``)."""
     if isinstance(leaf, list):
         if arr.shape[:1] != (len(leaf),):
             raise ValueError(f"{path}: checkpoint shape {arr.shape}, {len(leaf)} items")
         for i, x in enumerate(leaf):
-            _copy_into(x, arr[i], path)
+            if x is not None:
+                _copy_into(x, arr[i], path)
         return
     if tuple(arr.shape) != tuple(leaf.shape):
         raise ValueError(f"{path}: checkpoint shape {arr.shape}, leaf shape {tuple(leaf.shape)}")
@@ -207,7 +210,8 @@ def restore_into(directory: str, tree, *, step: int | None = None, specs=None,
     Returns the step. A trainer restores into the state it allocated, with
     no second copy of it on the device. With ``specs`` (per top-level key
     of ``tree``) the placed subtrees hold this rank's slices, and each takes
-    its slice of the whole array."""
+    its slice of the whole array (a leaf placed on its layer list: the
+    items that the rank holds)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -228,7 +232,7 @@ def restore_into(directory: str, tree, *, step: int | None = None, specs=None,
             arr = arrays[k]
             for dim_of, n_ranks, r in axes:
                 d = dim_of(placed[k], mesh) if k in placed and n_ranks > 1 else None
-                if d is not None:
+                if d is not None and d >= list_depth(leaf):  # a list dim: the items held
                     n = arr.shape[d] // n_ranks
                     arr = np.take(arr, range(r * n, (r + 1) * n), axis=d)
             _copy_into(leaf, arr, k)

@@ -9,13 +9,14 @@ ranks here:
     ``reduce_scatter``, ``all_to_all``), which every collective of the step
     goes through (``COUNTS`` tallies them). A collective over a group of
     one rank moves nothing: it is not issued and not counted;
-  * ``Slots``: the ranks whose rows make up this rank's microbatch. A
-    microbatch of the reference (the batch, or one of ``accum_steps``
-    slices of it) may span several ranks; the loss's label count and the
-    MoE layers' capacity, expert counts and load-balance loss are sums over
-    exactly those ranks. ``use_slots`` makes a ``Slots`` current for the
-    model code (``models/model.py``, ``models/moe.py``); with none current
-    the model runs as one process.
+  * ``Slots``: the ranks whose rows make up this rank's microbatch in one
+    round of the step's passes. A microbatch of the reference (the batch,
+    or one of ``accum_steps`` slices of it) may span several ranks, each
+    holding any part of its rows; the loss's label count and the MoE
+    layers' token stream, capacity, expert counts and load-balance loss
+    are sums over exactly those ranks. ``use_slots`` makes a ``Slots``
+    current for the model code (``models/model.py``, ``models/moe.py``);
+    with none current the model runs as one process.
 
 The current ``Slots`` is a module global, not a thread-local: a CUDA
 backward runs in autograd's own thread, and recomputing a checkpointed
@@ -90,13 +91,19 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Slots:
-    """The microbatch slot of every rank of ``group`` in this round of the
-    step; ranks of one slot hold equal row counts, and their rows, in rank
-    order, are that microbatch of the reference."""
+    """One round of a step's forward/backward passes over the ranks of
+    ``group``: ``slot_of`` gives each rank's microbatch in the round (None:
+    the rank holds no rows of it, and runs the round on none, so that every
+    rank of the group issues the round's collectives), ``rows_of`` the rows
+    that each rank holds of it (None: as many on every rank of a slot as on
+    this one). The rows of a slot's ranks, in rank order, are that
+    microbatch of the reference; the ranks of one slot may hold unequal row
+    counts, down to zero."""
 
     group: object
     rank: int
     slot_of: tuple
+    rows_of: Optional[tuple] = None
 
     @property
     def members(self) -> tuple:
@@ -106,6 +113,29 @@ class Slots:
     @property
     def size(self) -> int:
         return len(self.members)
+
+    def rows(self, mine: int) -> list:
+        """The rows of each rank of this rank's slot, in rank order
+        (``mine``: this rank's)."""
+        if self.rows_of is None:
+            return [mine] * self.size
+        return [self.rows_of[r] for r in self.members]
+
+    def round_rows(self, mine: int) -> int:
+        """The rows of one microbatch of the round, which all of its
+        microbatches share: the same number on every rank, an idle one's
+        too (``mine``: this rank's rows)."""
+        if self.rows_of is None:
+            return mine * self.size
+        held = next(s for s in self.slot_of if s is not None)
+        return sum(n for n, s in zip(self.rows_of, self.slot_of) if s == held)
+
+    @property
+    def alone(self) -> bool:
+        """Each microbatch of the round lies within one rank: no rank's
+        sums need another's."""
+        held = [s for s in self.slot_of if s is not None]
+        return len(held) == len(set(held))
 
     def parts(self, x: torch.Tensor) -> list:
         """``x`` of every rank of this slot, in rank order (one

@@ -30,7 +30,11 @@ params and updates each block where it lies).
 
 A list in a params tree (the port's per-layer list) is described as the
 reference stores it (``repro_torch.tree``): one leaf per path whose leading
-dim is the list's length, so a spec has the layer dim first.
+dim is the list's length, so a spec has the layer dim first. A spec that
+places that dim on the data axes (FSDP's largest divisible dim may be the
+layer dim) gives each data rank its ``L / W`` whole items of the list, in
+rank order; the rank's tree holds None in place of the other items
+(``shard_lists``, ``gather_lists``).
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ import torch.distributed as dist
 
 from repro_torch.distributed import dp
 from repro_torch.distributed.context import ShardingRules
-from repro_torch.tree import flat_paths, leaves, stacked_shape, tree_map, unflatten_paths
+from repro_torch.tree import (flat_paths, leaves, list_depth, stacked_shape, tree_map,
+                              unflatten_paths)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,32 +250,112 @@ def wide_dim(spec, mesh: Mesh) -> Optional[int]:
 _DIM_OF = {"data": data_dim, "model": model_dim, "wide": wide_dim}
 
 
+#: ``placed_dims``' value for a leaf whose spec places a list above it (the
+#: layer list's dim of the reference's stacked leaf) on the data axes:
+#: each data rank holds its items of that list, whole, in rank order, and
+#: None in place of the other items (``shard_lists``)
+LIST = "list"
+
+
+def _walk(tree, specs, fn):
+    """The tree of ``fn(x, key, spec, idx, lens)`` over the leaves ``x``
+    of ``tree`` (the port's layout; None stands for an item that this rank
+    does not hold): its ``/``-joined path, its spec in ``specs`` (the
+    reference's stacked layout; None for a None leaf without one), its
+    index in each list above it and those lists' lengths."""
+    flat = flat_paths(specs)
+
+    def walk(x, path, idx, lens):
+        if isinstance(x, dict):
+            return {k: walk(v, path + (str(k),), idx, lens) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v, path, idx + (i,), lens + (len(x),)) for i, v in enumerate(x)]
+        key = "/".join(path)
+        return fn(x, key, flat[key] if x is not None else flat.get(key), idx, lens)
+
+    return walk(tree, (), (), ())
+
+
 def placed_dims(tree, specs, mesh: Mesh, axis: str = "data"):
     """Per leaf of ``tree`` (the port's layout), the tensor dim that its spec
     (``specs``: the reference's stacked layout) places on the data axes
     (``axis="data"``), on "model" (``axis="model"``) or on both at once
     (``axis="wide"``), or None; a wide dim counts for "data" and "model"
-    too. A spec on a list dim (whole layers per rank) is refused: the
-    port's per-layer list holds the same keys on every layer."""
-    flat = flat_paths(specs)
+    too. A spec that places a list dim on the data axes gives ``LIST``; on
+    "model" it is refused (the port's model code splits tensor dims)."""
     dim_of = _DIM_OF[axis]
 
-    def walk(x, path, depth):
-        if isinstance(x, dict):
-            return {k: walk(v, path + (str(k),), depth) for k, v in x.items()}
-        if isinstance(x, list):
-            return [walk(v, path, depth + 1) for v in x]
-        if x is None:
-            return None
-        key = "/".join(path)
-        d = dim_of(flat[key], mesh)
-        if d is not None and d < depth:
+    def one(x, key, spec, idx, lens):
+        d = None if spec is None else dim_of(spec, mesh)
+        if d is None or d >= len(idx):
+            return None if d is None else d - len(idx)
+        if axis != "data" or model_dim(spec, mesh) == d:
             raise NotImplementedError(
-                f"{key}: spec {flat[key]} places list dim {d} (whole layers per rank) on the "
-                f"{axis} axes; the port shards tensor dims only")
-        return None if d is None else d - depth
+                f"{key}: spec {spec} places list dim {d} on the {axis} axes; only the data "
+                "axes take a list dim (whole layers per rank)")
+        return LIST
 
-    return walk(tree, (), 0)
+    return _walk(tree, specs, one)
+
+
+def _list_owner(key, spec, idx, lens, mesh: Mesh) -> Optional[int]:
+    """The data rank that holds this item of a leaf placed on a list dim
+    (items ``[r * n / W, (r + 1) * n / W)`` of that list on rank r), or
+    None for a leaf not placed so."""
+    d = None if spec is None else data_dim(spec, mesh)
+    if d is None or d >= len(idx):
+        return None
+    w = data_extent(mesh)
+    if lens[d] % w:
+        raise ValueError(f"{key}: spec {spec} places a list of {lens[d]} items on {w} data "
+                         "ranks")
+    return idx[d] // (lens[d] // w)
+
+
+def shard_lists(tree, specs, mesh: Mesh):
+    """``tree`` with each leaf that its spec places on a list dim cut to
+    this data rank's items of that list: None in place of the others
+    (already None stays None). Every other leaf is left as it is."""
+    if data_extent(mesh) == 1:
+        return tree
+    r = rank_of(mesh)
+
+    def one(x, key, spec, idx, lens):
+        owner = _list_owner(key, spec, idx, lens, mesh)
+        return x if owner is None or owner == r else None
+
+    return _walk(tree, specs, one)
+
+
+def gather_lists(tree, specs, mesh: Mesh):
+    """The inverse of ``shard_lists``, on every data rank: each leaf placed
+    on a list dim gets every item of that list (one ``all_gather`` over the
+    data group per such leaf, of each rank's items stacked in tree order);
+    this rank's own items are kept as they are, and every other leaf too."""
+    if data_extent(mesh) == 1:
+        return tree
+    r = rank_of(mesh)
+    mine: dict = {}
+
+    def collect(x, key, spec, idx, lens):
+        if _list_owner(key, spec, idx, lens, mesh) == r:
+            mine.setdefault(key, []).append(x)
+        return x
+
+    _walk(tree, specs, collect)
+    parts = {key: [p.unbind(0) for p in dp.all_gather(torch.stack(xs), mesh.group)]
+             for key, xs in mine.items()}
+    taken: dict = {}
+
+    def fill(x, key, spec, idx, lens):
+        owner = _list_owner(key, spec, idx, lens, mesh)
+        if owner is None or owner == r:
+            return x
+        i = taken.get((key, owner), 0)
+        taken[(key, owner)] = i + 1
+        return parts[key][owner][i]
+
+    return _walk(tree, specs, fill)
 
 
 def rank_of(mesh: Mesh) -> int:
@@ -299,34 +384,37 @@ def _axes(mesh: Mesh, axes) -> list:
     return out
 
 
-def shard_tree(tree, specs, mesh: Mesh):
+def shard_tree(tree, specs, mesh: Mesh, *, lists: bool = True):
     """This rank's block of every leaf: its slice (an owned copy) along the
     dim that the leaf's spec places on the data axes and along the one it
     places on "model"; a replicated leaf, or any leaf with one rank, is the
     leaf itself. A dim on both (``wide_tp``) is cut over the data ranks,
     then each piece over the model ranks: block ``data_rank * model_ranks
-    + model_rank``, the order of the spec's axes."""
-    placed_dims(tree, specs, mesh)  # a spec on a list dim is refused with one rank too
+    + model_rank``, the order of the spec's axes. A leaf placed on a list
+    dim keeps this data rank's items of that list (``shard_lists``; with
+    ``lists=False`` all of them)."""
+    placed_dims(tree, specs, mesh)  # a list dim on "model" is refused with one rank too
     out = tree
     for axis, n_ranks, r, _group in _axes(mesh, ("data", "model")):
         dims = placed_dims(out, specs, mesh, axis)
 
         def take(x, d, n_ranks=n_ranks, r=r):
-            if d is None:
+            if d is None or d == LIST or x is None:
                 return x
             n = x.shape[d] // n_ranks
             return x.narrow(d, r * n, n).clone()
 
         out = tree_map(lambda x, d, stacked: take(x, d), out, dims)
-    return out
+    return shard_lists(out, specs, mesh) if lists else out
 
 
 def gather_tree(tree, specs, mesh: Mesh, axes=("data", "model")):
     """The inverse of ``shard_tree`` on ``axes``: every leaf whole along
     them on every rank (an ``all_gather`` over the axis's group per placed
     leaf; "model" first, so that a wide leaf's pieces join in
-    ``shard_tree``'s order). A wide leaf is gathered on both axes or on
-    none: ``axes=("data",)`` refuses it."""
+    ``shard_tree``'s order; a leaf placed on a list dim by
+    ``gather_lists``). A wide leaf is gathered on both axes or on none:
+    ``axes=("data",)`` refuses it."""
     placed_dims(tree, specs, mesh)
     if set(axes) != {"data", "model"} and any(
             d is not None for d in leaves(placed_dims(tree, specs, mesh, "wide"))):
@@ -337,7 +425,9 @@ def gather_tree(tree, specs, mesh: Mesh, axes=("data", "model")):
         dims = placed_dims(out, specs, mesh, axis)
 
         def gather(x, d, group=group):
-            return x if d is None else torch.cat(dp.all_gather(x, group), dim=d)
+            if d is None or d == LIST or x is None:
+                return x
+            return torch.cat(dp.all_gather(x, group), dim=d)
 
         out = tree_map(lambda x, d, stacked: gather(x, d), out, dims)
-    return out
+    return gather_lists(out, specs, mesh) if "data" in axes else out

@@ -397,7 +397,7 @@ def self_attention_block(params, x, cfg, *, positions, cache: Optional[KVCache] 
         o = attention(q, kk, vv, qpos=positions, kpos=kpos, kvalid=kvalid,
                       causal=cfg.causal, window=cfg.swa_window,
                       q_chunk=q_chunk, k_chunk=k_chunk, merge=merge)
-    return out(o.reshape(b, t, -1)), new_cache
+    return out(o.flatten(2)), new_cache
 
 
 def cross_attention_block(params, x, kv_src, cfg, *, q_chunk=1024, k_chunk=1024):
@@ -413,4 +413,4 @@ def cross_attention_block(params, x, kv_src, cfg, *, q_chunk=1024, k_chunk=1024)
     zeros_k = torch.zeros((b, nv), dtype=torch.int32, device=x.device)
     o = attention(q, k, v, qpos=zeros_q, kpos=zeros_k, causal=False,
                   q_chunk=q_chunk, k_chunk=k_chunk)
-    return out(o.reshape(b, t, -1))
+    return out(o.flatten(2))

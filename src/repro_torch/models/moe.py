@@ -6,20 +6,27 @@ whose "member" is the chosen expert, its buffer position is its arrival
 rank within that member, and capacity overflow is dropped *and accounted*
 (the paper's discard rule). The positions come from the hand-written
 ``kernels.dispatch.dispatch_plan`` kernel, one launch per layer call, over
-the group-offset members ``group * E + expert`` (``n_members = g * E``):
-positions within a (group, expert) then count only that group's packets in
-arrival order, which is the reference's ``vmap`` of
-``core/router.member_positions`` over the groups. A CPU tensor takes the
-kernel's plain version; a CUDA tensor launches the kernel or raises.
+the group-offset members ``group * E + expert``: positions within a
+(group, expert) then count only that group's packets in arrival order,
+which is the reference's ``vmap`` of ``core/router.member_positions`` over
+the groups. A CPU tensor takes the kernel's plain version; a CUDA tensor
+launches the kernel or raises.
 
 Dispatch groups (``cfg.moe_dispatch_groups > 1``): the token stream splits
-into g groups, each with its own capacity slice, as in the reference (which
-shards them over the data axes; the port runs one device, so the groups
-change only which packets contend for a slot). The expert products are
-plain batched matrix products (``torch.bmm`` over the experts), as the
-reference leaves its einsums to XLA. The expert buffer is laid out
-``[E, g * C, d]`` where the reference's is ``[g, E, C, d]``: the same rows,
-so the products need no transpose.
+into g contiguous groups, each with its own capacity slice, as in the
+reference (which shards them over the data axes). In a training step over
+several ranks (``distributed.dp``'s slots) the stream is the microbatch's:
+its ranks' tokens in rank order, unequal counts allowed, and a group may
+span ranks or cut within one. Each rank packs its own tokens' packets
+(one kernel call over the groups they meet) and adds the packets of each
+group ahead of them that other ranks hold (one ``all_gather`` of every
+rank's per-group, per-choice expert counts, from which the kept counts of
+the aux loss follow too; where each microbatch of the round lies within
+one rank, or in one process, no counts are exchanged). The expert products are plain batched matrix
+products (``torch.bmm`` over the experts), as the reference leaves its
+einsums to XLA. The expert buffer is laid out ``[E, h * C, d]`` over the h
+groups this rank's tokens meet, where the reference's is ``[g, E, C, d]``:
+the same rows, so the products need no transpose.
 
 arctic-480b additionally runs a dense residual FFN in parallel with the MoE
 output (``cfg.moe_dense_residual``).
@@ -92,7 +99,8 @@ def pack_positions(member_g: torch.Tensor, n_experts: int) -> torch.Tensor:
     """``member_g`` int ``[g, P]`` (each group's packets, experts in
     ``[0, E)``) -> int32 ``[g, P]``: each packet's arrival rank within its
     (group, expert), from one ``dispatch_plan`` call over the members
-    ``group * E + expert``."""
+    ``group * E + expert``: the pack of a whole stream's g groups, which
+    ``_routed`` forms over the groups that a rank's packets meet."""
     g = member_g.shape[0]
     offset = torch.arange(g, device=member_g.device)[:, None] * n_experts
     members = (member_g + offset).reshape(-1).to(torch.int32).contiguous()
@@ -110,20 +118,6 @@ def expert_products(params, buf, act: str) -> torch.Tensor:
     else:
         h = F.gelu(torch.bmm(buf, params["w_up"]), approximate="tanh")
     return torch.bmm(h, params["w_down"])
-
-
-def _stream_offsets(gate_idx: torch.Tensor, n_experts: int, slots) -> torch.Tensor:
-    """int64 [K, E]: for this rank's choice-j packets of expert x, the
-    packets of the microbatch's k-major stream before them that this rank
-    does not hold: every other rank's choices below j, and the earlier
-    ranks' choice j (one ``all_gather`` of the per-choice expert counts)."""
-    k = gate_idx.shape[1]
-    local = torch.zeros(k, n_experts, dtype=torch.int64, device=gate_idx.device)
-    local.scatter_add_(1, gate_idx.t().long(), torch.ones_like(gate_idx.t(), dtype=torch.int64))
-    parts = slots.parts(local)
-    mine = slots.members.index(slots.rank)
-    others = sum(parts) - local
-    return torch.cumsum(others, 0) - others + sum(parts[:mine], torch.zeros_like(local))
 
 
 def moe_ffn(params, x, cfg):
@@ -166,41 +160,66 @@ def _routed(params, x, cfg):
     gate_vals, gate_idx = top_k(probs, k)  # [N, K]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    # the microbatch's tokens: this rank's n, times its ranks in a step
-    # over several (distributed.dp), whose token streams follow each other
-    # in rank order
+    # the microbatch's token stream: over several ranks (distributed.dp)
+    # their streams follow each other in rank order, and this rank's n
+    # tokens start at ``off``; a dispatch group is a contiguous range of
+    # that stream, which may span ranks or cut within one. Every rank of
+    # the round takes g from the round's microbatch (an idle rank too), so
+    # that the counts they exchange have one shape.
     slots = dp.current()
-    size = 1 if slots is None else slots.size
-    n_all = n * size
+    off, n_all, mine = 0, n, 0
+    if slots is not None:
+        toks = [rows * t for rows in slots.rows(b)]
+        mine = slots.members.index(slots.rank)
+        off, n_all = sum(toks[:mine]), slots.round_rows(b) * t
     g = max(int(getattr(cfg, "moe_dispatch_groups", 1) or 1), 1)
     if n_all % g:
         g = 1
     ng = n_all // g
 
-    # k-major flatten within each group: first-choice packets dispatch
-    # before any second-choice ones (first choices win capacity contention).
-    # The capacity floor of 8 keeps small serving batches drop-free; the
-    # ng*k cap never allocates more slots than assignments.
+    # k-major within each group: first-choice packets dispatch before any
+    # second-choice ones (first choices win capacity contention). The
+    # capacity floor of 8 keeps small serving batches drop-free; the ng*k
+    # cap never allocates more slots than assignments.
     capacity = min(ng * k, max(int(cfg.capacity_factor * ng * k / e) + 1, 8))
-    if g > 1 and g % size:
-        raise NotImplementedError(
-            f"{cfg.name}: {g} dispatch groups over {size} ranks: a group would span ranks "
-            "(take a multiple of the ranks, or 1)")
-    spans = g == 1 and size > 1  # one group over the ranks' streams
-    g = max(g // size, 1)  # this rank's groups: whole groups, or its part of the one
-    ng = n // g
-    member_g = gate_idx.reshape(g, ng, k).transpose(1, 2).reshape(g, k * ng)
-    pos = pack_positions(member_g, e)
-    if spans:
-        pos = pos + _stream_offsets(gate_idx, e, slots)[
-            torch.arange(k, device=x.device).repeat_interleave(n), member_g[0]][None]
+    dev = x.device
+    g0 = off // max(ng, 1)  # the first group this rank's tokens meet
+    h = (off + n - 1) // ng - g0 + 1 if n else 1  # the groups they meet
+    grp = ((off + torch.arange(n, device=dev)) // max(ng, 1)).repeat(k)  # [K*n], choice-major
+    expert = gate_idx.t().reshape(-1)
+    # positions among this rank's packets of each (group, expert): one
+    # dispatch_plan call over the members ``(group - g0) * E + expert`` in
+    # choice-major order, which is k-major within every group
+    members = ((grp - g0) * e + expert).to(torch.int32).contiguous()
+    pos, held = _dispatch.dispatch_plan(members, n_members=h * e)
+    pos = pos.long()
+    if slots is None or slots.alone:
+        # the microbatch's stream is this rank's (or, idle, it holds none
+        # of it): nothing of it lies ahead on another rank
+        kept = torch.clamp(held.view(h, e), max=capacity)
+    else:
+        # plus the packets of the group's stream ahead of them that the
+        # slot's other ranks hold: their choices below j, and the earlier
+        # ranks' choice j (one ``all_gather`` of every rank's [group,
+        # choice, expert] counts)
+        choice = torch.arange(k, device=dev).repeat_interleave(n)
+        counts = torch.zeros(g * k * e, dtype=torch.int64, device=dev).index_add_(
+            0, (grp * k + choice) * e + expert, torch.ones_like(expert, dtype=torch.int64)).view(
+            g, k, e)
+        parts = slots.parts(counts)
+        total = sum(parts[1:], parts[0])
+        others = total - counts
+        ahead = torch.cumsum(others, 1) - others + sum(parts[:mine], torch.zeros_like(counts))
+        pos = pos + ahead[grp, choice, expert]
+        kept = torch.clamp(total.sum(1), max=capacity)
     keep = pos < capacity
 
-    # Scatter into the [E, g*C, d] buffer; a dropped packet goes to a spill
-    # row past the end (the reference's out-of-bounds index, mode="drop").
-    group = torch.arange(g, device=x.device)[:, None]
-    slot = (member_g * g + group) * capacity + pos  # [g, K*ng]
-    spill = e * g * capacity
+    # Scatter into the [E, h*C, d] buffer (the reference's [g, E, C, d]
+    # rows of this rank's groups, so the products need no transpose); a
+    # dropped packet goes to a spill row past the end (the reference's
+    # out-of-bounds index, mode="drop").
+    slot = (expert * h + grp - g0) * capacity + pos  # [K*n]
+    spill = e * h * capacity
     # tensor parallelism with ``ff`` split: the buffer's rows enter through
     # ``to_parallel`` as tokens (the router reads them whole), and the
     # ranks' shares of the products are added once gathered back to the
@@ -208,34 +227,30 @@ def _routed(params, x, cfg):
     # capacity, and the gates' gradient sees the whole output
     par = tp.current()
     kind = None if par is None else par.kind(params["w_up"])
-    src = (par.to_parallel(xt) if kind == "model" else xt).reshape(g, ng, d).repeat(1, k, 1).reshape(
-        g * k * ng, d)
-    buf = x.new_zeros(spill + 1, d).index_copy(
-        0, torch.where(keep, slot, spill).reshape(-1), src)
-    buf = buf[:spill].view(e, g * capacity, d)
+    src = (par.to_parallel(xt) if kind == "model" else xt).repeat(k, 1)
+    buf = x.new_zeros(spill + 1, d).index_copy(0, torch.where(keep, slot, spill), src)
+    buf = buf[:spill].view(e, h * capacity, d)
 
     out_buf = expert_products(params, buf, cfg.act).reshape(spill, d)
 
     # Gather back and combine with the gates; dropped assignments give 0.
-    got = out_buf.index_select(0, torch.where(keep, slot, 0).reshape(-1))
+    got = out_buf.index_select(0, torch.where(keep, slot, 0))
     if kind == "model":
         got = par.from_parallel(got)
     elif kind == "wide":
         got = dp.all_reduce(got.contiguous(), par.wide.ranks.group)
     got = torch.where(keep.reshape(-1, 1), got, torch.zeros((), dtype=got.dtype,
                                                             device=got.device))
-    gates_g = gate_vals.reshape(g, ng, k).transpose(1, 2).reshape(g, k * ng)
-    combined = (got.to(F32).view(g, k * ng, d) * gates_g[..., None]).view(
-        g, k, ng, d).sum(1)
+    combined = (got.to(F32).view(k, n, d) * gate_vals.t()[..., None]).sum(0)
     y = combined.to(x.dtype).reshape(b, t, d)
 
     # Aux: Switch-style load-balance loss + drop accounting. Over several
     # ranks, ``me`` is this rank's share of the mean router prob and ``ce``
-    # the microbatch's kept fraction, so the ranks' aux losses (and their
+    # the microbatch's kept fraction (a (group, expert) keeps the first
+    # ``capacity`` of its packets), so the ranks' aux losses (and their
     # gradients) add up to the microbatch's.
-    me = probs.sum(0) / n_all  # [E] mean router prob
-    ce = dp.slot_sum(torch.zeros(e, dtype=F32, device=x.device).index_add_(
-        0, member_g.reshape(-1), keep.reshape(-1).to(F32))) / max(n_all * k, 1)
+    me = probs.sum(0) / max(n_all, 1)  # [E] mean router prob
+    ce = kept.sum(0).to(F32) / max(n_all * k, 1)
     aux_loss = e * torch.sum(me * ce)
     dropped = torch.sum(~keep)  # every packet's expert is in [0, E)
     return y, {"aux_loss": aux_loss, "dropped": dropped}

@@ -2,12 +2,13 @@
 
 ``recorded_plans`` records, within its block, each call of
 ``kernels.dispatch.dispatch_plan``: the LB ingest's pack
-(``DataPlane.plan``) and each MoE layer's (``models/moe.pack_positions``)
+(``DataPlane.plan``) and each MoE layer's (``models/moe._routed``)
 in the forward and again in remat's recompute. The wrapper calls the
 kernel's wrapper itself, so launches count as they would; it keeps a copy
 of each call's members and of the (pos, counts) it returned. ``held``
 then compares each against ``kernels.ref.dispatch_plan_ref`` on the same
 members: the positions and counts must be exactly equal.
+``recorded_drops`` records each MoE layer call's dropped assignments.
 """
 from __future__ import annotations
 
@@ -35,6 +36,28 @@ def recorded_plans():
         yield calls
     finally:
         _dispatch.dispatch_plan = orig
+
+
+@contextlib.contextmanager
+def recorded_drops():
+    """Within the block, the dropped assignments of every MoE layer call
+    that returns (``models/moe``'s routed experts, in the forward: remat's
+    recompute stops within the layer, at its last saved tensor) are
+    appended to the yielded list as ints."""
+    from repro_torch.models import moe
+
+    drops, orig = [], moe._routed
+
+    def recording(params, x, cfg):
+        y, aux = orig(params, x, cfg)
+        drops.append(int(aux["dropped"]))
+        return y, aux
+
+    moe._routed = recording
+    try:
+        yield drops
+    finally:
+        moe._routed = orig
 
 
 def held(calls) -> list:

@@ -24,13 +24,15 @@ gathers the params over the data axes for the forward and backward (FSDP),
 keeps the model slices and runs the model tensor-parallel on them
 (``distributed.tp``), sums the gradients over the data ranks
 (``all_reduce``) and updates its blocks; the loss divides by the global
-label count (``distributed.dp``). ``make_train_step`` takes the placement
-as ``specs`` (needed over a process group), or holds every leaf whole in
-one process. ``seqpar`` (the reference's ``logical_rules(seq_axis=
-"model")``, Megatron's sequence parallelism) splits the residual stream
-over the T model ranks by sequence between blocks: each rank's gradient of
-a whole leaf is then its tokens' share, and the step adds the shares over
-the model group once.
+label count (``distributed.dp``). With ``accum_steps`` the global batch
+splits into the reference's microbatches whatever the mesh: each rank runs
+its pieces of them in rounds (``_rounds``), all ranks every round.
+``make_train_step`` takes the placement as ``specs`` (needed over a
+process group), or holds every leaf whole in one process. ``seqpar`` (the
+reference's ``logical_rules(seq_axis="model")``, Megatron's sequence
+parallelism) splits the residual stream over the T model ranks by sequence
+between blocks: each rank's gradient of a whole leaf is then its tokens'
+share, and the step adds the shares over the model group once.
 """
 from __future__ import annotations
 
@@ -80,11 +82,16 @@ def init_train_state(generator: torch.Generator, model_cfg: ModelConfig,
     one (a zero moment's block is the zero moment of the block)."""
     dev = resolve_device(device)
     params = M.init_params(model_cfg, generator, dev)
+    moments = None
     if specs is not None:
-        params = shd.shard_tree(params, specs["params"], mesh)
+        # the moments of the params' blocks, then the leaves placed on the
+        # layer list cut to the rank's layers
+        params = shd.shard_tree(params, specs["params"], mesh, lists=False)
+        moments = shd.shard_lists(opt.init(params, train_cfg.adamw), specs["opt"], mesh)
+        params = shd.shard_lists(params, specs["params"], mesh)
     return {
         "params": params,
-        "opt": opt.init(params, train_cfg.adamw),
+        "opt": opt.init(params, train_cfg.adamw) if moments is None else moments,
         "efb": None,  # error-feedback residual (grad compression), lazy
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
@@ -150,25 +157,41 @@ def _ingest(batch, tables: DeviceTables, mesh, global_batch: Optional[int] = Non
     return out, occ[:cap]
 
 
-def _microbatches(a: int, w: int, rank: int, rows: int) -> list:
-    """Per round of this rank's forward/backward passes: (its rows, the
-    slot of every rank). The reference slices the global batch (the ranks'
-    rows in rank order) into ``a`` microbatches; a microbatch spans whole
-    ranks (``a`` divides W) or lies within one (W divides ``a``), and the
-    ranks of a slot hold that microbatch."""
-    if a <= 1:
-        return [(slice(0, rows), (0,) * w)]
-    if w == 1:  # the reference's slices drop a remainder of rows
-        m = rows // a
-        return [(slice(j * m, (j + 1) * m), (j,)) for j in range(a)]
-    per = max(a // w, 1)
-    if (a % w and w % a) or rows % per:
-        raise NotImplementedError(
-            f"accum_steps={a} over {w} ranks of {rows} rows: a microbatch would split a "
-            "rank's rows unevenly")
-    m = rows // per
-    return [(slice(j * m, (j + 1) * m), tuple(r * a // w + j for r in range(w)))
-            for j in range(per)]
+def _rounds(a: int, w: int, rank: int, rows: int) -> list:
+    """Per round of this rank's forward/backward passes: (its rows in the
+    round, every rank's microbatch in it, every rank's rows of it).
+
+    The reference slices the global batch (the ranks' rows in rank order)
+    into ``a`` microbatches of ``m = W * rows // a`` rows, dropping the rest;
+    a microbatch may span ranks, take unequal rows from them, or lie within
+    one. All of a microbatch's rows run in one round, so that its sums
+    (label count, MoE counts) are one collective over the group; the
+    microbatches that share a rank run in separate rounds, each in the
+    first round that none of its ranks is busy in (first fit over the
+    ranks' contiguous rows: as many rounds as the most microbatches that
+    one rank meets). Every rank runs every round, on no rows where it holds
+    none (its slot None), so that the collectives match."""
+    m = (w * rows) // a
+    if m == 0:
+        raise ValueError(f"accum_steps={a} over a global batch of {w * rows} rows: a "
+                         "microbatch of no rows")
+    busy, pieces = [], []  # per round: its ranks, and {rank: (microbatch, lo, hi)}
+    for j in range(a):
+        lo, hi = j * m, (j + 1) * m
+        ranks = set(range(lo // rows, (hi - 1) // rows + 1))
+        i = next((i for i, b in enumerate(busy) if not b & ranks), len(busy))
+        if i == len(busy):
+            busy.append(set())
+            pieces.append({})
+        busy[i] |= ranks
+        for r in ranks:
+            pieces[i][r] = (j, max(lo, r * rows) - r * rows, min(hi, (r + 1) * rows) - r * rows)
+    out = []
+    for got in pieces:
+        lo, hi = got.get(rank, (None, 0, 0))[1:]
+        out.append((slice(lo, hi), tuple(got.get(r, (None,))[0] for r in range(w)),
+                    tuple(got[r][2] - got[r][1] if r in got else 0 for r in range(w))))
+    return out
 
 
 def make_train_step(
@@ -211,6 +234,9 @@ def make_train_step(
         raise ValueError("a mesh bound to a process group needs the placement specs of the "
                          "params and moments (jit_train_step makes them)")
     a = max(train_cfg.accum_steps, 1)
+    # whether ``specs`` place a leaf on its layer list (``sharding.LIST``),
+    # known from the state at the first step
+    lists = [None]
 
     def loss_fn(params, mb):
         return M.train_loss(params, mb, model_cfg, remat=train_cfg.remat,
@@ -231,22 +257,23 @@ def make_train_step(
     def grads_of(params, mb, rank):
         """This rank's share of the loss and of the gradient (f32 sums of
         the rounds' over ``a`` when accumulating)."""
-        def run(rows, slot_of):
+        def run(rows, slot_of, rows_of):
             sl = mb if a <= 1 else {k: v[rows] if v.ndim >= 1 else v for k, v in mb.items()}
-            with DP.use_slots(None if group is None else DP.Slots(group, rank, slot_of)):
+            with DP.use_slots(None if group is None else DP.Slots(group, rank, slot_of, rows_of)):
                 return value_and_grad(params, sl)
 
-        rounds = _microbatches(a, w, rank, mb["labels"].shape[0])
+        rounds = _rounds(a, w, rank, mb["labels"].shape[0])
         if a <= 1:
             return run(*rounds[0])
         gsum, lsum = None, 0.0
-        for rows, slot_of in rounds:
-            loss, _met, g = run(rows, slot_of)
-            g32 = tree_map(lambda x, stacked: x.to(F32), g)
-            gsum = g32 if gsum is None else tree_map(
-                lambda acc, x, stacked: acc.add_(x), gsum, g32)
+        for rnd in rounds:
+            loss, _met, g = run(*rnd)
+            # added into the float32 sum in place (a bf16 term widens
+            # exactly), so no second float32 copy of the gradient is held
+            gsum = tree_map(lambda x, stacked: x.to(F32), g) if gsum is None else tree_map(
+                lambda acc, x, stacked: acc.add_(x), gsum, g)
             lsum = lsum + loss
-        return lsum / a, {}, tree_map(lambda x, stacked: x / a, gsum)
+        return lsum / a, {}, tree_map(lambda x, stacked: x.div_(a), gsum)
 
     seq = seqpar and t_size > 1
 
@@ -295,7 +322,10 @@ def make_train_step(
             stats = DP.all_reduce(torch.stack(stats), group).unbind()
         loss, lmet = stats[0], dict(zip(lmet, stats[1:]))
         if train_cfg.lb_ingest:
-            metrics["ingest_occupancy"] = stats[-1] / (occ.numel() * w)
+            # the reference's mean, as XLA compiles it: the sum times the
+            # float32 reciprocal of the count (not a division, which rounds
+            # otherwise where the count is not a power of two)
+            metrics["ingest_occupancy"] = stats[-1] * (1.0 / (occ.numel() * w))
         metrics.update(lmet)
 
         if train_cfg.grad_compress:
@@ -315,8 +345,21 @@ def make_train_step(
             grads = deq
 
         shards = None
+        moments = state["opt"]
         if group is not None:
-            pdims = shd.placed_dims(params, specs["params"], mesh)
+            # a leaf placed on its layer list is whole around the update:
+            # every rank updates its every layer (the same numbers on each)
+            # and keeps its own (an 8-bit row scale placed so while its
+            # moment's rows are split by tensor dim needs them all)
+            if lists[0] is None:
+                lists[0] = any(d == shd.LIST for tree, sp in (
+                    (params, specs["params"]), (moments, specs["opt"]))
+                    for d in leaves(shd.placed_dims(tree, sp, mesh)))
+            if lists[0]:
+                params = shd.gather_lists(params, specs["params"], mesh)
+                moments = shd.gather_lists(moments, specs["opt"], mesh)
+            pdims = tree_map(lambda d, stacked: None if d == shd.LIST else d,
+                             shd.placed_dims(params, specs["params"], mesh))
             mdims = shd.placed_dims(params, specs["params"], mesh, "model")
             mrank = shd.model_rank(mesh)
             cut = lambda g, d, r, n: g if d is None else g.narrow(d, r * (g.shape[d] // n),
@@ -327,8 +370,11 @@ def make_train_step(
             shards = opt.Shards(group=group, rank=rank, world=w, params=pdims,
                                 model_group=mesh.model_group, model_rank=mrank,
                                 model_size=t_size, model=mdims)
-        new_params, new_opt, omet = opt.update(grads, state["opt"], params,
-                                               train_cfg.adamw, shards=shards)
+        new_params, new_opt, omet = opt.update(grads, moments, params, train_cfg.adamw,
+                                               shards=shards)
+        if lists[0]:
+            new_params = shd.shard_lists(new_params, specs["params"], mesh)
+            new_opt = shd.shard_lists(new_opt, specs["opt"], mesh)
         metrics.update(omet)
         metrics["loss"] = loss
         return dict(state, params=new_params, opt=new_opt, step=state["step"] + 1), metrics

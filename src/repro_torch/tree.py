@@ -56,6 +56,12 @@ def stacked_shape(leaf) -> tuple:
     return tuple(leaf.shape)
 
 
+def list_depth(leaf) -> int:
+    """The lists nested above the tensors of a ``flat_paths`` value (its
+    leading dims that are list dims)."""
+    return 1 + list_depth(leaf[0]) if isinstance(leaf, list) else 0
+
+
 def unflatten_paths(flat: dict) -> dict:
     """Nested dicts from ``/``-joined paths (the reference's structure)."""
     out: dict = {}

@@ -2,10 +2,15 @@
 against the JAX package's.
 
 Each case (an arch's smoke config × the default step, ``accum_steps=2``,
-8-bit moments, ``grad_compress``) runs two steps with LB ingest on each
-rank of one spawned world (``tests/torch_dp_worker.py``: one spawn per W
-runs every case), params and moments placed by ``param_sharding`` and
-split across the ranks. The oracle is the reference's eager
+8-bit moments, ``grad_compress``; and ``EXTRA``'s: three microbatches that
+straddle the ranks' rows, Mixtral's dispatch groups that span ranks, an
+8-bit state placed at ``min_fsdp_size`` 1, whose norm scales lie on the
+layer list) runs two steps with LB ingest on each rank of one spawned world
+(``tests/torch_dp_worker.py``: one spawn per W runs every case), params and
+moments placed by ``param_sharding`` and split across the ranks. The same
+worlds run one MoE layer over unequal rows of one slot (``MOE_LAYOUTS``,
+against the reference's layer) and, at W = 2, a round trip of a state
+placed on the layer list. The oracle is the reference's eager
 ``make_train_step`` with ``AbstractMesh((W,), ("data",))`` on the
 concatenated batch: under GSPMD its sharded step computes that function,
 and its own multi-device tests fail in this environment
@@ -62,19 +67,22 @@ import torch
 from jax.sharding import AbstractMesh
 
 import repro.core as jcore
+from repro.checkpoint import ckpt as j_ckpt
 from repro.configs import get_smoke_config as j_smoke
+from repro.models import moe as JMOE
 from repro.train import optimizer as JO
 from repro.train import train_step as JTS
 from repro.models import model as JM
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_smoke_config
-from repro_torch.distributed.sharding import Mesh, param_sharding, placed_dims, shard_tree
+from repro_torch.distributed.sharding import Mesh, param_sharding
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import model as TM
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TS
 from repro_torch.tree import tree_map
 from torch_dp_worker import STEPS, host
+from test_torch_moe import LAYER_TOL, _moe_params
 from torch_helpers import DIST_MEMBERS, dist_program
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -104,26 +112,57 @@ ARCHS = {"yi_6b": {}, "mixtral_8x22b": {"capacity_factor": 0.5}, "rwkv6_7b": {},
          "hubert_xlarge": {}}
 VARIANTS = {"default": {}, "accum": {"accum_steps": 2}, "eight_bit": {"eight_bit": True},
             "compress": {"grad_compress": True}}
-CASES = [f"{a}/{v}" for a in ARCHS for v in VARIANTS]
+#: further cases: name -> (step options, config overrides beside ARCHS',
+#: global batch rows). Three microbatches of 4 of 12 rows straddle the
+#: ranks' rows at W = 2 and 4 (none are dropped); Mixtral's 3 dispatch
+#: groups of 32 tokens span ranks and cut within them, and so do 2 groups
+#: of a microbatch at W = 4; at ``min_fsdp`` 1 its 8-bit norm scales
+#: ``[L, 1]`` lie on the layer dim at W = 2 (whole layers per rank). That
+#: case keeps the config's capacity factor: at 0.5 every expert is full,
+#: the aux loss's gradient is 0 up to reassociation noise, and an embedding
+#: row that only it reaches holds that noise in int8 under the scale's
+#: floor of 1e-12, where no rule of int8 rounding holds (both packages').
+#: ``accum3_groups3``: 3 groups do not divide a microbatch's 32 tokens, so
+#: the layer takes one (the reference's rule), on every rank of a round,
+#: those that hold none of it too (W = 4: ranks 0 and 3 in the second)
+EXTRA = {"yi_6b/accum3": ({"accum_steps": 3}, {}, 12),
+         "mixtral_8x22b/groups3": ({}, {"moe_dispatch_groups": 3}, 12),
+         "mixtral_8x22b/accum3": ({"accum_steps": 3}, {"moe_dispatch_groups": 2}, 12),
+         "mixtral_8x22b/accum3_groups3": ({"accum_steps": 3}, {"moe_dispatch_groups": 3}, 12),
+         "mixtral_8x22b/eight_bit_fsdp1": ({"eight_bit": True, "min_fsdp": 1, "layer_list": True},
+                                           {"capacity_factor": 1.25}, B)}
+CASES = [f"{a}/{v}" for a in ARCHS for v in VARIANTS] + list(EXTRA)
+#: the cases whose stepped state W = 2 saves, and that restore the
+#: one-process checkpoint the test writes (the port's, and the
+#: reference's for the layer-placed state)
+CKPT = ("yi_6b/default", "mixtral_8x22b/eight_bit_fsdp1")
+#: MoE layer layouts over one slot of W ranks (each rank's rows of 8
+#: tokens, the dispatch groups): groups that span ranks and cut within
+#: them, a rank without rows, one group over the ranks, a group per rank
+MOE_LAYOUTS = [((3, 5), 4), ((0, 4), 2), ((1, 3, 2, 2), 2), ((3, 0, 1, 4), 4),
+               ((2, 2, 2, 2), 1), ((2, 2, 2, 2), 8)]
 
 
 def _case(name: str) -> dict:
     arch, variant = name.split("/")
-    cfg = j_smoke(arch).with_(**ARCHS[arch])
+    opts, over, rows = EXTRA.get(name, (VARIANTS.get(variant), {}, B))
+    over = {**ARCHS[arch], **over}
+    cfg = j_smoke(arch).with_(**over)
     rng = np.random.default_rng(len(name))
     from repro_torch.core.protocol import encode_headers
 
-    labels = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (rows, T)).astype(np.int32)
     batch = {"labels": labels, "headers": encode_headers(
-        rng.integers(0, 1 << 40, B).astype(np.uint64),
-        rng.integers(0, 1 << 16, B).astype(np.uint32))}
+        rng.integers(0, 1 << 40, rows).astype(np.uint64),
+        rng.integers(0, 1 << 16, rows).astype(np.uint32))}
     if cfg.family == "audio":
-        batch["embeds"] = rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)
+        batch["embeds"] = rng.standard_normal((rows, T, cfg.d_model)).astype(np.float32)
     else:
         batch["tokens"] = labels.copy()
     params = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(0), cfg))
-    return dict(arch=arch, cfg=ARCHS[arch], opts=VARIANTS[variant], batch=batch, params=params,
-                weights=np.r_[4.0, rng.uniform(0.5, 2.0, DIST_MEMBERS - 1)])
+    return dict(arch=arch, cfg=over, opts=opts, batch=batch, params=params,
+                weights=np.r_[4.0, rng.uniform(0.5, 2.0, DIST_MEMBERS - 1)],
+                ckpt=(2, 1) if name in CKPT else None)
 
 
 def _flat_state(state) -> dict:
@@ -148,7 +187,8 @@ def _reference(case: dict, world: int):
     params = jax.tree.map(jnp.asarray, case["params"])
     state = {"params": params, "opt": JO.init(params, jt.adamw), "efb": None,
              "step": jnp.zeros((), jnp.int32)}
-    step = jax.jit(JTS.make_train_step(cfg, jt, AbstractMesh((world,), ("data",)), B))
+    step = jax.jit(JTS.make_train_step(cfg, jt, AbstractMesh((world,), ("data",)),
+                                       len(case["batch"]["labels"])))
     tables = dist_program(jcore, case["weights"]).device_tables()
     batch = jax.tree.map(jnp.asarray, case["batch"])
     out = {}
@@ -205,6 +245,19 @@ def _one_process_ckpt_state(case: dict) -> dict:
     return {"params": params, "opt": opt, "step": torch.tensor(7, dtype=torch.int32)}
 
 
+def _reference_ckpt_state(case: dict) -> dict:
+    """The reference's 8-bit state, unlike a fresh one: the params scaled,
+    the int8 moments and their row scales drawn from a seed, step 7."""
+    rng = np.random.default_rng(6)
+    params = jax.tree.map(lambda x: jnp.asarray(x * 1.5), case["params"])
+    opt = JO.init(params, JO.AdamWConfig(eight_bit=True))
+    draw = lambda x: jnp.asarray(
+        rng.integers(-127, 128, x.shape) if x.dtype == jnp.int8 else rng.uniform(0.5, 1.5, x.shape),
+        x.dtype)
+    return {"params": params, "opt": dict(opt, mu=jax.tree.map(draw, opt["mu"])),
+            "step": jnp.asarray(7, jnp.int32)}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """world -> the ranks' results, and per case the reference's two steps
@@ -216,10 +269,13 @@ def runs(tmp_path_factory):
     for world in WORLDS:  # the worlds run while the references are computed
         d = tmp_path_factory.mktemp(f"dp{world}")
         (d / "cases.pkl").write_bytes(pickle.dumps(cases))
-        saved = None
+        (d / "moe_layers.pkl").write_bytes(pickle.dumps(_moe_layouts()))
+        saved = {}
         if world == 2:
-            saved = _one_process_ckpt_state(cases["yi_6b/default"])
-            ckpt.save(str(d / "ckpt_w1"), 7, saved)
+            saved = {"yi_6b/default": _one_process_ckpt_state(cases["yi_6b/default"]),
+                     CKPT[1]: _reference_ckpt_state(cases[CKPT[1]])}
+            ckpt.save(str(d / "ckpt_one_yi_6b_default"), 7, saved["yi_6b/default"])
+            j_ckpt.save(str(d / f"ckpt_one_{CKPT[1].replace('/', '_')}"), 7, saved[CKPT[1]])
         out[world] = dict(procs=_spawn(world, d), dir=d, saved=saved)
     for world in WORLDS:
         out[world]["ref"] = {name: _reference(c, world) for name, c in cases.items()
@@ -231,6 +287,20 @@ def runs(tmp_path_factory):
         run["resync"] = {name: step_from(_states(run["ranks"][0], f"{name}/state0/"))
                          for name, (_, step_from) in run["ref"].items()}
         run["ref"] = {name: want for name, (want, _) in run["ref"].items()}
+    return out
+
+
+def _moe_layouts() -> list:
+    """``MOE_LAYOUTS`` as ``torch_dp_worker.moe_layers`` takes them: each
+    with the Mixtral smoke layer's numpy params (a router that skews the
+    experts' loads) at capacity factor 0.5, and its tokens."""
+    out = []
+    for i, (rows_of, g) in enumerate(MOE_LAYOUTS):
+        over = dict(capacity_factor=0.5, moe_dispatch_groups=g)
+        cfg = j_smoke("mixtral_8x22b").with_(**over)
+        x = np.random.default_rng(i).normal(size=(sum(rows_of), T, cfg.d_model))
+        out.append(dict(rows_of=rows_of, cfg=over, params=_moe_params(cfg),
+                        x=x.astype(np.float32)))
     return out
 
 
@@ -335,7 +405,7 @@ def test_one_gloo_rank_equals_one_process_step_bit_for_bit(runs, name):
              if k.startswith(f"{name}/plain/")}
     mine = {k[len(f"{name}/"):]: v for k, v in got.items()
             if k.startswith(f"{name}/") and not k.startswith(f"{name}/plain/")
-            and k != f"{name}/n_split"}
+            and k not in (f"{name}/n_split", f"{name}/n_list")}
     assert sorted(plain) == sorted(mine)
     for k in mine:
         np.testing.assert_array_equal(mine[k], plain[k], err_msg=k)
@@ -350,11 +420,63 @@ def test_checkpoint_of_two_ranks_restores_in_one_process_and_back(runs):
     cfg = get_smoke_config("yi_6b")
     like = TS.init_train_state(torch.Generator().manual_seed(1), cfg, TS.TrainConfig(), "cpu")
     like = {"params": like["params"], "opt": like["opt"], "step": like["step"]}
-    assert ckpt.restore_into(str(run["dir"] / "ckpt_w2"), like) == STEPS
+    assert ckpt.restore_into(str(run["dir"] / "ckpt_placed_yi_6b_default"), like) == STEPS
     for k, v in host(like).items():
         np.testing.assert_array_equal(v, got[f"yi_6b/default/state1/{k}"], err_msg=k)
-    for k, v in host(run["saved"]).items():  # the one-process save, restored at W = 2
-        np.testing.assert_array_equal(got[f"restored_w1/{k}"], v, err_msg=k)
+    for k, v in host(run["saved"]["yi_6b/default"]).items():  # the one-process save at W = 2
+        np.testing.assert_array_equal(got[f"yi_6b/default/restored_one/{k}"], v, err_msg=k)
+
+
+def test_checkpoint_of_a_layer_placed_state_restores_in_one_process_the_reference_and_back(
+        runs):
+    """Mixtral's 8-bit state at ``min_fsdp_size`` 1 over 2 ranks (norm row
+    scales whole layers per rank) is saved whole after its steps: it
+    restores bit for bit in one process of the port and in the reference;
+    and the reference's save of such a state restores into the placed
+    blocks."""
+    run, name = runs[2], CKPT[1]
+    got = run["ranks"][0]
+    assert int(got[f"{name}/n_list"]) > 0  # the state lies on the layer list
+    saved = str(run["dir"] / f"ckpt_placed_{name.replace('/', '_')}")
+    tc = TS.TrainConfig(adamw=TO.AdamWConfig(eight_bit=True))
+    like = TS.init_train_state(torch.Generator().manual_seed(1),
+                               get_smoke_config("mixtral_8x22b"), tc, "cpu")
+    like = {"params": like["params"], "opt": like["opt"], "step": like["step"]}
+    assert ckpt.restore_into(saved, like) == STEPS
+    for k, v in host(like).items():
+        np.testing.assert_array_equal(v, got[f"{name}/state1/{k}"], err_msg=k)
+    jlike = dict(_reference_ckpt_state(_case(name)))
+    restored, step = j_ckpt.restore(saved, jlike)
+    assert step == STEPS
+    for k, v in _flat_state(restored).items():
+        np.testing.assert_array_equal(v, got[f"{name}/state1/{k}"], err_msg=k)
+    for k, v in _flat_state(run["saved"][name]).items():  # the reference's save, placed
+        np.testing.assert_array_equal(got[f"{name}/restored_one/{k}"], v, err_msg=k)
+
+
+@pytest.mark.parametrize("i", range(len(MOE_LAYOUTS)),
+                         ids=[f"{'-'.join(map(str, r))}/g{g}" for r, g in MOE_LAYOUTS])
+def test_moe_layer_over_ranks_equals_the_reference_layer(runs, i):
+    """One MoE layer (Mixtral's smoke config, capacity factor 0.5) over one
+    slot of W ranks holding ``rows_of`` rows each, against the reference's
+    layer on their rows joined: the ranks' outputs joined and their aux
+    losses summed within 1e-5, their drop counts summed exactly equal to
+    the reference's (some dropped, but where a group's 16 packets may fit),
+    and every ``dispatch_plan`` call equal to plain."""
+    rows_of, g = MOE_LAYOUTS[i]
+    lay = _moe_layouts()[i]
+    ranks = runs[len(rows_of)]["ranks"]
+    cfg = j_smoke("mixtral_8x22b").with_(**lay["cfg"])
+    jy, jaux = JMOE.moe_ffn(jax.tree.map(jnp.asarray, lay["params"]), jnp.asarray(lay["x"]), cfg)
+    y = np.concatenate([r[f"moe{i}/y"] for r in ranks])
+    np.testing.assert_allclose(y, np.asarray(jy), **LAYER_TOL)
+    np.testing.assert_allclose(sum(float(r[f"moe{i}/aux_loss"]) for r in ranks),
+                               float(jaux["aux_loss"]), **LAYER_TOL)
+    assert sum(int(r[f"moe{i}/dropped"]) for r in ranks) == int(jaux["dropped"])
+    if sum(rows_of) * T // g > 8:  # a group of 8 tokens fits the capacity's floor of 8
+        assert int(jaux["dropped"]) > 0
+    for r, got in enumerate(ranks):
+        assert got[f"moe{i}/plans_equal"].tolist() == [True], r
 
 
 def test_model_extent_above_one_is_refused():
@@ -409,20 +531,29 @@ def test_mesh_binds_the_world_and_refuses_another_size(runs):
         assert f"needs {world + 1} ranks; the process group has {world}" in msg
 
 
-def test_a_spec_on_the_layer_list_is_refused():
-    """At a tiny FSDP threshold an 8-bit row scale of Mixtral's norms
-    (stacked [L, 1]) is placed on its layer dim: whole layers per rank,
-    which the port's per-layer list cannot hold; the placement refuses it."""
+def test_a_spec_on_the_layer_list_is_refused(runs):
+    """At a tiny FSDP threshold the reference's rules place an 8-bit row
+    scale of Mixtral's norms (stacked [L, 1]) on its layer dim: whole
+    layers per rank, which the port now holds (no longer refused). Over 2
+    gloo ranks ``shard_tree``'s block of it is the rank's layer (its
+    ``placed_dims`` ``LIST``), and ``gather_tree`` gives back the whole
+    state, every leaf bit for bit."""
     cfg = get_smoke_config("mixtral_8x22b")
     params = TM.init_params(cfg, None, "meta")
     opt = TO.init(params, TO.AdamWConfig(eight_bit=True))
-    mesh = Mesh(("data",), (2,))
-    specs = param_sharding(opt, mesh, cfg, min_fsdp_size=1)
+    specs = param_sharding(opt, Mesh(("data",), (2,)), cfg, min_fsdp_size=1)
     assert specs["mu"]["layers"]["ln1"]["m"]["s"] == ("data", None)
-    with pytest.raises(NotImplementedError, match="whole layers per rank"):
-        placed_dims(opt, specs, mesh)
-    with pytest.raises(NotImplementedError, match="whole layers per rank"):
-        shard_tree(opt, specs, mesh)
+    ranks = runs[2]["ranks"]
+    for r, got in enumerate(ranks):
+        assert got["layers/held"].tolist() == [r]  # L = 2 layers over 2 ranks
+        assert got["layers/dims"].tolist() == [True, True]
+        whole = got["layers/whole/mu/layers/ln1/m/s"]
+        np.testing.assert_array_equal(got["layers/mine"], whole[r:r + 1])
+        wholes = {k[len("layers/whole/"):] for k in got if k.startswith("layers/whole/")}
+        assert wholes == {k[len("layers/back/"):] for k in got if k.startswith("layers/back/")}
+        for k in wholes:
+            np.testing.assert_array_equal(got[f"layers/back/{k}"], got[f"layers/whole/{k}"],
+                                          err_msg=k)
 
 
 def test_launcher_over_two_ranks_trains_checkpoints_and_resumes(tmp_path):

@@ -3,7 +3,7 @@
 package's.
 
 Each case (the smoke config of each family at the default step, and Yi's
-with ``accum_steps=2`` and with 8-bit moments) runs two steps with LB
+with ``accum_steps=2`` and 3 and with 8-bit moments) runs two steps with LB
 ingest on every rank of one spawned world (``tests/torch_dp_worker.py``
 runs every case on each of its meshes), params placed by ``param_sharding``
 on both axes and each moment as its param. The oracle is the reference's
@@ -52,6 +52,9 @@ ARCHS = {"yi_6b": {}, "mixtral_8x22b": {"capacity_factor": 0.5},
 #: name -> (step options, meshes, config overrides beside ARCHS')
 CASES = {f"{a}/default": ({}, MESHES, {}) for a in ARCHS}
 CASES.update({"yi_6b/accum": ({"accum_steps": 2}, ((2, 2),), {}),
+              # three microbatches of 4 of 12 rows: the middle one takes 2 rows
+              # of each data rank (ROWS)
+              "yi_6b/accum3": ({"accum_steps": 3}, ((2, 2),), {}),
               "yi_6b/eight_bit": ({"eight_bit": True}, ((2, 2),), {}),
               # 6 q heads over 4 ranks: the attention runs whole on every rank
               "yi_6b/odd_heads": ({}, ((1, 4),), {"n_heads": 6})})
@@ -60,6 +63,8 @@ CASES.update({"yi_6b/accum": ({"accum_steps": 2}, ((2, 2),), {}),
 SEQPAR = {f"{a}/seqpar": f"{a}/default" for a in ARCHS} | {"yi_6b/accum+seqpar": "yi_6b/accum"}
 CASES.update({f"{a}/seqpar": ({"seqpar": True}, ((1, 4),), {}) for a in ARCHS})
 CASES["yi_6b/accum+seqpar"] = ({"accum_steps": 2, "seqpar": True}, ((2, 2),), {})
+#: a case's global batch rows, where not B
+ROWS = {"yi_6b/accum3": 12}
 RUNS = [(name, dm) for name, (_, meshes, _) in CASES.items() for dm in meshes]
 SEQ_RUNS = [(name, dm) for name, dm in RUNS if name in SEQPAR]
 #: the run whose stepped state is checkpointed and restored on its mesh
@@ -72,17 +77,18 @@ def _case(name: str) -> dict:
     over = {**ARCHS[arch], **over}
     cfg = j_smoke(arch).with_(**over)
     rng = np.random.default_rng(len(SEQPAR.get(name, name)))
-    labels = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    rows = ROWS.get(name, B)
+    labels = rng.integers(0, cfg.vocab, (rows, T)).astype(np.int32)
     batch = {"labels": labels, "headers": encode_headers(
-        rng.integers(0, 1 << 40, B).astype(np.uint64),
-        rng.integers(0, 1 << 16, B).astype(np.uint32))}
+        rng.integers(0, 1 << 40, rows).astype(np.uint64),
+        rng.integers(0, 1 << 16, rows).astype(np.uint32))}
     if cfg.family == "audio":
-        batch["embeds"] = rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)
+        batch["embeds"] = rng.standard_normal((rows, T, cfg.d_model)).astype(np.float32)
     else:
         batch["tokens"] = labels.copy()
     if cfg.family == "vlm":
         batch["vision_embeds"] = rng.standard_normal(
-            (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+            (rows, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
     params = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(0), cfg))
     return dict(arch=arch, cfg=over, opts=opts, batch=batch, params=params,
                 weights=np.r_[4.0, rng.uniform(0.5, 2.0, DIST_MEMBERS - 1)],
@@ -101,7 +107,8 @@ def _reference(case: dict, dm: tuple):
     params = jax.tree.map(jnp.asarray, case["params"])
     state = {"params": params, "opt": JO.init(params, jt.adamw), "efb": None,
              "step": jnp.zeros((), jnp.int32)}
-    step = jax.jit(JTS.make_train_step(cfg, jt, AbstractMesh(dm, ("data", "model")), B))
+    step = jax.jit(JTS.make_train_step(cfg, jt, AbstractMesh(dm, ("data", "model")),
+                                       len(case["batch"]["labels"])))
     tables = dist_program(jcore, case["weights"]).device_tables()
     batch = jax.tree.map(jnp.asarray, case["batch"])
     out = {}

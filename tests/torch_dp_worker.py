@@ -11,14 +11,22 @@ step's options, the global numpy batch, the reference's initial params
 meshes ``(data, model)`` to run the case on (by default ``(W, 1)``). The
 step is ``make_train_step`` with params and moments placed by
 ``train_step.placement`` at ``MIN_FSDP`` (small, so that the smoke configs'
-leaves are split); each rank feeds its data rank's rows of the batch. At
+leaves are split; a case's ``min_fsdp`` option overrides it, and its
+``layer_list`` option places optimizer leaves on the layer list as the
+reference's rules do, ``testing.placements.on_layer_list``); each rank
+feeds its data rank's rows of the batch. A case whose ``ckpt`` is ``(W, 1)``
+is saved after its steps at W ranks (``ckpt_placed_<case>``), and the
+checkpoint the test wrote (``ckpt_one_<case>``) is restored into fresh
+blocks. At
 W = 1 the same case also runs through the one-process ``make_train_step``
 (no process group). On a mesh given by the case, each step runs under
 ``analysis.collectives.CollectiveRecord``, and the record's counts are kept
 beside ``distributed.dp.COUNTS``. A case whose options hold ``seqpar``
 runs the step with the residual stream split by sequence over "model".
 A world that holds a (2, 2) mesh also runs ``seq_collectives`` on its
-two-rank model group.
+two-rank model group. ``OUT_DIR/moe_layers.pkl``, where the test wrote it,
+holds MoE layer layouts (``moe_layers``); a world of 2 runs
+``layer_round_trip``.
 """
 from __future__ import annotations
 
@@ -35,9 +43,10 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.analysis.collectives import CollectiveRecord
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed import dp as DP
-from repro_torch.distributed.sharding import Mesh, data_extent, placed_dims, rank_of
+from repro_torch.distributed.sharding import LIST, Mesh, data_extent, placed_dims, rank_of
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import model as TM
+from repro_torch.testing.placements import on_layer_list
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TS
 from repro_torch.tree import flat_paths, leaves
@@ -78,11 +87,17 @@ def host(tree) -> dict:
 
 def placement(case: dict, mesh) -> dict:
     """``train_step.placement``'s specs of the params and moments at
-    ``MIN_FSDP``."""
+    ``MIN_FSDP`` (a case's ``min_fsdp`` option overrides it); with the
+    case's ``layer_list`` option, ``testing.placements.on_layer_list``'s:
+    the optimizer leaves that the reference places on the layer list so
+    placed."""
     cfg = case_config(case)
     tc = train_config(case["opts"])
+    min_fsdp = case["opts"].get("min_fsdp", MIN_FSDP)
+    if case["opts"].get("layer_list"):
+        return on_layer_list(cfg, tc, mesh, min_fsdp_size=min_fsdp)
     return TS.placement(cfg, tc, mesh, TS.state_shapes(cfg, tc)["params"],
-                        min_fsdp_size=MIN_FSDP)
+                        min_fsdp_size=min_fsdp)
 
 
 def run_case(case: dict, mesh, rank: int, world: int, out: dict, tag: str, specs=None,
@@ -100,6 +115,8 @@ def run_case(case: dict, mesh, rank: int, world: int, out: dict, tag: str, specs
         state = TS.shard_state(fresh_state(case, tc), specs, mesh)
         dims = placed_dims(state["params"], specs["params"], mesh)
         out[f"{tag}/n_split"] = np.asarray(sum(d is not None for d in leaves(dims)))
+        out[f"{tag}/n_list"] = np.asarray(sum(d == LIST for d in leaves(placed_dims(
+            state["opt"], specs["opt"], mesh))))
     else:
         step = TS.make_train_step(cfg, tc, Mesh(("data",), (1,)), gb)
         state = fresh_state(case, tc)
@@ -167,18 +184,24 @@ def main(rank: int, world: int, init_file: str, out_dir: str) -> None:
             state = run_case(case, mesh, rank, world, out, name, specs)
             if world == 1:  # the one-process step on the same case
                 run_case(case, mesh, rank, world, out, f"{name}/plain")
-            if name == "yi_6b/default" and world == 2:
-                # a W = 2 save of the stepped state (whole, by rank 0), then a
-                # W = 2 restore of the one-process save the test wrote
-                ckpt.save(str(out_dir / "ckpt_w2"), STEPS, state_ckpt(state), specs=specs,
-                          mesh=mesh)
+            if case.get("ckpt") == (world, 1):
+                # a save of the stepped state (whole, by rank 0), then a restore
+                # of the checkpoint the test wrote
+                safe = name.replace("/", "_")
+                ckpt.save(str(out_dir / f"ckpt_placed_{safe}"), STEPS, state_ckpt(state),
+                          specs=specs, mesh=mesh)
                 back = TS.shard_state(fresh_state(case, train_config(case["opts"])), specs, mesh)
-                ckpt.restore_into(str(out_dir / "ckpt_w1"), state_ckpt(back), specs=specs,
-                                  mesh=mesh)
+                ckpt.restore_into(str(out_dir / f"ckpt_one_{safe}"), state_ckpt(back),
+                                  specs=specs, mesh=mesh)
                 for k, v in host(TS.gather_state(back, specs, mesh)).items():
-                    out[f"restored_w1/{k}"] = v
+                    out[f"{name}/restored_one/{k}"] = v
         if (2, 2) in meshes:
             seq_collectives(meshes[(2, 2)], out)
+        layouts = out_dir / "moe_layers.pkl"
+        if layouts.exists():
+            moe_layers(mesh, rank, world, pickle.loads(layouts.read_bytes()), out)
+        if world == 2:
+            layer_round_trip(mesh, out)
         np.savez(out_dir / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -226,6 +249,61 @@ def seq_collectives(mesh, out: dict) -> None:
     for name, a, b, cut in zip(("x", "w1", "w2", "w3", "s"), got, want, cuts):
         out[f"seqcoll/got/{name}"] = a.numpy()
         out[f"seqcoll/want/{name}"] = cut(b).numpy()
+
+
+def moe_layers(mesh, rank: int, world: int, layouts: list, out: dict) -> None:
+    """``moe_ffn`` of one layer of each layout of this world's size (its
+    ``rows_of``: the rows of each rank, in rank order, of one slot over the
+    world; its config overrides, numpy params and tokens ``x``) on this
+    rank's rows: the output, aux loss and drop count, and whether every
+    ``dispatch_plan`` call equals plain (``moe<i>/...``)."""
+    from repro_torch.models import moe as TMOE
+    from repro_torch.testing.plans import held, recorded_plans
+
+    for i, lay in enumerate(layouts):
+        rows_of = lay["rows_of"]
+        if len(rows_of) != world:
+            continue
+        cfg = get_smoke_config("mixtral_8x22b").with_(**lay["cfg"])
+        params = {k: torch.from_numpy(v.copy()) for k, v in lay["params"].items()}
+        lo = sum(rows_of[:rank])
+        x = torch.from_numpy(lay["x"][lo:lo + rows_of[rank]].copy())
+        with DP.use_slots(DP.Slots(mesh.group, rank, (0,) * world, tuple(rows_of))), \
+                recorded_plans() as calls:
+            y, aux = TMOE.moe_ffn(params, x, cfg)
+        out[f"moe{i}/y"] = y.numpy()
+        out[f"moe{i}/aux_loss"] = aux["aux_loss"].numpy()
+        out[f"moe{i}/dropped"] = aux["dropped"].numpy()
+        out[f"moe{i}/plans_equal"] = np.asarray([p["equal"] for p in held(calls)])
+
+
+def layer_round_trip(mesh, out: dict) -> None:
+    """Mixtral's 8-bit optimizer state (moments drawn from a seed) placed by
+    ``param_sharding`` over its own tree at ``min_fsdp_size=1``, as the
+    reference places it: ``shard_tree``'s block of ``ln1``'s ``m`` row
+    scale (``layers/held``: the layers this rank holds, ``layers/mine``
+    their values) and the state gathered back (``layers/back/<path>``)
+    beside the whole state (``layers/whole/<path>``)."""
+    from repro_torch.distributed.sharding import gather_tree, param_sharding, shard_tree
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config("mixtral_8x22b")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(7)
+    opt = tree_map(lambda x, stacked: (
+        torch.randint(-127, 128, x.shape, generator=gen).to(x.dtype) if x.dtype == torch.int8
+        else torch.rand(x.shape, generator=gen) + 0.5), TO.init(params, TO.AdamWConfig(
+            eight_bit=True)))
+    specs = param_sharding(opt, mesh, cfg, min_fsdp_size=1)
+    blocks = shard_tree(opt, specs, mesh)
+    items = flat_paths(blocks)["mu/layers/ln1/m/s"]
+    out["layers/held"] = np.asarray([i for i, x in enumerate(items) if x is not None])
+    out["layers/mine"] = np.stack([x.numpy() for x in items if x is not None])
+    out["layers/dims"] = np.asarray([d == LIST for d in flat_paths(
+        placed_dims(opt, specs, mesh))["mu/layers/ln1/m/s"]])
+    for tag, tree in (("back", gather_tree(blocks, specs, mesh)), ("whole", opt)):
+        for k, v in flat_paths(tree).items():
+            out[f"layers/{tag}/{k}"] = ckpt._to_host(v)
 
 
 def state_ckpt(state: dict) -> dict:
